@@ -1,0 +1,113 @@
+"""GRU(-flow) sequence scan: the CUDA kernel, its wrapper and its gradient.
+
+Counterpart of ``repro/kernels/gru_scan/ops.py``. ``gru_scan`` dispatches
+through ``kernels/runtime.resolve_dispatch``: a CUDA tensor launches the
+hand-written kernel (``csrc/gru_scan.cu``, which replaces
+``repro/kernels/gru_scan/kernel.py:107 gru_scan_pallas``), a CPU tensor or
+``force_reference`` takes the plain version (``ref.py``). The gradient
+recomputes the plain version, as ``repro/kernels/gru_scan/ops.py:39-53``
+does: the JAX package has no backward kernel, and neither has the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.neural_flow import GRUParams
+from repro_torch.kernels import runtime as rt
+from repro_torch.kernels.gru_scan.ref import gru_scan_reference
+from repro_torch.kernels.mr_step import tiling
+
+
+def gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool, block_b: int):
+    """Launch the CUDA scan on the current stream: returns hs [B, T, H].
+
+    Counts its launches in ``gru_scan_cuda.launches``.
+    """
+    B, T, D = xs.shape
+    H = h0.shape[-1]
+    rt.check_operands(
+        "gru_scan",
+        xs.device,
+        xs=(xs, (B, T, D)),
+        h0=(h0, (B, H)),
+        wx=(wx, (D, 3 * H)),
+        wh=(wh, (H, 3 * H)),
+        b=(b, (3 * H,)),
+        time_scale=(time_scale, (H,)),
+        dts=(dts, (T,)),
+    )
+    if T < 1 or block_b < 1 or B % block_b:
+        raise ValueError(f"gru_scan: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
+    smem = tiling.smem_bytes(D, H, 0, 0, block_b, fused=False)
+    if smem > tiling.SMEM_BUDGET_BYTES:
+        raise ValueError(f"gru_scan: {smem} bytes of shared memory exceed one block's budget")
+    hs = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
+    err = rt.load_library().gru_scan_launch(
+        xs.data_ptr(),
+        h0.data_ptr(),
+        wx.data_ptr(),
+        wh.data_ptr(),
+        b.data_ptr(),
+        time_scale.data_ptr(),
+        dts.data_ptr(),
+        hs.data_ptr(),
+        B,
+        T,
+        D,
+        H,
+        block_b,
+        int(flow),
+        rt.current_stream(xs.device),
+    )
+    rt.check_launch("gru_scan", err)
+    gru_scan_cuda.launches += 1
+    return hs
+
+
+gru_scan_cuda.launches = 0
+
+
+class _GRUScanFn(torch.autograd.Function):
+    """The CUDA forward; the backward recomputes the plain version."""
+
+    @staticmethod
+    def forward(ctx, xs, h0, wx, wh, b, time_scale, dts, flow, block_b):
+        ctx.flow = flow
+        ctx.save_for_backward(xs, h0, wx, wh, b, time_scale, dts)
+        return gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, flow=flow, block_b=block_b)
+
+    @staticmethod
+    def backward(ctx, grad_hs):
+        grads = rt.reference_vjp(
+            lambda *a: gru_scan_reference(*a, flow=ctx.flow),
+            ctx.saved_tensors,
+            ctx.needs_input_grad[:7],
+            grad_hs,
+        )
+        return (*grads, None, None)
+
+
+def gru_scan(
+    params: GRUParams,
+    xs: torch.Tensor,  # [B, T, D]
+    h0: torch.Tensor,  # [B, H]
+    dts: torch.Tensor | None = None,
+    flow: bool = True,
+    block_b: int | None = None,
+    force_reference: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused GRU(-flow) scan. Returns (h_final [B, H], hs [B, T, H])."""
+    B, T, D = xs.shape
+    H = params.hidden
+    if dts is None:
+        dts = torch.ones(T, dtype=xs.dtype, device=xs.device)
+    wx, wh = params.w[:D], params.w[D:]
+    if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
+        hs = gru_scan_reference(xs, h0, wx, wh, params.b, params.time_scale, dts, flow=flow)
+    else:
+        bb = tiling.legal_block_b(block_b, B) or tiling.fit_block_b(B, D, H, fused=False)
+        hs = _GRUScanFn.apply(
+            xs.contiguous(), h0.contiguous(), wx, wh, params.b, params.time_scale, dts, flow, bb
+        )
+    return hs[:, -1, :], hs

@@ -1,0 +1,184 @@
+"""Kernel runtime: the dispatch decision and the CUDA library build.
+
+Counterpart of ``repro/kernels/runtime.py:99-132``. Two things live here:
+
+- ``resolve_dispatch``: where a kernel-family call executes. A CUDA tensor
+  takes the hand-written kernel, a CPU tensor takes the plain PyTorch
+  version, and ``force_reference`` always wins (callers use it to hold a
+  kernel against its plain version). There is no interpreter mode: a CUDA
+  kernel cannot run off the card.
+- ``load_library``: builds ``csrc/*.cu`` with ``nvcc`` into one shared
+  library with a plain C interface (one ``nvcc`` per source, all started
+  together, then one link), keyed by a hash of the sources and flags, under
+  ``build/repro_torch/`` at the repository root, and loads it with
+  ``ctypes``. A missing ``nvcc`` or a failed build raises; nothing falls
+  back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import enum
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+# every extern "C" launcher: name -> argument types (pointers and the stream
+# as c_void_p so ctypes never truncates them to 32 bits)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LAUNCHERS = {
+    # xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out,
+    # B, T, D, H, Dh, K, block_b, flow, stream
+    "mr_step_launch": [_P] * 12 + [_I] * 8 + [_P],
+    # xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, block_b, flow, stream
+    "gru_scan_launch": [_P] * 8 + [_I] * 6 + [_P],
+}
+
+
+class Dispatch(enum.Enum):
+    """Where a kernel-family call executes."""
+
+    KERNEL = "kernel"  # hand-written CUDA kernel (a CUDA tensor)
+    REFERENCE = "reference"  # plain PyTorch version (a CPU tensor, or forced)
+
+
+def resolve_dispatch(tensor: torch.Tensor, force_reference: bool = False) -> Dispatch:
+    """The shared dispatch policy for all kernel families."""
+    if force_reference or not tensor.is_cuda:
+        return Dispatch.REFERENCE
+    return Dispatch.KERNEL
+
+
+def pin_fp32_matmul() -> None:
+    """Plain paths compute in full float32: no TF32 in products or convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    """Hash of every kernel source, header and build flag."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
+    return nvcc
+
+
+def build_library() -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) and link one shared library."""
+    target = BUILD_DIR / f"librepro_torch_{source_hash()}.so"
+    if target.exists():
+        return target
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
+            procs.append(
+                (src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            )
+            objs.append(obj)
+        # wait for every compiler before judging any, so none outlives a failure
+        outs = [(src, proc.communicate()[0].decode(errors="replace"), proc.returncode)
+                for src, proc in procs]  # fmt: skip
+        for src, out, rc in outs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        logs = [f"== {src.name}\n{out}" for src, out, _ in outs]
+        so = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(so)],
+            capture_output=True,
+            text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        (BUILD_DIR / f"{target.stem}.log").write_text("\n".join(logs))
+        os.replace(so, target)
+    return target
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """The built kernel library, with every launcher's signature declared."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in LAUNCHERS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_operands(kernel: str, device: torch.device, **operands) -> None:
+    """Raise on any operand the kernel does not take.
+
+    ``operands`` maps a name to ``(tensor, expected_shape)``: every tensor
+    must be a contiguous float32 CUDA tensor on ``device`` of that shape.
+    """
+    for name, (t, shape) in operands.items():
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{kernel}: {name} must be on {device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{kernel}: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise when a launcher returned a CUDA error (refused or failed launch)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def current_stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def reference_vjp(fn, inputs, needs_grad, grad_out) -> tuple:
+    """Gradients of ``fn(*inputs)`` by recomputing the plain version.
+
+    The backward of every kernel here: the JAX package differentiates its
+    reference program (``repro/kernels/mr_step/ops.py:60-62``), so the port
+    runs the plain version under ``torch.enable_grad()`` and pulls
+    ``grad_out`` back through it. ``None`` for inputs that need no gradient.
+    """
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(bool(n)) for x, n in zip(inputs, needs_grad)]
+        wrt = [x for x, n in zip(leaves, needs_grad) if n]
+        if not wrt:
+            return (None,) * len(inputs)
+        grads = iter(torch.autograd.grad(fn(*leaves), wrt, grad_out, allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs_grad)
