@@ -1,6 +1,6 @@
 """compile_plan: lower a RecoverySpec into a RecoveryPlan (``repro/api/plan.py``).
 
-Every execution decision (encoder backend, fusion, the ``block_b`` tile,
+Every execution decision (encoder backend, fusion, QAT, the ``block_b`` tile,
 where the kernels run) is resolved once, into one :class:`Lowering` record.
 Plans run on the card: ``compile_plan(spec)`` resolves the device to
 ``"cuda"`` and raises when no card is visible. ``device="cpu"`` runs every
@@ -35,9 +35,10 @@ class Lowering:
     encoder: str
     fused: bool
     kernel: bool  # encoder row routes through the gru_scan kernel
+    qat: bool  # fixed-point fake-quant during training (spec.qat)
     dispatch: str  # "cuda" | "reference"
     block_b: int | None  # resolved fused-stage batch tile (None = fitted per call)
-    smem_bytes: int | None  # the fused kernel's shared memory per block at block_b
+    smem_bytes: int | None  # the row family's fused kernel's shared memory per block
     smem_budget_bytes: int | None  # the budget the "auto" tile fit into
     device: str
 
@@ -120,14 +121,19 @@ def _resolve_device(device) -> torch.device:
 def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -> RecoveryPlan:
     """Validate and lower a RecoverySpec; see the module docstring."""
     device = _resolve_device(device)
-    row = encoders.get_encoder(spec.encoder)  # unknown or unported names fail here
+    row = encoders.validate_config(spec.to_mr_config())  # unknown name, unfusable row
+    if spec.qat is not None and row.flow is None:
+        raise ValueError(
+            f"qat (fixed-point fake-quant) is implemented for the GRU families, "
+            f"got encoder={spec.encoder!r}"
+        )
     rt.pin_fp32_matmul()
     block_b, smem, budget = None, None, None
     if spec.fused:
         batch = spec.batch_size
         if spec.block_b == "auto":
             budget = spec.smem_budget_bytes or tiling.SMEM_BUDGET_BYTES
-            block_b = tiling.auto_block_b(spec.to_mr_config(), batch, budget)
+            block_b = tiling.auto_block_b(spec.to_mr_config(), row.family, batch, budget)
         elif isinstance(spec.block_b, int):
             if batch is not None and batch % spec.block_b:
                 raise ValueError(
@@ -135,12 +141,13 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
                 )
             block_b = spec.block_b
         if block_b is not None:
-            smem = tiling.config_smem_bytes(spec.to_mr_config(), block_b)
+            smem = tiling.config_smem_bytes(spec.to_mr_config(), row.family, block_b)
     routes_kernel = spec.fused or row.kernel
     lowering = Lowering(
         encoder=spec.encoder,
         fused=spec.fused,
         kernel=row.kernel,
+        qat=spec.qat is not None,
         dispatch="cuda" if routes_kernel and device.type == "cuda" else "reference",
         block_b=block_b,
         smem_bytes=smem,

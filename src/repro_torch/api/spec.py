@@ -1,8 +1,8 @@
 """RecoverySpec: one declarative record of what to recover and how to run it.
 
-Counterpart of ``repro/api/spec.py``, offline fields only. ``mode="batch"``,
-``mode="stream"`` and ``precision="int8_pwl"`` are not yet ported and raise
-when the spec is built.
+Counterpart of ``repro/api/spec.py``, offline fields only, QAT included.
+``mode="batch"``, ``mode="stream"`` and ``precision="int8_pwl"`` are not yet
+ported and raise when the spec is built.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.merinda import MRConfig
+from repro_torch.core.quant import QuantConfig
 
 MODES = ("offline", "batch", "stream")
 PRECISIONS = ("fp32", "int8_pwl")
@@ -28,12 +29,14 @@ class RecoverySpec:
     n_shifts: int = 0  # q input-shift outputs
     dt: float = 0.05
     solver: str = "rk4"
+    ltc_substeps: int = 6  # solver substeps per input step of the ltc/node encoders
     lambda_sparse: float = 1e-3
     recon_weight: float = 1.0
 
     # -- numerics / lowering -----------------------------------------------
     encoder: str = "gru_flow"  # any name registered in core/encoders.py
     precision: str = "fp32"  # serving readout
+    qat: QuantConfig | None = None  # fixed-point fake-quant during training
     fused: bool = False  # stage-fused per-window step (kernels/mr_step)
     block_b: int | str | None = None  # fused batch tile: int, None, or "auto"
     # shared memory the "auto" tile fits into; None = one block's 227 KB
@@ -85,8 +88,10 @@ class RecoverySpec:
             n_shifts=self.n_shifts,
             dt=self.dt,
             solver=self.solver,
+            ltc_substeps=self.ltc_substeps,
             lambda_sparse=self.lambda_sparse,
             recon_weight=self.recon_weight,
+            quant=self.qat,
             fused=self.fused,
             block_b=block_b,
         )

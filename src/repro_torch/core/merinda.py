@@ -1,6 +1,8 @@
 """MERINDA: GRU-NN based model recovery (counterpart of ``repro/core/merinda.py``).
 
-Per batch of trajectory windows:
+The encoder is any row of ``core/encoders.py``: MERINDA's GRU flow, the
+standard GRU, or the paper's LTC and NODE baselines. Per batch of trajectory
+windows:
 
     [Y, U] --encoder--> hidden state --dense head--> (Theta_est, shifts)
     Y_est = SOLVE(Y(0), Theta_est, U)          (RK4, core/ode.py)
@@ -8,7 +10,9 @@ Per batch of trajectory windows:
 
 ``MRConfig.fused=True`` runs encode -> RMS-norm -> dense head as one fused
 per-window stage (``kernels/mr_step``): one CUDA kernel launch on the card,
-the same math as the stage sequence.
+the same math as the stage sequence. ``MRConfig.quant`` trains with
+fixed-point fake quantization (``core/quant.py``): the windows, the head's
+normalized input and the weights go through the Qm.n grid.
 
 ``force_reference`` (threaded from ``mr_train_step`` down to the kernel
 wrappers) runs the plain version of every kernel on a CUDA tensor too; it is
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.core import encoders, ode
 from repro_torch.core.library import n_library_terms, polynomial_features
+from repro_torch.core.quant import QuantConfig, act_bits, fake_quant_ste, qat_act
 from repro_torch.optim import adamw_update, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -42,15 +47,12 @@ class MRConfig:
     n_shifts: int = 0  # q input-shift values
     dt: float = 0.05
     solver: str = "rk4"
+    ltc_substeps: int = 6  # solver substeps per input step of the ltc/node cells
     lambda_sparse: float = 1e-3
     recon_weight: float = 1.0
-    quant: Any = None  # fixed-point QAT: not yet ported
+    quant: QuantConfig | None = None  # fixed-point QAT when set
     fused: bool = False  # stage-fused per-window step (kernels/mr_step)
     block_b: int | None = None  # fused-stage batch tile (None = fitted per call)
-
-    def __post_init__(self):
-        if self.quant is not None:
-            raise ValueError("MRConfig.quant (fixed-point QAT) is not yet ported to repro_torch")
 
     @property
     def n_terms(self) -> int:
@@ -63,7 +65,7 @@ class MRConfig:
 
 
 class MRParams(NamedTuple):
-    encoder: Any  # GRUParams
+    encoder: Any  # GRUParams | LTCParams | NodeEncoderParams
     head_w1: torch.Tensor  # [hidden, dense_hidden]
     head_b1: torch.Tensor  # [dense_hidden]
     head_w2: torch.Tensor  # [dense_hidden, n_coef + n_shifts]
@@ -99,18 +101,25 @@ def head_math(
     b1: torch.Tensor,
     w2: torch.Tensor,
     b2: torch.Tensor,
+    act_bits: tuple[int, int] | None = None,  # (int_bits, frac_bits) QAT
 ) -> torch.Tensor:
-    """Dense head: RMS-norm -> ReLU MLP. The one source of the head stage."""
+    """Dense head: RMS-norm -> optional activation fake-quant -> ReLU MLP.
+
+    The one source of the head stage: ``head_from_hidden`` and every fused
+    stage's plain version call it (``csrc/head.cuh`` is its CUDA twin).
+    """
     h = h * torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + RMS_EPS)
+    if act_bits is not None:
+        h = fake_quant_ste(h, *act_bits)
     z = torch.relu(h @ w1 + b1)
     return z @ w2 + b2
 
 
 def head_from_hidden(params: MRParams, cfg: MRConfig, h: torch.Tensor):
     """Encoder summary state [B, V] -> (theta [B, n_terms, n], shifts [B, q])."""
-    from repro_torch.kernels.mr_step.ops import split_out
+    from repro_torch.kernels.mr_step.ops import head_weights, split_out
 
-    out = head_math(h, params.head_w1, params.head_b1, params.head_w2, params.head_b2)
+    out = head_math(h, *head_weights(params, cfg), act_bits=act_bits(cfg.quant))
     return split_out(out, cfg)
 
 
@@ -123,6 +132,7 @@ def mr_forward(
 ):
     """Returns (theta [B, n_terms, n_state], shifts [B, q])."""
     xs = ys if us is None or us.shape[-1] == 0 else torch.cat([ys, us], dim=-1)
+    xs = qat_act(xs, cfg.quant)
     if cfg.fused:
         from repro_torch.kernels.mr_step.ops import mr_step
 

@@ -1,7 +1,8 @@
-"""Fixed-step ODE solvers (counterpart of ``repro/core/ode.py:23-69``).
+"""Fixed-step ODE solvers (counterpart of ``repro/core/ode.py:23-113``).
 
-The SOLVE() of the MERINDA loss: ``Y_est = SOLVE(Y(0), theta_est, U)``.
-A Python loop over the grid; autograd differentiates through it.
+The SOLVE() of the MERINDA loss: ``Y_est = SOLVE(Y(0), theta_est, U)``, and
+the multi-substep cell of the NODE baseline. Python loops over the grid;
+autograd differentiates through them.
 """
 
 from __future__ import annotations
@@ -58,3 +59,22 @@ def odeint(
         y = step(f, y, us[i], ts[i], dts[i], args)
         ys.append(y)
     return torch.stack(ys, dim=0)
+
+
+def multi_step_solver_cell(
+    f: Dynamics,
+    y: torch.Tensor,
+    u: torch.Tensor,
+    dt: torch.Tensor | float,
+    args: Any = None,
+    method: str = "euler",
+    n_substeps: int = 6,
+) -> torch.Tensor:
+    """One NODE-style cell forward pass: ``n_substeps`` sequential solver
+    substeps of ``sub_dt = dt / n_substeps``, substep ``i`` at
+    ``t = i * sub_dt`` (``repro/core/ode.py:87-113``)."""
+    step = _STEPPERS[method]
+    sub_dt = dt / n_substeps
+    for i in range(n_substeps):
+        y = step(f, y, u, i * sub_dt, sub_dt, args)
+    return y

@@ -35,10 +35,9 @@ extern "C" int gru_scan_launch(const float* xs, const float* h0, const float* wx
   if (bb < 1 || B % bb != 0 || T < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = repro::gru_shared_floats(D, H, bb) * sizeof(float);
   auto kernel = flow ? &repro::gru_scan_kernel<true> : &repro::gru_scan_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = repro::allow_shared(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B / bb, repro::gru_threads(bb, H), smem, (cudaStream_t)stream>>>(
+  kernel<<<B / bb, repro::tile_threads(bb, H), smem, (cudaStream_t)stream>>>(
       xs, h0, wx, wh, b, time_scale, dts, hs, T, D, H, bb);
   return (int)cudaGetLastError();
 }

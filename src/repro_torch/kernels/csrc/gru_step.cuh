@@ -18,22 +18,15 @@
 // package, not torch.nn.GRU's r*(h.Wh_c).
 #pragma once
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace repro {
 
 constexpr float kInvLipschitzAlpha = 0.4f;  // core/neural_flow.py INV_LIPSCHITZ_ALPHA
-constexpr float kRmsEps = 1e-6f;            // core/merinda.py RMS_EPS
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // jax.nn.softplus: log1p(exp(-|x|)) + max(x, 0)
 __device__ __forceinline__ float softplus(float x) {
   return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.0f);
-}
-
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
 // Shared-memory carve of the scan: weights first, then the tile's state.
@@ -132,13 +125,6 @@ __device__ void gru_scan_tile(const GruShared& s, const float* __restrict__ xs_t
     }
     __syncthreads();
   }
-}
-
-// Threads for a tile: one per (window, hidden unit), whole warps, at most 1024.
-inline int gru_threads(int bb, int H) {
-  int n = bb * H;
-  n = (n + 31) / 32 * 32;
-  return n < 32 ? 32 : (n > 1024 ? 1024 : n);
 }
 
 }  // namespace repro

@@ -39,7 +39,7 @@ def gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool, block_b: in
     )
     if T < 1 or block_b < 1 or B % block_b:
         raise ValueError(f"gru_scan: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
-    smem = tiling.smem_bytes(D, H, 0, 0, block_b, fused=False)
+    smem = tiling.gru_scan_smem_bytes(D, H, block_b)
     if smem > tiling.SMEM_BUDGET_BYTES:
         raise ValueError(f"gru_scan: {smem} bytes of shared memory exceed one block's budget")
     hs = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
@@ -106,7 +106,7 @@ def gru_scan(
     if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
         hs = gru_scan_reference(xs, h0, wx, wh, params.b, params.time_scale, dts, flow=flow)
     else:
-        bb = tiling.legal_block_b(block_b, B) or tiling.fit_block_b(B, D, H, fused=False)
+        bb = tiling.legal_block_b(block_b, B) or tiling.fit_block_b("gru_scan", B, D, H)
         hs = _GRUScanFn.apply(
             xs.contiguous(), h0.contiguous(), wx, wh, params.b, params.time_scale, dts, flow, bb
         )

@@ -1,38 +1,78 @@
-"""Shared-memory model of the GRU kernels and the batch tile (``block_b``).
+"""Shared-memory model of the fused kernels and the batch tile (``block_b``).
 
 H100 counterpart of ``repro/kernels/mr_step/tiling.py`` (``vmem_bytes``,
-``config_vmem_bytes``, ``auto_block_b``). On the TPU the tile was fitted to
-VMEM; on Hopper a block stages the gate weights, the head weights and the
-tile's state in its own shared memory (``csrc/gru_step.cuh``,
-``csrc/mr_step.cu``), at most 227 KB a block. Blocks also run in parallel on
+``ltc_vmem_bytes``, ``node_vmem_bytes``, ``config_vmem_bytes``,
+``auto_block_b``). On the TPU the tile was fitted to VMEM; on Hopper a block
+stages the cell's weights, the head weights and the tile's state in its own
+shared memory (``csrc/gru_step.cuh``, ``csrc/head.cuh`` and the three
+``csrc/mr_step*.cu``), at most 227 KB a block. Blocks also run in parallel on
 132 SMs, so the tile is kept small enough that the grid has at least
 ``min(B, 132)`` blocks: one large tile would put the whole batch's scan on one
-SM.
+SM. The LTC kernel gives each (window, hidden unit) pair its own thread, so
+its tile also keeps ``block_b * H`` within one block's 1024 threads.
+
+Each ``*_smem_bytes`` function counts exactly what its kernel carves. The
+callers name the kernel by its family: the encoder row's ``family`` (the
+field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
+``"gru_scan"`` for the bare scan.
 """
 
 from __future__ import annotations
 
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most dynamic shared memory a block can use
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_THREADS = 1024  # threads a block can have
+FAMILIES = ("gru", "ltc", "node", "gru_scan")
 
 
-def smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int, *, fused: bool = True) -> int:
-    """Dynamic shared memory of one block, exactly as the kernels carve it.
-
-    ``fused=False`` is the bare ``gru_scan`` kernel (no head).
-    """
-    bb = block_b
-    floats = (D + H) * 3 * H + 3 * H + H + 4 * bb * H  # gate weights, rates, tile state
-    if fused:
-        floats += H * Dh + Dh + Dh * K + K + bb * Dh  # head weights + hidden layer
-    return 4 * floats
+def head_floats(H: int, Dh: int, K: int, block_b: int) -> int:
+    """``csrc/head.cuh``: w1, b1, w2, b2 and the tile's hidden layer."""
+    return H * Dh + Dh + Dh * K + K + block_b * Dh
 
 
-def config_smem_bytes(cfg, block_b: int, *, fused: bool = True) -> int:
-    """``smem_bytes`` for one ``MRConfig``."""
-    D = cfg.state_dim + cfg.input_dim
-    K = cfg.n_coef + cfg.n_shifts
-    return smem_bytes(D, cfg.hidden, cfg.dense_hidden, K, block_b, fused=fused)
+def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
+    """``gru_scan``: the gate weights, the rates and the tile's state."""
+    return 4 * ((D + H) * 3 * H + 3 * H + H + 4 * block_b * H)
+
+
+def smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """``mr_step``: the GRU(-flow) scan's operands, then the head."""
+    return gru_scan_smem_bytes(D, H, block_b) + 4 * head_floats(H, Dh, K, block_b)
+
+
+def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """``mr_step_ltc``: w_in, w_rec, bias, a, inv_tau, two h buffers, the head."""
+    floats = D * H + H * H + 3 * H + 2 * block_b * H
+    return 4 * (floats + head_floats(H, Dh, K, block_b))
+
+
+def node_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """``mr_step_node``: w_f1, w_f2, w_in, three biases, h and z, the head."""
+    floats = 2 * H * H + D * H + 3 * H + 2 * block_b * H
+    return 4 * (floats + head_floats(H, Dh, K, block_b))
+
+
+def family_smem_bytes(family: str, D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """Shared memory of one block of the kernel of ``family``."""
+    if family == "ltc":
+        return ltc_smem_bytes(D, H, Dh, K, block_b)
+    if family == "node":
+        return node_smem_bytes(D, H, Dh, K, block_b)
+    if family == "gru_scan":
+        return gru_scan_smem_bytes(D, H, block_b)
+    if family != "gru":
+        raise ValueError(f"unknown mr_step family {family!r}; known: {FAMILIES}")
+    return smem_bytes(D, H, Dh, K, block_b)
+
+
+def _shape(cfg) -> tuple[int, int, int, int]:
+    return cfg.state_dim + cfg.input_dim, cfg.hidden, cfg.dense_hidden, cfg.n_coef + cfg.n_shifts
+
+
+def config_smem_bytes(cfg, family: str, block_b: int) -> int:
+    """Shared memory per block of the fused kernel of one ``MRConfig`` whose
+    encoder row is of ``family``."""
+    return family_smem_bytes(family, *_shape(cfg), block_b)
 
 
 def block_b_candidates(batch: int) -> list[int]:
@@ -41,44 +81,47 @@ def block_b_candidates(batch: int) -> list[int]:
 
 
 def fit_block_b(
+    family: str,
     batch: int,
     D: int,
     H: int,
     Dh: int = 0,
     K: int = 0,
     *,
-    fused: bool = True,
     smem_budget_bytes: int | None = None,
 ) -> int:
     """Largest tile that divides ``batch``, fits the shared-memory budget and
-    leaves at least ``min(batch, N_SMS)`` blocks in the grid.
+    leaves at least ``min(batch, N_SMS)`` blocks in the grid (and, for the
+    LTC kernel, at most ``MAX_THREADS`` (window, unit) pairs).
 
     Raises when not even one window fits the budget: the weights alone
     overflow a block.
     """
     budget = SMEM_BUDGET_BYTES if smem_budget_bytes is None else smem_budget_bytes
+
+    def nbytes(bb: int) -> int:
+        return family_smem_bytes(family, D, H, Dh, K, bb)
+
     min_blocks = min(batch, N_SMS)
     for bb in block_b_candidates(batch):
-        if batch // bb >= min_blocks and smem_bytes(D, H, Dh, K, bb, fused=fused) <= budget:
+        threads_ok = family != "ltc" or bb * H <= MAX_THREADS
+        if batch // bb >= min_blocks and threads_ok and nbytes(bb) <= budget:
             return bb
     raise ValueError(
         f"no batch tile fits {budget} bytes of shared memory: one window needs "
-        f"{smem_bytes(D, H, Dh, K, 1, fused=fused)} (D={D}, H={H}, Dh={Dh}, K={K})"
+        f"{nbytes(1)} ({family}, D={D}, H={H}, Dh={Dh}, K={K})"
     )
 
 
 def auto_block_b(
-    cfg, batch: int | None, smem_budget_bytes: int | None = None, *, fused: bool = True
+    cfg, family: str, batch: int | None, smem_budget_bytes: int | None = None
 ) -> int | None:
-    """``fit_block_b`` for one ``MRConfig``; ``None`` when the batch is unknown
-    at compile time (the kernel wrapper then fits the batch it is given)."""
+    """``fit_block_b`` of the fused kernel of one ``MRConfig`` whose encoder
+    row is of ``family``; ``None`` when the batch is unknown at compile time
+    (the kernel wrapper then fits the batch it is given)."""
     if batch is None:
         return None
-    D = cfg.state_dim + cfg.input_dim
-    K = cfg.n_coef + cfg.n_shifts
-    return fit_block_b(
-        batch, D, cfg.hidden, cfg.dense_hidden, K, fused=fused, smem_budget_bytes=smem_budget_bytes
-    )
+    return fit_block_b(family, batch, *_shape(cfg), smem_budget_bytes=smem_budget_bytes)
 
 
 def legal_block_b(block_b: int | None, batch: int) -> int | None:

@@ -43,11 +43,17 @@ NVCC_FLAGS = (
 
 # every extern "C" launcher: name -> argument types (pointers and the stream
 # as c_void_p so ctypes never truncates them to 32 bits)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCHERS = {
     # xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out,
-    # B, T, D, H, Dh, K, block_b, flow, stream
-    "mr_step_launch": [_P] * 12 + [_I] * 8 + [_P],
+    # B, T, D, H, Dh, K, block_b, flow, act_int, act_frac, stream
+    "mr_step_launch": [_P] * 12 + [_I] * 10 + [_P],
+    # xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out,
+    # B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
+    "mr_step_ltc_launch": [_P] * 12 + [_I] * 10 + [_F, _P],
+    # xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out,
+    # B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
+    "mr_step_node_launch": [_P] * 13 + [_I] * 10 + [_F, _P],
     # xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, block_b, flow, stream
     "gru_scan_launch": [_P] * 8 + [_I] * 6 + [_P],
 }

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import encoders as jencoders
 from repro.core import library as jlib
 from repro.core import ode as jode
 from repro.core.merinda import MRConfig as JMRConfig
@@ -37,6 +38,7 @@ from repro_torch.api import RecoverySpec
 from repro_torch.core import encoders, library, ode
 from repro_torch.core.merinda import MRConfig
 from repro_torch.core.neural_flow import GRUParams, gru_scan_ref
+from repro_torch.core.quant import QuantConfig
 from repro_torch.data import dynamics
 from repro_torch.data.windows import make_windows
 from repro_torch.kernels.mr_step import tiling
@@ -191,19 +193,23 @@ def test_gru_scan_ref_matches_jax(flow):
 
 
 def test_encoder_registry_has_the_gru_rows_and_refuses_the_rest():
-    assert encoders.encoder_names() == ["gru", "gru_flow", "gru_flow_kernel", "gru_kernel"]
-    assert encoders.get_encoder("gru_flow_kernel").kernel
-    assert not encoders.get_encoder("gru").flow
-    for name in ("ltc", "node"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            encoders.get_encoder(name)
+    """Every row of the JAX registry, field for field; unknown names raise."""
+    assert encoders.encoder_names() == jencoders.encoder_names()
+    for name in encoders.encoder_names():
+        row, jrow = encoders.get_encoder(name), jencoders.get_encoder(name)
+        fields = ("flow", "fusable", "kernel", "int8", "family")
+        assert [getattr(row, f) for f in fields] == [getattr(jrow, f) for f in fields], name
+    assert encoders.get_encoder("ltc").family == "ltc"
+    assert encoders.get_encoder("node").flow is None
     with pytest.raises(ValueError, match="unknown encoder"):
         encoders.get_encoder("lstm")
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        MRConfig(state_dim=2, quant=object())
+    """QAT and the ltc/node encoders are ported; batch, stream and int8 are not."""
+    cfg = MRConfig(state_dim=2, encoder="ltc", quant=QuantConfig(4, 10, 2, 12))
+    assert cfg.quant.act_bits == 14 and cfg.ltc_substeps == 6
+    assert RecoverySpec(state_dim=2, encoder="node", qat=QuantConfig()).to_mr_config().quant
     for kw in (dict(mode="batch"), dict(mode="stream"), dict(precision="int8_pwl")):
         with pytest.raises(ValueError, match="not yet ported"):
             RecoverySpec(state_dim=2, **kw)
@@ -211,18 +217,18 @@ def test_unported_options_raise():
 
 def test_tiling_fits_shared_memory_and_fills_the_card():
     cfg = MRConfig(state_dim=2, hidden=32, dense_hidden=64)
-    assert tiling.auto_block_b(cfg, 64) == 1  # 64 blocks: fewer windows than SMs
-    assert tiling.auto_block_b(cfg, 1024) == 4  # largest divisor leaving >= 132 blocks
-    assert tiling.auto_block_b(cfg, None) is None
+    assert tiling.auto_block_b(cfg, "gru", 64) == 1  # 64 blocks: fewer windows than SMs
+    assert tiling.auto_block_b(cfg, "gru", 1024) == 4  # largest divisor leaving >= 132 blocks
+    assert tiling.auto_block_b(cfg, "gru", None) is None
     # MRConfig defaults (H=64, Dh=128): about 88 KB staged, above the 48 KB static limit
     big = MRConfig(state_dim=2)
-    assert 80_000 < tiling.config_smem_bytes(big, 1) < 100_000
+    assert 80_000 < tiling.config_smem_bytes(big, "gru", 1) < 100_000
     with pytest.raises(ValueError, match="no batch tile fits"):
-        tiling.auto_block_b(big, 64, smem_budget_bytes=50_000)
+        tiling.auto_block_b(big, "gru", 64, smem_budget_bytes=50_000)
     # the readout batch of the quickstart is prime: a training tile of 2 is dropped
     assert tiling.legal_block_b(1, 193) == 1
     assert tiling.legal_block_b(2, 193) is None
-    assert tiling.fit_block_b(193, 2, 32, 64, 12) == 1
+    assert tiling.fit_block_b("gru", 193, 2, 32, 64, 12) == 1
 
 
 def test_params_round_trip_through_numpy():

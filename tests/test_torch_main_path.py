@@ -12,11 +12,15 @@ because ``jax.random`` minibatches cannot be reproduced in torch:
   leaf near 0 can flip sign between frameworks and move a parameter by 2 lr.
 
 Then the whole quickstart spec through ``compile_plan(device="cpu")``, cut
-to 30 steps, and the device rule of ``compile_plan``.
+to 30 steps, and the device rule of ``compile_plan``. The same holds for the
+paper's LTC and NODE baselines (``encoder="ltc"``/``"node"``, fused) and for
+fixed-point QAT on the GRU flow (``qat=QuantConfig(4, 10, 2, 12)``); QAT on
+the substep families raises, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
@@ -27,17 +31,22 @@ import torch
 
 from repro.core import engine as jengine
 from repro.core import merinda as jmerinda
+from repro.core import quant as jquant
 from repro.data.dynamics import generate_trajectory as jgenerate
 from repro.data.windows import make_windows as jmake_windows
 from repro.optim import adamw_init as jadamw_init
 from repro_torch import api, convert
-from repro_torch.core import engine, merinda
+from repro_torch.core import encoders, engine, merinda, quant
 from repro_torch.data.dynamics import generate_trajectory, get_system
 from repro_torch.data.windows import make_windows
+from repro_torch.kernels.mr_step import tiling
+from repro_torch.kernels.mr_step.ops import mr_step
 from repro_torch.optim import adamw_init
 from repro_torch.tree import tree_leaves, tree_map
 
 DT = 0.05  # lotka_volterra sampling interval
+STEP = dict(rtol=1e-4, atol=1e-6)
+QAT = (4, 10, 2, 12)  # act int/frac bits, weight int/frac bits
 
 
 @functools.lru_cache(maxsize=1)
@@ -150,3 +159,81 @@ def test_compile_plan_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.compile_plan(_quickstart_spec())
     assert api.compile_plan(_quickstart_spec(), device="cpu").lowering.device == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the LTC and NODE baselines and QAT on the main path
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "encoder,qat", [("ltc", None), ("node", None), ("gru_flow", QAT)], ids=["ltc", "node", "qat"]
+)
+def test_baseline_and_qat_train_step_matches_jax(encoder, qat):
+    """One fused mr_train_step at batch_size=None from converted params, with phys."""
+    yw, _, norm = _windows()
+    kw = dict(state_dim=2, order=2, hidden=32, dense_hidden=64, dt=DT, encoder=encoder, fused=True)
+    jcfg = jmerinda.MRConfig(**kw, quant=qat and jquant.QuantConfig(*qat))
+    cfg = merinda.MRConfig(**kw, quant=qat and quant.QuantConfig(*qat))
+    jp = jmerinda.init_mr(jax.random.key(2), jcfg)
+    p = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+    jphys, phys = jengine.make_phys(jcfg, norm), engine.make_phys(cfg, norm, "cpu")
+    ys = torch.from_numpy(yw)
+
+    (jloss, _), jgrads = jax.value_and_grad(jmerinda.mr_loss, has_aux=True)(
+        jp, jcfg, jnp.asarray(yw), None, jphys
+    )
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    loss, _ = merinda.mr_loss(leaves, cfg, ys, None, phys)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    np.testing.assert_allclose(loss.item(), float(jloss), **STEP)
+    jleaves = jax.tree.leaves(jgrads)
+    assert len(grads) == len(jleaves)
+    for got, want in zip(grads, jleaves):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **STEP)
+
+    _, _, jm = jmerinda.mr_train_step(
+        jp, jadamw_init(jp), jcfg, jnp.asarray(yw), None, 3e-3, jphys
+    )
+    _, _, m = merinda.mr_train_step(p, adamw_init(p), cfg, ys, None, 3e-3, phys)
+    for k in ("loss", "recon_mse", "sparsity_l1", "grad_norm"):
+        np.testing.assert_allclose(m[k].item(), float(jm[k]), err_msg=k, **STEP)
+
+
+@pytest.mark.parametrize("encoder", ["ltc", "node"])
+def test_baseline_quickstart_runs_end_to_end_on_the_cpu(encoder):
+    _, ys, us = generate_trajectory("lotka_volterra")
+    yw, uw, norm = make_windows(ys, us, window=32, stride=4)
+    plan = api.compile_plan(_quickstart_spec(encoder=encoder, steps=30), device="cpu")
+    low = plan.lowering
+    assert low.dispatch == "reference" and low.block_b == 1 and not low.qat
+    D, H, Dh, K = 2, 32, 64, 12
+    assert low.smem_bytes == tiling.family_smem_bytes(encoder, D, H, Dh, K, 1)
+    params, metrics = plan.run_offline(yw, uw, norm=norm)
+    assert metrics["recon_mse"].shape == (30,)
+    assert torch.isfinite(metrics["loss"]).all()
+    theta = plan.readout(params, yw, uw, norm=norm, n_active=4)
+    assert theta.shape == get_system("lotka_volterra").true_coef().shape == (6, 2)
+    assert np.isfinite(theta).all() and np.count_nonzero(theta) <= 4
+
+
+def test_qat_quickstart_compiles_and_refuses_the_substep_families():
+    spec = _quickstart_spec(qat=quant.QuantConfig(*QAT), steps=2)
+    plan = api.compile_plan(spec, device="cpu")
+    assert plan.lowering.qat and plan.cfg.quant == quant.QuantConfig(*QAT)
+    _, metrics = plan.run_offline(*_windows()[:1])
+    assert torch.isfinite(metrics["loss"]).all()
+    for encoder in ("ltc", "node"):
+        with pytest.raises(ValueError, match="implemented for the GRU families"):
+            api.compile_plan(dataclasses.replace(spec, encoder=encoder), device="cpu")
+
+
+def test_compile_plan_refuses_fused_on_a_non_fusable_row(monkeypatch):
+    row = encoders.get_encoder("gru")._replace(name="gru_nofuse", fusable=False)
+    monkeypatch.setitem(encoders._REGISTRY, "gru_nofuse", row)
+    with pytest.raises(ValueError, match="fusable"):
+        api.compile_plan(_quickstart_spec(encoder="gru_nofuse"), device="cpu")
+    cfg = merinda.MRConfig(state_dim=2, hidden=8, dense_hidden=16, encoder="gru_nofuse")
+    params = merinda.init_mr(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(ValueError, match="fusable"):
+        mr_step(params, cfg, torch.zeros(2, 3, 2))
+    plan = api.compile_plan(_quickstart_spec(encoder="gru_nofuse", fused=False), device="cpu")
+    assert plan.lowering.smem_bytes is None
