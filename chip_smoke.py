@@ -33,13 +33,33 @@ prints no result):
 5. the unfused kernel row (``encoder="gru_flow_kernel"``, ``fused=False``),
    20 steps from the same initial parameters: it must launch ``gru_scan`` and
    take the same first step as the fused run (loss within 1e-4);
-6. timings with CUDA events (warm-up, then the median of 25 runs) of each
-   kernel and its plain version at the quickstart shapes, and of ``mr_step``
-   and ``mr_step_ltc`` at the bench_cycles shape, beside the least time the
-   card could take for the same work;
-7. where a training step's time goes: ``torch.profiler`` over 3 steps of
-   each main path counts the device kernels a step launches and their busy
-   time.
+6. the banked service tick: ``mr_tick`` against its plain version at the
+   serve shape (S=4, m=1, H=32) and at the JAX tick tests' shape (L=16, T=8,
+   stride 4, C=4, H=8; m = 0 and 2), GRU and GRU flow, banks of 1, 2 and 4
+   slots, one slot inactive and every other one seeding its EMA: rolled
+   buffers bit for bit, theta and delta within 1e-5, delta = inf for the
+   inactive slot;
+7. a banked and a composite service in lockstep, 3 ticks of K=2 (GRU flow):
+   parameters bit for bit, theta and delta within 1e-5;
+8. the stream main path: ``serve_mr``'s banked acceptance scenario, cut to 8
+   streams (serve_mr's default is 12) of lorenz, damped_oscillator and
+   controlled_pendulum through 4 slots, H=32, the StreamConfig defaults,
+   through ``compile_plan`` -> ``make_service`` ->
+   ``submit``/``fill_slots``/``tick_once``, then its
+   one-shot batch-mode baseline (``run_batch``, 400 steps). The launch counts
+   are set to 0 just before and read just after: every stream must be
+   recovered within the baseline tolerance (3x the per-system median MSE +
+   0.05), ``mr_tick`` launched once a tick and no other kernel at all, and
+   the median host syncs a tick (after the first) at most 1. Then 3 banked
+   and 3 composite ticks at the serve shape, timed on the host's clock;
+9. timings with CUDA events (warm-up, then the median of 25 runs) of each
+   kernel and its plain version at the quickstart shapes, of ``mr_step``
+   and ``mr_step_ltc`` at the bench_cycles shape and of ``mr_tick`` at the
+   serve shape, beside the least time the card could take for the same work;
+10. where the time goes: ``torch.profiler`` over one step of each offline
+    main path, and over two banked and two composite ticks, counts the device
+    kernels a step or tick launches and their busy time. It runs last: a
+    process the profiler has traced launches more slowly afterwards.
 
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
@@ -92,6 +112,17 @@ DT = 0.05  # lotka_volterra sampling interval: the substep kernels' dt
 SUBSTEPS = 6  # MRConfig.ltc_substeps
 REPO_PATH = "src/repro_torch/kernels/csrc"
 PALLAS = "src/repro/kernels"
+TICK_TOL = 1e-5  # the JAX tick tests' bound on theta and delta (tests/test_tick.py:83)
+# the JAX tick tests' geometry (tests/test_tick.py TCFG) and width
+TICK_TEST = dict(buf_len=16, window=8, stride=4, chunk=4, steps_per_tick=0, min_steps=10**9,
+                 max_steps=10**9)  # fmt: skip
+TICK_TEST_WIDTH = dict(state_dim=3, order=2, hidden=8, dense_hidden=16, dt=0.01)
+# serve_mr's acceptance width: 3 systems padded to n=3, m=1, order 2, H=32
+SERVE_WIDTH = dict(state_dim=3, input_dim=1, order=2, hidden=32, dense_hidden=64, dt=0.01)
+# 8 streams where serve_mr's default is 12: the only cut the scenario takes to keep
+# this script well inside its time limit (two waves through the 4 slots, so every
+# slot is still re-admitted from the queue; the step budget is unchanged)
+SERVE_ARGS = ["--tick-kernel", "banked", "--streams", "8", "--slots", "4", "--device", "cuda"]
 
 
 def log(msg: str) -> None:
@@ -189,6 +220,22 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def tick_work(S, L, C, n, m, N, T, H, Dh, Ko, Kc) -> tuple[float, float]:
+    """(operations, bytes) of one ``mr_tick`` call: the GRU scan and head of
+    every slot's N windows, the window mean, EMA and delta; every input read
+    once (buffers, chunks, stats, the previous readout, the flags, each
+    slot's weights) and every output written once (rolled buffers, theta,
+    delta)."""
+    D = n + m
+    flops = S * N * T * (2 * D * 3 * H + 2 * H * 3 * H + ELEMENTWISE["gru"] * H)
+    flops += S * N * (2 * H * Dh + 2 * Dh * Ko + 3 * H + 2 * Dh + Ko)  # the head
+    flops += S * (N * T * D * 2 + Kc * (N + 8))  # normalization; mean, EMA, delta
+    weights = (D + H) * 3 * H + 3 * H + H + H * Dh + Dh + Dh * Ko + Ko
+    reads = L * D + C * D + 2 * n + Kc + 2 + weights
+    writes = L * D + Kc + 1
+    return flops, 4 * S * (reads + writes)
+
+
 def time_ms(fn, runs: int = 25, per_run: int = 10) -> float:
     """Median over ``runs`` of the mean time of ``per_run`` back-to-back calls."""
     for _ in range(3):
@@ -228,8 +275,11 @@ def main() -> None:
         mr_step_node_reference,
         mr_step_reference,
     )
+    from repro_torch.core import stream
+    from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda, tick_weights
+    from repro_torch.launch import serve_mr
     from repro_torch.optim import adamw_init
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -239,6 +289,7 @@ def main() -> None:
         "mr_step_ltc": mr_step_ltc_cuda,
         "mr_step_node": mr_step_node_cuda,
         "gru_scan": gru_scan_cuda,
+        "mr_tick": mr_tick_cuda,
     }
     substep = {  # family -> (kernel, plain version, sub_dt)
         "ltc": (mr_step_ltc_cuda, mr_step_ltc_reference, ltc_sub_dt),
@@ -489,7 +540,150 @@ def main() -> None:
         check(step0 <= TOL, "kernel row step-0 loss")
         results["gru_flow_kernel"] = dict(launches=counts["gru_scan"])
 
-    # -- 6. timings ----------------------------------------------------------------
+    # -- 6. the banked service tick: kernel parity --------------------------------
+    serve_scfg = stream.StreamConfig()
+    test_scfg = stream.StreamConfig(**TICK_TEST)
+
+    def tick_operands(cfg, scfg, S, seed):
+        """Slot-stacked weights and random tick operands, made from a seed;
+        slot S-1 is inactive and every other slot seeds its EMA."""
+        rng = np.random.default_rng(seed)
+        params = tree_stack([merinda.init_mr(torch.Generator(device=dev).manual_seed(seed + i),
+                                             cfg, dev) for i in range(S)])  # fmt: skip
+
+        def mk(*shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+        n, m, L, C = cfg.state_dim, cfg.input_dim, scfg.buf_len, scfg.chunk
+        flags = lambda xs: torch.tensor(xs, device=dev)
+        return (params, mk(S, L, n), mk(S, L, m), mk(S, C, n), mk(S, C, m), mk(S, n, scale=0.1),
+                torch.from_numpy(rng.uniform(0.5, 1.5, (S, n)).astype(np.float32)).to(dev),
+                mk(S, cfg.n_terms, n, scale=0.3), flags([True, False] * (S // 2)),
+                flags([True] * (S - 1) + [False]))  # fmt: skip
+
+    tick_cases = [  # (label, encoder, width, geometry)
+        (f"serve shape {enc} m=1", enc, SERVE_WIDTH, serve_scfg) for enc in ("gru", "gru_flow")
+    ] + [
+        (f"JAX test shape {enc} m={m}", enc, dict(TICK_TEST_WIDTH, input_dim=m), test_scfg)
+        for enc in ("gru", "gru_flow")
+        for m in (0, 2)
+    ]
+    with Phase("tick parity"):
+        for i, (label, enc, width, scfg) in enumerate(tick_cases):
+            cfg = merinda.MRConfig(encoder=enc, **width)
+            ops = tick_operands(cfg, scfg, 4, seed=30 + i)
+            want = mr_tick(ops[0], cfg, scfg, *ops[1:], force_reference=True)
+            for bank in (1, 2, 4):
+                got = mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=bank)
+                torch.cuda.synchronize()
+                bufs_exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                e_theta = (got[2] - want[2]).abs().max().item()
+                finite = torch.isfinite(want[3])
+                e_delta = (got[3][finite] - want[3][finite]).abs().max().item()
+                inf_ok = bool(torch.isinf(got[3][-1])) and bool(torch.isfinite(got[3][:-1]).all())
+                log(
+                    f"[tick parity] {label} bank={bank}: buffers "
+                    f"{'bit-exact' if bufs_exact else 'DIFFER'}, theta {e_theta:.3e}, delta "
+                    f"{e_delta:.3e}, inactive slot delta {got[3][-1].item()}"
+                )
+                check(bufs_exact and inf_ok, f"mr_tick buffers or inactive delta at {label}")
+                check(max(e_theta, e_delta) <= TICK_TOL, f"mr_tick parity at {label} bank={bank}")
+                err["mr_tick"] = max(err["mr_tick"], e_theta, e_delta)
+
+    # -- 7. banked and composite services in lockstep ------------------------------
+    with Phase("lockstep"):
+        lock_scfg = stream.StreamConfig(buf_len=32, window=8, stride=8, chunk=8,
+                                        steps_per_tick=2, min_steps=10**9, max_steps=10**9)  # fmt: skip
+        rng = np.random.default_rng(40)
+        data = np.cumsum(rng.standard_normal((64, 3)).astype(np.float32) * 0.1, axis=0)
+        services = {}
+        for kernel in ("banked", "composite"):
+            lock_spec = api.RecoverySpec(
+                mode="stream", n_slots=2, stream=lock_scfg, encoder="gru_flow", seed=0,
+                tick=api.TickSpec(steps_per_tick=2, tick_kernel=kernel), **TICK_TEST_WIDTH,
+            )  # fmt: skip
+            svc = api.compile_plan(lock_spec).make_service()
+            for sid in range(2):
+                svc.submit(sid, data[sid : sid + 32])
+            svc.fill_slots()
+            services[kernel] = svc
+        e_delta = 0.0
+        for t in range(3):
+            chunk = np.repeat(data[32 + 8 * t : 40 + 8 * t][None], 2, axis=0)
+            info = {k: svc.tick_once(chunk) for k, svc in services.items()}
+            e_delta = max(e_delta, float(np.abs(info["banked"]["delta"] - info["composite"]["delta"]).max()))
+        sb, sc = services["banked"].state, services["composite"].state
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(sb.params), tree_leaves(sc.params)))
+        e_theta = (sb.theta - sc.theta).abs().max().item()
+        log(
+            f"[lockstep] 3 ticks of K=2, gru_flow: parameters "
+            f"{'bit-exact' if same else 'DIFFER'}; theta {e_theta:.3e}, delta {e_delta:.3e}"
+        )
+        check(same and max(e_theta, e_delta) <= TICK_TOL, "banked against composite service")
+
+    # -- 8. the stream main path: serve_mr's banked acceptance scenario ----------------
+    with Phase("main stream"):
+        serve_args = serve_mr.build_parser().parse_args(SERVE_ARGS)
+        log(f"[main stream] python -m repro_torch.launch.serve_mr {' '.join(SERVE_ARGS)}")
+        zero_counts()
+        torch.cuda.synchronize()
+        scenario = serve_mr.serve(serve_args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        svc, stats = scenario["service"], scenario["stats"]
+        ticks = stats["ticks"]
+        steady = float(np.median(svc.sync_log[1:]))
+        tick_ms = np.asarray(svc.tick_ms)
+        log(
+            f"[main stream] {len(svc.results)}/{serve_args.streams} streams in {ticks} ticks, "
+            f"{ticks / stats['wall_s']:.3f} ticks/s; tick p50 {np.percentile(tick_ms, 50):.1f} "
+            f"ms, p99 {np.percentile(tick_ms, 99):.1f} ms; service {stats['wall_s']:.1f} s, "
+            f"baseline {scenario['baseline_s']:.1f} s; launches {counts}; median host syncs "
+            f"a tick after the first {steady}"
+        )
+        check(scenario["failures"] == 0 and len(scenario["rows"]) == serve_args.streams,
+              f"stream scenario: {scenario['failures']} streams failed")  # fmt: skip
+        check(counts["mr_tick"] == ticks, f"mr_tick launched {counts['mr_tick']} times in {ticks} ticks")
+        others = {k: n for k, n in counts.items() if k != "mr_tick"}
+        check(not any(others.values()), f"the stream path launched other kernels: {others}")
+        check(steady <= 1, f"median host syncs a tick {steady}")
+        results["stream"] = dict(
+            launches=counts["mr_tick"], ticks=ticks, tick_p50=float(np.percentile(tick_ms, 50)),
+            tick_p99=float(np.percentile(tick_ms, 99)), wall_s=stats["wall_s"],
+            baseline_s=scenario["baseline_s"],
+        )  # fmt: skip
+
+    hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
+                     axis=0)  # fmt: skip
+
+    def tick_chunk(t):
+        return (np.repeat(hist[160 + 16 * t : 176 + 16 * t][None], 4, axis=0),
+                np.zeros((4, 16, 1), np.float32))  # fmt: skip
+
+    def serve_service(kernel):
+        """A 4-slot service at the serve shape, every slot admitted, one tick run."""
+        spec = api.RecoverySpec(mode="stream", n_slots=4, encoder="gru", seed=0,
+                                tick=api.TickSpec(tick_kernel=kernel), **SERVE_WIDTH)  # fmt: skip
+        svc = api.compile_plan(spec).make_service()
+        for sid in range(4):
+            svc.submit(sid, hist[sid : sid + 160], np.zeros((160, 1), np.float32))
+        svc.fill_slots()
+        svc.tick_once(*tick_chunk(0))
+        torch.cuda.synchronize()
+        return svc
+
+    with Phase("tick wall"):
+        for kernel in ("banked", "composite"):
+            svc = serve_service(kernel)
+            t0 = time.perf_counter()
+            for t in range(1, 4):
+                svc.tick_once(*tick_chunk(t))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+            log(f"[tick wall] {kernel}: 3 ticks (K=8, S=4) at {wall_ms:.1f} ms/tick")
+            results[f"{kernel} tick"] = dict(wall_ms=wall_ms)
+
+    # -- 9. timings ----------------------------------------------------------------
     timed = {}  # (kernel, shape label) -> (kernel ms, plain ms, bound ms, bound by)
     with Phase("time"):
         for label, B, T, D, H, Dh, K in (KERNEL_SHAPES[0], KERNEL_SHAPES[3]):
@@ -537,8 +731,29 @@ def main() -> None:
             f"ms, mr_step_ltc {timed['mr_step_ltc', cycles][0]:.4f} ms "
             f"({timed['mr_step_ltc', cycles][0] / timed['mr_step', cycles][0]:.2f}x)"
         )
+        cfg = merinda.MRConfig(encoder="gru", **SERVE_WIDTH)
+        ops = tick_operands(cfg, serve_scfg, 4, seed=50)
+        N, T = serve_scfg.n_windows, serve_scfg.window
+        flops, nbytes = tick_work(4, serve_scfg.buf_len, serve_scfg.chunk, 3, 1, N, T, 32, 64,
+                                  cfg.n_coef + cfg.n_shifts, cfg.n_coef)  # fmt: skip
+        # the kernel alone, on operands prepared once, as the other kernels are timed
+        params, buf_y, buf_u, new_y, new_u, mean, scale, theta, seed, active = ops
+        kernel_ops = [t.to(torch.float32).contiguous() for t in (
+            buf_y, new_y, mean, scale, theta.reshape(4, -1), seed, active,
+            *tick_weights(params, cfg), buf_u, new_u)]  # fmt: skip
+        k_ms = time_ms(lambda: mr_tick_cuda(*kernel_ops, flow=False, window=T,
+                                            stride=serve_scfg.stride, ema=serve_scfg.ema))  # fmt: skip
+        p_ms = time_ms(lambda: mr_tick(ops[0], cfg, serve_scfg, *ops[1:], force_reference=True),
+                       per_run=1)  # fmt: skip
+        b_ms, b_by = bound_ms(flops, nbytes)
+        timed["mr_tick", quick] = (k_ms, p_ms, b_ms, b_by)
+        log(
+            f"[time] mr_tick at the serve shape (S=4 N={N} T={T} D=4 H=32 Dh=64 Ko=45): kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
+            f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e3:.1f} KB)"
+        )
 
-    # -- 7. where a training step's time goes ------------------------------------
+    # -- 10. where the time of a training step and of a tick goes ----------------------
     with Phase("profile"):
         for label, plan in plans.items():
             cfg = plan.cfg
@@ -548,7 +763,7 @@ def main() -> None:
             for _ in range(3):
                 p, opt, _ = merinda.mr_train_step(p, opt, cfg, batch, None, 3e-3, phys)
             torch.cuda.synchronize()
-            n_prof = 3
+            n_prof = 1  # the profiler's processing dominates this phase: one step a path
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(n_prof):
@@ -562,7 +777,7 @@ def main() -> None:
             n_dev = sum(len(v) for v in by_name.values()) / n_prof
             busy_ms = sum(sum(v) for v in by_name.values()) / n_prof
             log(
-                f"[profile {label}] {n_prof} training steps under the profiler: {wall_ms:.2f} "
+                f"[profile {label}] {n_prof} training step under the profiler: {wall_ms:.2f} "
                 f"ms/step wall, {n_dev:.0f} device activities/step, device busy {busy_ms:.3f} "
                 f"ms/step ({100 * busy_ms / wall_ms:.2f}% of the step)"
             )
@@ -572,6 +787,27 @@ def main() -> None:
                     f"[profile {label}]   {sum(v) / n_prof:8.4f} ms/step  "
                     f"{len(v) / n_prof:6.0f}/step  {k[:80]}"
                 )
+
+    with Phase("tick profile"):
+        for kernel in ("banked", "composite"):
+            svc = serve_service(kernel)
+            n_prof = 2  # a tick is ~65,000 device activities to process
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for t in range(1, 1 + n_prof):
+                    svc.tick_once(*tick_chunk(t))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) / n_prof * 1e3
+            dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / n_prof
+            tick_kernels = sum("mr_tick" in e.name for e in dev_events) / n_prof
+            log(
+                f"[profile {kernel} tick] {n_prof} ticks (K=8, S=4) under the profiler: "
+                f"{wall_ms:.1f} ms/tick wall, {len(dev_events) / n_prof:.0f} device activities/"
+                f"tick ({tick_kernels:.1f} mr_tick), device busy {busy_ms:.3f} ms/tick "
+                f"({100 * busy_ms / wall_ms:.2f}% of the tick)"
+            )
+            results[f"{kernel} tick"].update(activities=len(dev_events) / n_prof, busy_ms=busy_ms)
 
     gru_note = (
         "no single PyTorch call computes it: torch.nn.GRU's candidate gate is "
@@ -586,6 +822,9 @@ def main() -> None:
         ("gru_scan", "gru_scan.cu", "gru_scan/kernel.py:107", "gru_flow_kernel", gru_note),
         ("mr_step_ltc", "mr_step_ltc.cu", "mr_step/kernel.py:404", "ltc", substep_note),
         ("mr_step_node", "mr_step_node.cu", "mr_step/kernel.py:541", "node", substep_note),
+        ("mr_tick", "mr_tick.cu", "mr_step/tick.py:148", "stream",
+         "no single PyTorch call computes it: the GRU above, and the ring roll, window "
+         "gather, head, mean, EMA and delta around it"),
     ]
     kernels = []
     for kernel, src, replaces, path, note in table:
@@ -605,7 +844,7 @@ def main() -> None:
             "bound_by": b_by,
             "library_ms": None,
             "library_note": note,
-            "shape": quick,
+            "shape": "serve_mr acceptance, S=4" if kernel == "mr_tick" else quick,
         }
         if (kernel, cycles) in timed:
             k2, p2, b2, by2 = timed[kernel, cycles]
@@ -617,6 +856,13 @@ def main() -> None:
             f"[summary] {label}: {r['ms_per_step']:.2f} ms/step, {r['launches']} launches, "
             f"recon_mse {r['recon_mse']:.3e}, max |theta - true| {r['max_err']:.4f}"
         )
+    r = results["stream"]
+    log(
+        f"[summary] stream (banked): {r['ticks']} ticks, {r['launches']} mr_tick launches, tick "
+        f"p50 {r['tick_p50']:.1f} ms p99 {r['tick_p99']:.1f} ms; service {r['wall_s']:.1f} s, "
+        f"baseline {r['baseline_s']:.1f} s; ms/tick at the serve shape banked "
+        f"{results['banked tick']['wall_ms']:.1f}, composite {results['composite tick']['wall_ms']:.1f}"
+    )
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

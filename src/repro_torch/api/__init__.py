@@ -5,10 +5,14 @@
     plan = api.compile_plan(api.RecoverySpec(state_dim=2, fused=True, block_b="auto"))
     params, metrics = plan.run_offline(yw, norm=norm)
     theta = plan.readout(params, yw, norm=norm, n_active=4)
+
+    plan = api.compile_plan(api.RecoverySpec(state_dim=3, mode="stream",
+                                             tick=api.TickSpec(tick_kernel="banked")))
+    service = plan.make_service()
 """
 
 from repro_torch.api.plan import Lowering, RecoveryPlan, compile_plan
-from repro_torch.api.spec import MODES, PRECISIONS, RecoverySpec
+from repro_torch.api.spec import MODES, PRECISIONS, RecoverySpec, TickSpec
 from repro_torch.core.engine import history_from_metrics
 from repro_torch.core.merinda import prune_theta
 
@@ -18,6 +22,7 @@ __all__ = [
     "Lowering",
     "RecoveryPlan",
     "RecoverySpec",
+    "TickSpec",
     "compile_plan",
     "history_from_metrics",
     "prune_theta",

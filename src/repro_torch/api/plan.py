@@ -1,23 +1,34 @@
 """compile_plan: lower a RecoverySpec into a RecoveryPlan (``repro/api/plan.py``).
 
 Every execution decision (encoder backend, fusion, QAT, the ``block_b`` tile,
-where the kernels run) is resolved once, into one :class:`Lowering` record.
-Plans run on the card: ``compile_plan(spec)`` resolves the device to
-``"cuda"`` and raises when no card is visible. ``device="cpu"`` runs every
-kernel's plain version on the CPU, as the tests do.
+the service tick's kernel and bank size, where the kernels run) is resolved
+once, into one :class:`Lowering` record. Plans run on the card:
+``compile_plan(spec)`` resolves the device to ``"cuda"`` and raises when no
+card is visible. ``device="cpu"`` runs every kernel's plain version on the
+CPU, as the tests do.
+
+Modes: ``offline`` trains one system (``run_offline``, ``readout``);
+``batch`` recovers a fleet of systems as one stacked program (``run_batch``);
+``stream`` builds the online service (``make_service``) on the host control
+plane, its tick composite or banked (the ``mr_tick`` kernel). Batch and
+stream train through ``torch.func.vmap`` of the plain loss, which cannot
+enter the kernels' autograd Functions, so ``fused=True`` and the
+``*_kernel`` rows are refused there (not yet ported: a slot-axis ``mr_step``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.api.spec import RecoverySpec
 from repro_torch.core import encoders, engine
+from repro_torch.core import stream as stream_mod
 from repro_torch.core.library import denormalize_theta
-from repro_torch.core.merinda import MRConfig, init_mr, mr_forward, prune_theta
+from repro_torch.core.merinda import MRConfig, init_mr, prune_theta
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.mr_step import tiling
 from repro_torch.optim import adamw_init
@@ -41,16 +52,27 @@ class Lowering:
     smem_bytes: int | None  # the row family's fused kernel's shared memory per block
     smem_budget_bytes: int | None  # the budget the "auto" tile fit into
     device: str
+    # -- stream mode (None elsewhere) ------------------------------------------
+    tick_kernel: str | None = None  # "banked" | "composite"
+    tick_slots_per_bank: int | None = None  # mr_tick's slots per block (banked)
+    control_plane: str | None = None  # "host"
+    warm_capacity: int | None = None  # warm-start LRU entries
+    overflow_capacity: int | None = None  # the device plane's spill bound (recorded only)
 
 
 class RecoveryPlan:
-    """A compiled recovery: spec + lowering; ``run_offline`` then ``readout``."""
+    """A compiled recovery: spec + lowering, and the entry points of its mode."""
 
     def __init__(self, spec: RecoverySpec, cfg: MRConfig, lowering: Lowering):
         self.spec = spec
         self.cfg = cfg
+        self.scfg = spec.stream_config() if spec.mode == "stream" else None
         self.lowering = lowering
         self.device = torch.device(lowering.device)
+
+    def _require_mode(self, mode: str) -> None:
+        if self.spec.mode != mode:
+            raise ValueError(f"this plan was compiled for mode={self.spec.mode!r}, not {mode!r}")
 
     def _tensor(self, x) -> torch.Tensor | None:
         if x is None:
@@ -64,6 +86,7 @@ class RecoveryPlan:
         the plan's device, seeded with ``spec.seed``; ``norm`` applies the L1
         penalty in physical units.
         """
+        self._require_mode("offline")
         ys, us = self._tensor(ys), self._tensor(us)
         generator = torch.Generator(device=self.device).manual_seed(self.spec.seed)
         params = init_mr(generator, self.cfg, self.device)
@@ -83,6 +106,51 @@ class RecoveryPlan:
         )
         return params, metrics
 
+    def run_batch(self, ys_batch, us_batch=None) -> torch.Tensor:
+        """Recover S systems as one stacked program: ys_batch [S, N, T, n] ->
+        theta [S, n_terms, n] on the plan's device (normalized coordinates,
+        pruned to ``spec.n_active`` when set). System i's initial weights come
+        from ``engine.system_generators(spec.seed, S)[i]``; minibatches (when
+        ``spec.batch_size`` is set) from one generator seeded with
+        ``spec.seed``."""
+        self._require_mode("batch")
+        ys, us = self._tensor(ys_batch), self._tensor(us_batch)
+        generators = engine.system_generators(self.spec.seed, ys.shape[0], self.device)
+        sampler = torch.Generator(device=self.device).manual_seed(self.spec.seed)
+        return engine.recover_many(
+            self.cfg, ys, us, generators, sampler,
+            steps=self.spec.steps, lr=self.spec.lr, batch_size=self.spec.batch_size,
+            n_active=self.spec.n_active,
+        )  # fmt: skip
+
+    @property
+    def tick(self):
+        """The tick program (stream mode), cfg/scfg/kernel bound:
+        ``(state, new_y, new_u, generator)``. Composite returns the next
+        SlotState; banked returns ``(state, status [S, 4])``."""
+        self._require_mode("stream")
+        if self.lowering.tick_kernel == "banked":
+            return functools.partial(
+                stream_mod.tick_banked,
+                cfg=self.cfg,
+                scfg=self.scfg,
+                slots_per_bank=self.lowering.tick_slots_per_bank,
+            )
+        return functools.partial(stream_mod.tick, cfg=self.cfg, scfg=self.scfg)
+
+    def make_service(self) -> stream_mod.RecoveryService:
+        """The online multi-tenant service on the host control plane."""
+        self._require_mode("stream")
+        return stream_mod.RecoveryService(
+            self.cfg,
+            self.scfg,
+            self.spec.n_slots,
+            seed=self.spec.seed,
+            device=self.device,
+            tick_program=self.tick,
+            warm_capacity=self.lowering.warm_capacity,
+        )
+
     @torch.no_grad()
     def readout(
         self, params, yw, uw=None, norm: dict | None = None, n_active: int | None = None
@@ -90,8 +158,8 @@ class RecoveryPlan:
         """Theta [n_terms, n] in fp32: the mean of ``mr_forward``'s Theta over
         windows, then denormalized (``norm``), then pruned (``n_active``, by
         default the spec's)."""
-        theta, _ = mr_forward(params, self.cfg, self._tensor(yw), self._tensor(uw))
-        theta = theta.mean(dim=0).cpu().numpy()
+        theta = stream_mod.readout_theta(params, self.cfg, self._tensor(yw), self._tensor(uw))
+        theta = theta.cpu().numpy()
         if norm is not None:
             theta = denormalize_theta(
                 theta,
@@ -108,20 +176,53 @@ class RecoveryPlan:
 
 
 def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "compile_plan: no CUDA device is visible; pass device='cpu' to run "
-                "the plain PyTorch versions on the CPU"
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "compile_plan: no CUDA device is visible; pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU"
+        )
+    return device
+
+
+def _resolve_tick_kernel(spec: RecoverySpec, cfg: MRConfig) -> tuple[str, int | None]:
+    """``TickSpec.tick_kernel`` -> ("banked" | "composite", slots_per_bank).
+
+    ``"banked"`` on a row the kernel does not implement (ltc, node) raises;
+    ``"auto"`` takes banked when the row is a GRU family and one slot's carve
+    fits a block's shared memory, else composite. The bank size is
+    ``tiling.auto_slots_per_bank`` (1 when an explicit request does not fit:
+    the launch then raises, as the JAX package runs an explicit request at
+    bank 1)."""
+    from repro_torch.kernels.mr_step.tick import tick_supported
+
+    requested = spec.tick_spec().tick_kernel
+    if requested == "composite":
+        return "composite", None
+    if not tick_supported(cfg):
+        if requested == "banked":
+            raise ValueError(
+                f"tick_kernel='banked' requires a GRU-family encoder "
+                f"(csrc/mr_tick.cu banks the gru cell); got encoder={spec.encoder!r} "
+                f"— use 'composite' or 'auto'"
             )
-        device = "cuda"
-    return torch.device(device)
+        return "composite", None
+    spb = tiling.auto_slots_per_bank(cfg, spec.stream_config(), spec.n_slots)
+    if spb < 1:
+        return ("banked", 1) if requested == "banked" else ("composite", None)
+    return "banked", spb
 
 
 def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -> RecoveryPlan:
     """Validate and lower a RecoverySpec; see the module docstring."""
     device = _resolve_device(device)
     row = encoders.validate_config(spec.to_mr_config())  # unknown name, unfusable row
+    if spec.mode in ("batch", "stream") and (spec.fused or row.kernel):
+        raise ValueError(
+            f"mode={spec.mode!r} with fused=True or a *_kernel row (got encoder="
+            f"{spec.encoder!r}, fused={spec.fused}) is not yet ported to repro_torch: the "
+            f"stacked train step vmaps the plain loss, which cannot enter the kernels"
+        )
     if spec.qat is not None and row.flow is None:
         raise ValueError(
             f"qat (fixed-point fake-quant) is implemented for the GRU families, "
@@ -143,6 +244,17 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
         if block_b is not None:
             smem = tiling.config_smem_bytes(spec.to_mr_config(), row.family, block_b)
     routes_kernel = spec.fused or row.kernel
+    stream_fields = {}
+    if spec.mode == "stream":
+        tick_kernel, spb = _resolve_tick_kernel(spec, spec.to_mr_config())
+        tspec = spec.tick_spec()
+        stream_fields = dict(
+            tick_kernel=tick_kernel,
+            tick_slots_per_bank=spb,
+            control_plane=tspec.control,
+            warm_capacity=tspec.warm_capacity,
+            overflow_capacity=tspec.overflow_capacity,
+        )
     lowering = Lowering(
         encoder=spec.encoder,
         fused=spec.fused,
@@ -153,5 +265,6 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
         smem_bytes=smem,
         smem_budget_bytes=budget,
         device=str(device),
+        **stream_fields,
     )
     return RecoveryPlan(spec, spec.to_mr_config(block_b), lowering)

@@ -1,8 +1,10 @@
 """RecoverySpec: one declarative record of what to recover and how to run it.
 
-Counterpart of ``repro/api/spec.py``, offline fields only, QAT included.
-``mode="batch"``, ``mode="stream"`` and ``precision="int8_pwl"`` are not yet
-ported and raise when the spec is built.
+Counterpart of ``repro/api/spec.py``: the offline, batch and stream modes, QAT
+included, and the service tick's ``TickSpec``. Not yet ported, and refused
+when the spec is built: ``precision="int8_pwl"``, the device-resident control
+plane (``TickSpec(control="device")``), service checkpoints
+(``checkpoint_period > 0``) and a slot mesh (``mesh_slots > 1``).
 """
 
 from __future__ import annotations
@@ -11,11 +13,55 @@ import dataclasses
 
 from repro_torch.core.merinda import MRConfig
 from repro_torch.core.quant import QuantConfig
+from repro_torch.core.stream import StreamConfig
 
 MODES = ("offline", "batch", "stream")
 PRECISIONS = ("fp32", "int8_pwl")
-PORTED_MODES = ("offline",)
 PORTED_PRECISIONS = ("fp32",)
+TICK_KERNELS = ("banked", "composite", "auto")
+CONTROL_PLANES = ("host", "device")
+
+
+@dataclasses.dataclass(frozen=True)
+class TickSpec:
+    """The service tick (stream mode).
+
+    ``tick_kernel``: ``"composite"`` reads out with plain PyTorch ops,
+    ``"banked"`` through one launch of the ``mr_tick`` kernel with the status
+    packed for one readback, ``"auto"`` takes banked where the encoder row and
+    the kernel's shared memory allow (``compile_plan`` records the choice in
+    ``plan.lowering``). ``steps_per_tick=0`` is a pure serve tick.
+    ``warm_capacity`` bounds the warm-start LRU. ``control="host"`` is the
+    only ported control plane.
+    """
+
+    steps_per_tick: int = 8  # K optimizer steps per slot per tick (0 = serve-only)
+    ema_decay: float = 0.9  # smoothing for the per-tick Theta readout
+    tick_kernel: str = "composite"  # "banked" | "composite" | "auto"
+    control: str = "host"  # "host" ("device" is not yet ported)
+    warm_capacity: int = 32  # warm-start registry entries
+    checkpoint_period: int = 0  # ticks between service snapshots (not yet ported)
+    overflow_capacity: int = 16  # the device plane's host spill bound (recorded only)
+
+    def __post_init__(self):
+        if self.tick_kernel not in TICK_KERNELS:
+            raise ValueError(f"tick_kernel must be one of {TICK_KERNELS}, got {self.tick_kernel!r}")
+        if self.steps_per_tick < 0:
+            raise ValueError(f"steps_per_tick must be >= 0, got {self.steps_per_tick}")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1), got {self.ema_decay}")
+        if self.control not in CONTROL_PLANES:
+            raise ValueError(f"control must be one of {CONTROL_PLANES}, got {self.control!r}")
+        if self.control == "device":
+            raise ValueError("control='device' is not yet ported to repro_torch")
+        if self.warm_capacity < 1:
+            raise ValueError(f"warm_capacity must be >= 1, got {self.warm_capacity}")
+        if self.checkpoint_period < 0:
+            raise ValueError(f"checkpoint_period must be >= 0, got {self.checkpoint_period}")
+        if self.checkpoint_period > 0:
+            raise ValueError("checkpoint_period > 0 is not yet ported to repro_torch")
+        if self.overflow_capacity < 0:
+            raise ValueError(f"overflow_capacity must be >= 0, got {self.overflow_capacity}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,18 +89,24 @@ class RecoverySpec:
     smem_budget_bytes: int | None = None
 
     # -- execution ----------------------------------------------------------
-    mode: str = "offline"
-    steps: int = 500  # optimizer steps
+    mode: str = "offline"  # "offline" | "batch" | "stream"
+    steps: int = 500  # optimizer steps (offline/batch)
     lr: float = 3e-3
     batch_size: int | None = None  # windows per optimizer step (None = all)
     seed: int = 0
     n_active: int | None = None  # magnitude-prune readout to this many terms
 
+    # -- stream mode ---------------------------------------------------------
+    n_slots: int = 4
+    stream: StreamConfig | None = None  # None = StreamConfig() defaults
+    tick: TickSpec | None = None  # None = TickSpec() defaults (composite)
+
+    # -- placement -----------------------------------------------------------
+    mesh_slots: int = 1  # devices sharding the slot axis (only 1 is ported)
+
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
-        if self.mode not in PORTED_MODES:
-            raise ValueError(f"mode={self.mode!r} is not yet ported to repro_torch")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {self.precision!r}")
         if self.precision not in PORTED_PRECISIONS:
@@ -73,6 +125,39 @@ class RecoverySpec:
             raise ValueError(
                 'smem_budget_bytes requires block_b="auto" (a fixed tile ignores the budget)'
             )
+        if self.mesh_slots < 1:
+            raise ValueError(f"mesh_slots must be >= 1, got {self.mesh_slots}")
+        if self.mesh_slots > 1:
+            raise ValueError("mesh_slots > 1 (a sharded slot axis) is not yet ported to repro_torch")
+        if self.mode == "stream":
+            if self.n_slots < 1:
+                raise ValueError(f"n_slots must be >= 1, got {self.n_slots}")
+            if self.stream is not None and (
+                self.stream.lr != self.lr or self.stream.batch_size != self.batch_size
+            ):
+                # the tick trains with StreamConfig's copies: one source of truth
+                raise ValueError(
+                    f"stream-mode lr/batch_size conflict: spec has "
+                    f"(lr={self.lr}, batch_size={self.batch_size}) but stream= has "
+                    f"(lr={self.stream.lr}, batch_size={self.stream.batch_size}); "
+                    f"set them equal (the StreamConfig governs the tick)"
+                )
+            if (
+                self.tick is not None
+                and self.stream is not None
+                and (
+                    self.stream.steps_per_tick != self.tick.steps_per_tick
+                    or self.stream.ema != self.tick.ema_decay
+                )
+            ):
+                raise ValueError(
+                    f"stream-mode tick conflict: tick= has (steps_per_tick="
+                    f"{self.tick.steps_per_tick}, ema_decay={self.tick.ema_decay}) but "
+                    f"stream= has (steps_per_tick={self.stream.steps_per_tick}, "
+                    f"ema={self.stream.ema}); set them equal"
+                )
+        elif self.tick is not None:
+            raise ValueError(f"tick= requires mode='stream', got mode={self.mode!r}")
 
     def to_mr_config(self, block_b: int | None = None) -> MRConfig:
         """The MRConfig this spec lowers to; ``block_b`` is the resolved tile."""
@@ -95,3 +180,18 @@ class RecoverySpec:
             fused=self.fused,
             block_b=block_b,
         )
+
+    def stream_config(self) -> StreamConfig:
+        if self.stream is not None:
+            return self.stream  # __post_init__ pinned lr/batch_size/tick agreement
+        kw = dict(lr=self.lr, batch_size=self.batch_size)
+        if self.tick is not None:
+            kw.update(steps_per_tick=self.tick.steps_per_tick, ema=self.tick.ema_decay)
+        return StreamConfig(**kw)
+
+    def tick_spec(self) -> TickSpec:
+        """The resolved TickSpec (mirrors ``stream_config`` when ``tick`` is None)."""
+        if self.tick is not None:
+            return self.tick
+        scfg = self.stream_config()
+        return TickSpec(steps_per_tick=scfg.steps_per_tick, ema_decay=scfg.ema)

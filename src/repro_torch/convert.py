@@ -7,6 +7,11 @@ the JAX package: the encoder is ``GRUParams`` when it has ``.w``,
 ``LTCParams`` when it has ``.w_rec`` and ``NodeEncoderParams`` when it has
 ``.w_f1``. ``params_to_numpy`` goes the other way: the port's ``MRParams``
 with numpy leaves, field for field the JAX package's layout.
+
+``opt_from_numpy`` and ``opt_to_numpy`` carry the AdamW state (step, m, v)
+the same way. Every function is shape-agnostic, so a slot-stacked tree
+(leading slot or system axis on every leaf, what ``jax.vmap`` builds) crosses
+as it is.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from repro_torch.core.ltc import LTCParams
 from repro_torch.core.merinda import MRParams
 from repro_torch.core.neural_flow import GRUParams
 from repro_torch.core.node_mr import NodeEncoderParams
+from repro_torch.optim import AdamWState
 from repro_torch.tree import tree_map
 
 _HEAD = ("head_w1", "head_b1", "head_w2", "head_b2")
@@ -40,3 +46,13 @@ def params_from_numpy(p, device: torch.device | str = "cpu") -> MRParams:
 
 def params_to_numpy(p: MRParams) -> MRParams:
     return tree_map(lambda t: t.detach().cpu().numpy(), p)
+
+
+def opt_from_numpy(o, device: torch.device | str = "cpu") -> AdamWState:
+    """The JAX package's ``AdamWState`` (numpy leaves) as the port's."""
+    step = torch.from_numpy(np.array(o.step, dtype=np.int32)).to(device)
+    return AdamWState(step, params_from_numpy(o.m, device), params_from_numpy(o.v, device))
+
+
+def opt_to_numpy(o: AdamWState) -> AdamWState:
+    return AdamWState(o.step.cpu().numpy(), params_to_numpy(o.m), params_to_numpy(o.v))

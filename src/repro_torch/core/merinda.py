@@ -207,11 +207,15 @@ def mr_train_step(
 ):
     """value-and-grad of ``mr_loss``, clip at 1.0, AdamW with weight decay 1e-4.
 
-    Returns (params, opt_state, metrics); the metrics are device tensors.
+    A leaf the loss does not reach (the standard GRU never reads
+    ``time_scale``) gets a zero gradient, as under ``jax.grad``. Returns
+    (params, opt_state, metrics); the metrics are device tensors.
     """
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, aux = mr_loss(leaves, cfg, ys, us, phys, force_reference)
-    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    grads = torch.autograd.grad(
+        loss, tree_leaves(leaves), allow_unused=True, materialize_grads=True
+    )
     grads, gnorm = clip_by_global_norm(tree_unflatten(params, list(grads)), 1.0)
     params, opt_state = adamw_update(grads, opt_state, params, lr=lr, weight_decay=1e-4)
     metrics = {k: v.detach() for k, v in aux.items()}
@@ -229,12 +233,16 @@ def recover_coefficients(
     """Mean of the per-window Theta estimates, magnitude-pruned to n_active."""
     theta, _ = mr_forward(params, cfg, ys, us)
     theta = theta.mean(dim=0)  # [n_terms, n_state]
-    if n_active is not None:
-        flat = theta.abs().flatten()
-        k = min(n_active, flat.numel())
-        thresh = torch.sort(flat).values[-k]
-        theta = torch.where(theta.abs() >= thresh, theta, torch.zeros_like(theta))
-    return theta
+    return theta if n_active is None else prune_stacked(theta[None], n_active)[0]
+
+
+def prune_stacked(theta: torch.Tensor, n_active: int) -> torch.Tensor:
+    """Magnitude-prune each system's theta [S, ...] to its ``n_active`` largest terms."""
+    flat = theta.abs().flatten(1)
+    k = min(n_active, flat.shape[1])
+    thresh = torch.sort(flat, dim=1).values[:, -k]
+    keep = theta.abs() >= thresh.reshape((-1,) + (1,) * (theta.ndim - 1))
+    return torch.where(keep, theta, torch.zeros_like(theta))
 
 
 def prune_theta(theta: np.ndarray, n_active: int) -> np.ndarray:

@@ -1,0 +1,619 @@
+"""Slot-based streaming recovery service (counterpart of ``repro/core/stream.py``).
+
+A fleet of dynamical-system streams shares S service slots:
+
+- every slot holds one stream's ring buffer, its MERINDA parameters and its
+  optimizer state, all in ONE ``SlotState`` whose every leaf has a leading
+  slot axis;
+- every tick rolls a fresh observation chunk into each slot's buffer,
+  re-windows it with the normalization frozen at admission, runs K
+  optimizer steps of every slot at once (``engine.stacked_train_step``),
+  and reads out each slot's coefficients (EMA-smoothed) with their
+  tick-over-tick relative delta;
+- a slot whose delta falls below ``delta_tol`` (after ``min_steps``), or
+  that reaches ``max_steps``, is evicted and refilled from the queue; its
+  parameters go to a bounded warm-start registry.
+
+Two tick structures, as in the JAX package: ``tick`` (composite: the readout
+is plain PyTorch ops) and ``tick_banked`` (the readout, ring ingest included,
+is one launch of the ``mr_tick`` kernel, and the per-slot status comes back
+packed in one [S, 4] array). Their training segments are the same code, so
+their parameters agree bit for bit.
+
+``RecoveryService`` is the host control plane (the JAX package's reference
+plane): a priority queue, admission, eviction, preemption of cold slots and
+the warm LRU, moving O(slots) scalars across the host boundary a tick and
+counting every device-to-host readback (``counters``, ``sync_log``). The
+device-resident control plane, the slot mesh and checkpointing are not ported.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+import functools
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import encoders
+from repro_torch.core.engine import (
+    WARMUP_STEPS,
+    gather_windows,
+    seeded_generator,
+    stacked_theta,
+    stacked_train_step,
+)
+from repro_torch.core.merinda import MRConfig, MRParams, init_mr, mr_forward
+from repro_torch.data.windows import buffer_stats, n_buffer_windows, roll_buffer, window_views
+from repro_torch.kernels.mr_step.tick import mr_tick
+from repro_torch.optim import adamw_init
+from repro_torch.runtime.heartbeat import HeartbeatRegistry, StragglerDetector
+from repro_torch.tree import tree_index, tree_map, tree_stack, tree_write_slot
+
+PRIORITY_LIMIT = 1 << 16  # admission tiers are [0, PRIORITY_LIMIT), as in core/control.py
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Static service configuration."""
+
+    buf_len: int = 160  # ring-buffer length L (observations per slot)
+    window: int = 32  # T: window length fed to the encoder
+    stride: int = 8  # window stride over the buffer
+    chunk: int = 16  # C: new observations ingested per tick
+    steps_per_tick: int = 8  # K: optimizer steps per slot per tick (0 = serve-only)
+    lr: float = 3e-3
+    batch_size: int | None = None  # windows per step (None = all N windows)
+    ema: float = 0.9  # smoothing for the per-tick Theta readout
+    delta_tol: float = 0.015  # relative coefficient-delta eviction threshold
+    min_steps: int = 128  # no eviction before this many optimizer steps
+    max_steps: int = 400  # unconditional eviction budget per stream
+
+    def __post_init__(self):
+        if self.window > self.buf_len:
+            raise ValueError(f"window {self.window} exceeds buf_len {self.buf_len}")
+        if self.chunk > self.buf_len:
+            # the roll would grow the buffer past buf_len
+            raise ValueError(f"chunk {self.chunk} exceeds buf_len {self.buf_len}")
+        if self.stride < 1 or self.chunk < 1:
+            raise ValueError("stride and chunk must be >= 1")
+        if self.steps_per_tick < 0:
+            raise ValueError("steps_per_tick must be >= 0")
+
+    @property
+    def n_windows(self) -> int:
+        return n_buffer_windows(self.buf_len, self.window, self.stride)
+
+
+class SlotState(NamedTuple):
+    """One tree for all S slots (every leaf has leading axis S)."""
+
+    params: Any  # MRParams, leaves [S, ...]
+    opt: Any  # AdamWState, leaves [S, ...] (step [S])
+    buf_y: torch.Tensor  # [S, L, n] raw observations (ring buffer)
+    buf_u: torch.Tensor  # [S, L, m] exogenous inputs (m may be 0)
+    theta: torch.Tensor  # [S, n_terms, n] last readout (normalized coords)
+    delta: torch.Tensor  # [S] relative theta change at the last tick
+    loss: torch.Tensor  # [S] last-step reconstruction MSE
+    mean: torch.Tensor  # [S, n] normalization stats FROZEN at admission
+    scale: torch.Tensor  # [S, n]
+    steps: torch.Tensor  # [S] int32 optimizer steps since admission
+    active: torch.Tensor  # [S] bool
+    stream_id: torch.Tensor  # [S] int32 (-1 = empty slot)
+
+
+def cold_start(seed: int, stream_id: int, cfg: MRConfig, device) -> tuple[MRParams, Any]:
+    """Fresh (params, opt_state) for one admission, drawn from the generator of
+    (seed, 1000 + stream_id), as the JAX service folds its key."""
+    params = init_mr(seeded_generator(seed, 1000 + stream_id, device=device), cfg, device)
+    return params, adamw_init(params)
+
+
+def init_slots(seed: int, cfg: MRConfig, scfg: StreamConfig, n_slots: int, device) -> SlotState:
+    """All-empty service state: per-slot fresh params, inactive slots."""
+    per_slot = [init_mr(seeded_generator(seed, i, device=device), cfg, device)
+                for i in range(n_slots)]  # fmt: skip
+    n, m = cfg.state_dim, cfg.input_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return SlotState(
+        params=tree_stack(per_slot),
+        opt=tree_stack([adamw_init(p) for p in per_slot]),
+        buf_y=torch.zeros((n_slots, scfg.buf_len, n), **f32),
+        buf_u=torch.zeros((n_slots, scfg.buf_len, m), **f32),
+        theta=torch.zeros((n_slots, cfg.n_terms, n), **f32),
+        delta=torch.full((n_slots,), float("inf"), **f32),
+        loss=torch.full((n_slots,), float("inf"), **f32),
+        mean=torch.zeros((n_slots, n), **f32),
+        scale=torch.ones((n_slots, n), **f32),
+        steps=torch.zeros((n_slots,), **i32),
+        active=torch.zeros((n_slots,), dtype=torch.bool, device=device),
+        stream_id=torch.full((n_slots,), -1, **i32),
+    )
+
+
+@torch.no_grad()
+def admit(state: SlotState, slot: int, stream_id: int, buf_y, buf_u, params, opt) -> SlotState:
+    """Admit one stream into ``slot``, in place.
+
+    The normalization stats come from the admission history and stay FROZEN
+    for the stream's lifetime: re-estimating them as the buffer slides would
+    move the coefficient basis under the optimizer every tick.
+    """
+    dev = state.buf_y.device
+    buf_y = torch.as_tensor(buf_y, dtype=torch.float32, device=dev)
+    mean, scale = buffer_stats(buf_y)
+    tree_write_slot(state.params, slot, params)
+    tree_write_slot(state.opt, slot, opt)
+    state.buf_y[slot] = buf_y
+    state.buf_u[slot] = torch.as_tensor(buf_u, dtype=torch.float32, device=dev)
+    state.theta[slot] = 0.0
+    state.delta[slot] = float("inf")
+    state.loss[slot] = float("inf")
+    state.mean[slot] = mean[0]
+    state.scale[slot] = scale[0]
+    state.steps[slot] = 0
+    state.active[slot] = True
+    state.stream_id[slot] = stream_id
+    return state
+
+
+@torch.no_grad()
+def deactivate(state: SlotState, slot: int) -> SlotState:
+    """Mark a slot empty (no queued stream to admit), in place."""
+    state.active[slot] = False
+    state.stream_id[slot] = -1
+    return state
+
+
+def _slot_windows(buf_y, buf_u, mean, scale, scfg: StreamConfig):
+    """Normalize buffers [..., L, n] with their frozen stats [..., n] and
+    window them: ([..., N, T, n], [..., N, T, m])."""
+    yw = window_views((buf_y - mean.unsqueeze(-2)) / scale.unsqueeze(-2), scfg.window, scfg.stride)
+    return yw, window_views(buf_u, scfg.window, scfg.stride)
+
+
+def _recover_steps(params, opt, yw, uw, generator, steps0, *, cfg: MRConfig, scfg: StreamConfig):
+    """K optimizer steps of every slot on its windows yw [S, N, T, n].
+
+    The learning rate warms up linearly, then decays as the inverse square
+    root of each slot's own step count: the decay lets the readout settle so
+    the delta can fall below ``delta_tol``. Returns (params, opt, recon [S])
+    with recon the last step's reconstruction MSE.
+    """
+    S, n_win = yw.shape[:2]
+    bs = scfg.batch_size or n_win
+    uw = uw if cfg.input_dim else None
+    recon = None
+    for j in range(scfg.steps_per_tick):
+        yb, ub = yw, uw
+        if bs < n_win:
+            idx = torch.randint(0, n_win, (S, bs), generator=generator, device=yw.device)
+            yb, ub = gather_windows(yw, idx), gather_windows(uw, idx)
+        frac = ((steps0 + j).to(torch.float32) + 1.0) / WARMUP_STEPS
+        lr_t = scfg.lr * torch.minimum(frac, torch.rsqrt(frac))
+        params, opt, aux = stacked_train_step(params, opt, cfg, yb, ub, lr_t)
+        recon = aux["recon_mse"]
+    return params, opt, recon
+
+
+def _ema_delta(state: SlotState, theta: torch.Tensor, ema: float):
+    """EMA-smoothed readout and its relative delta (``inf`` for an inactive
+    slot). A fresh slot (step 0, delta still inf) seeds the EMA directly."""
+    seed = (state.steps == 0) & torch.isinf(state.delta)
+    theta = torch.where(seed[:, None, None], theta, ema * state.theta + (1.0 - ema) * theta)
+    change = (theta - state.theta).abs().amax(dim=(1, 2))
+    delta = change / (theta.abs().amax(dim=(1, 2)) + 1e-3)
+    return theta, torch.where(state.active, delta, torch.full_like(delta, float("inf")))
+
+
+def _masked_loss(state: SlotState, recon: torch.Tensor) -> torch.Tensor:
+    return torch.where(state.active, recon, torch.full_like(recon, float("inf")))
+
+
+def tick(
+    state: SlotState,
+    new_y: torch.Tensor,  # [S, C, n] fresh observations (zeros for idle slots)
+    new_u: torch.Tensor,  # [S, C, m]
+    generator: torch.Generator,  # minibatch indices, when scfg.batch_size is set
+    *,
+    cfg: MRConfig,
+    scfg: StreamConfig,
+) -> SlotState:
+    """Composite tick: ingest, K recovery steps and the readout, for ALL slots."""
+    buf_y = roll_buffer(state.buf_y, new_y)
+    buf_u = roll_buffer(state.buf_u, new_u)
+    yw, uw = _slot_windows(buf_y, buf_u, state.mean, state.scale, scfg)
+    uw_in = uw if cfg.input_dim else None
+    if scfg.steps_per_tick:
+        params, opt, recon = _recover_steps(
+            state.params, state.opt, yw, uw, generator, state.steps, cfg=cfg, scfg=scfg
+        )
+        loss = _masked_loss(state, recon)
+    else:
+        # serve/monitor tick: no optimizer steps, readout only
+        params, opt, loss = state.params, state.opt, state.loss
+    theta, delta = _ema_delta(state, stacked_theta(params, cfg, yw, uw_in), scfg.ema)
+    return state._replace(
+        params=params,
+        opt=opt,
+        buf_y=buf_y,
+        buf_u=buf_u,
+        theta=theta,
+        delta=delta,
+        loss=loss,
+        steps=state.steps + scfg.steps_per_tick,
+    )
+
+
+def pack_status(state: SlotState) -> torch.Tensor:
+    """The per-slot eviction scalars ``[delta, loss, steps, active]`` packed
+    into ONE [S, 4] array, so a whole status costs one host readback."""
+    return torch.stack(
+        [state.delta, state.loss, state.steps.to(torch.float32), state.active.to(torch.float32)],
+        dim=-1,
+    )
+
+
+def tick_banked(
+    state: SlotState,
+    new_y: torch.Tensor,  # [S, C, n]
+    new_u: torch.Tensor,  # [S, C, m]
+    generator: torch.Generator,
+    *,
+    cfg: MRConfig,
+    scfg: StreamConfig,
+    slots_per_bank: int = 1,
+) -> tuple[SlotState, torch.Tensor]:
+    """Banked tick: ``tick``'s contract, plus the packed status [S, 4].
+
+    The training segment (K > 0) is the composite tick's code; the serving
+    segment (ring ingest, window scan, head, EMA readout, delta) is one
+    ``mr_tick`` launch on the card (its plain version on the CPU).
+    """
+    if scfg.steps_per_tick:
+        buf_y = roll_buffer(state.buf_y, new_y)
+        buf_u = roll_buffer(state.buf_u, new_u)
+        yw, uw = _slot_windows(buf_y, buf_u, state.mean, state.scale, scfg)
+        params, opt, recon = _recover_steps(
+            state.params, state.opt, yw, uw, generator, state.steps, cfg=cfg, scfg=scfg
+        )
+        loss = _masked_loss(state, recon)
+    else:
+        params, opt, loss = state.params, state.opt, state.loss
+    seed = (state.steps == 0) & torch.isinf(state.delta)
+    buf_y, buf_u, theta, delta = mr_tick(
+        params, cfg, scfg, state.buf_y, state.buf_u, new_y, new_u, state.mean, state.scale,
+        state.theta, seed, state.active, slots_per_bank=slots_per_bank,
+    )  # fmt: skip
+    state = state._replace(
+        params=params,
+        opt=opt,
+        buf_y=buf_y,
+        buf_u=buf_u,
+        theta=theta,
+        delta=delta,
+        loss=loss,
+        steps=state.steps + scfg.steps_per_tick,
+    )
+    return state, pack_status(state)
+
+
+@torch.no_grad()
+def readout_theta(
+    params: MRParams,
+    cfg: MRConfig,
+    yw: torch.Tensor,  # [N, T, n] normalized windows
+    uw: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Serving readout in fp32: the mean over windows of Theta (normalized coords)."""
+    theta, _ = mr_forward(params, cfg, yw, uw)
+    return theta.mean(dim=0)
+
+
+class StreamResult(NamedTuple):
+    """Host-side record for one completed stream."""
+
+    stream_id: int
+    theta: np.ndarray  # [n_terms, n] normalized coordinates
+    mean: np.ndarray  # [n] buffer stats for denormalization
+    scale: np.ndarray  # [n]
+    steps: int
+    reason: str  # "converged" | "budget"
+
+
+class SubmitStatus(enum.Enum):
+    """What ``submit`` did. The host plane queues every stream (ENQUEUED);
+    OVERFLOW and REJECTED belong to the device plane's bounded rings."""
+
+    ENQUEUED = "enqueued"
+    OVERFLOW = "overflow"
+    REJECTED = "rejected"
+
+
+class SubmitResult(NamedTuple):
+    """What ``submit`` did with one stream (see :class:`SubmitStatus`)."""
+
+    status: SubmitStatus
+    stream_id: int
+    shard: int | None = None  # device ring the stream landed in (device plane)
+
+    @property
+    def accepted(self) -> bool:
+        return self.status is not SubmitStatus.REJECTED
+
+
+class RecoveryService:
+    """Host control plane: admission queue, eviction policy, warm-start registry.
+
+    All numerics run in the tick program (``tick`` or ``tick_banked``, bound
+    by the plan); this class moves O(slots) scalars across the host boundary
+    a tick. ``counters["host_syncs"]`` counts every device-to-host readback
+    and ``sync_log`` holds each tick's count: the banked tick reads the packed
+    status once, the composite tick reads delta, steps, active and loss
+    separately, and each eviction reads the evicted slot's record.
+    """
+
+    def __init__(
+        self,
+        cfg: MRConfig,
+        scfg: StreamConfig,
+        n_slots: int,
+        seed: int = 0,
+        device: torch.device | str = "cpu",
+        tick_program=None,
+        warm_capacity: int = 32,
+    ):
+        encoders.validate_config(cfg)
+        self.cfg, self.scfg, self.n_slots = cfg, scfg, n_slots
+        self.seed = seed
+        self.device = torch.device(device)
+        self.counters = {"host_syncs": 0}
+        self.sync_log: list[int] = []
+        self._tick = tick_program or functools.partial(tick, cfg=cfg, scfg=scfg)
+        # minibatch indices of every tick (scfg.batch_size); a spawn path of
+        # its own, apart from the slots' (i,) and the cold starts' (1000 + id,)
+        self.generator = seeded_generator(seed, 0, 0, device=self.device)
+        self.state = init_slots(seed, cfg, scfg, n_slots, self.device)
+        # host admission queue: (stream_id, buf_y, buf_u, priority) entries;
+        # pops take the highest tier first, FIFO within a tier (_queue_pop)
+        self.queue: collections.deque = collections.deque()
+        # bounded LRU warm-start registry (stream_id -> evicted params)
+        self.warm: collections.OrderedDict[int, MRParams] = collections.OrderedDict()
+        self.warm_capacity = int(warm_capacity)
+        self.results: dict[int, StreamResult] = {}
+        self.ticks = 0
+        # host-side view of the per-slot status, refreshed wherever the status
+        # is read anyway, so `done` and `drain()` never force a readback
+        self._active_view = np.zeros((n_slots,), bool)
+        self._slot_view = np.full((n_slots,), -1, np.int64)
+        self._delta_view = np.full((n_slots,), np.inf, np.float32)
+        self._loss_view = np.full((n_slots,), np.inf, np.float32)
+        self._steps_view = np.zeros((n_slots,), np.int64)
+        self._prio_view = np.zeros((n_slots,), np.int64)  # tier per slot
+        self._prio_of: dict[int, int] = {}  # stream_id -> submitted tier
+        self._undrained: list[StreamResult] = []
+        # per-tick wall latency (ms) and one heartbeat a tick for the
+        # straggler detector; serve_mr reports p50/p99
+        self.tick_ms: list[float] = []
+        self.registry = HeartbeatRegistry()
+        self.stragglers = StragglerDetector(self.registry)
+        self.straggler_flags: list[str] = []
+
+    def _host_read(self, leaf: torch.Tensor) -> np.ndarray:
+        """Counted device-to-host readback (one host-sync point), as a copy: a
+        CPU tensor's numpy view would follow the slot's later in-place writes."""
+        self.counters["host_syncs"] += 1
+        return leaf.detach().cpu().numpy().copy()
+
+    # -- warm-start registry (bounded LRU) ----------------------------------
+    def _warm_put(self, stream_id: int, params: MRParams):
+        self.warm[stream_id] = params
+        self.warm.move_to_end(stream_id)
+        while len(self.warm) > self.warm_capacity:
+            self.warm.popitem(last=False)
+
+    def _warm_get(self, stream_id: int) -> MRParams | None:
+        params = self.warm.get(stream_id)
+        if params is not None:
+            self.warm.move_to_end(stream_id)
+        return params
+
+    def _slot_params(self, slot: int) -> MRParams:
+        """A copy of one slot's params (admission overwrites the slot in place)."""
+        return tree_map(lambda a: a.clone(), tree_index(self.state.params, slot))
+
+    # -- admission ----------------------------------------------------------
+    def submit(
+        self,
+        stream_id: int,
+        history_y: np.ndarray,
+        history_u: np.ndarray | None = None,
+        priority: int = 0,
+    ) -> SubmitResult:
+        """Enqueue a stream with its initial buf_len-observation history.
+
+        ``priority`` is the admission tier (0 = default; higher pops first and
+        may preempt a cold lower-tier slot under pressure).
+        """
+        L, m = self.scfg.buf_len, self.cfg.input_dim
+        if history_y.shape != (L, self.cfg.state_dim):
+            raise ValueError(f"history must be [{L}, {self.cfg.state_dim}], got {history_y.shape}")
+        if not 0 <= priority < PRIORITY_LIMIT:
+            raise ValueError(f"priority must be in [0, {PRIORITY_LIMIT}), got {priority}")
+        if history_u is None:
+            history_u = np.zeros((L, m), np.float32)
+        sid = int(stream_id)
+        self._prio_of[sid] = int(priority)
+        self.queue.append((sid, np.asarray(history_y), np.asarray(history_u), int(priority)))
+        return SubmitResult(SubmitStatus.ENQUEUED, sid)
+
+    def _queue_pop(self) -> tuple[int, np.ndarray, np.ndarray, int]:
+        """Pop the entry with the highest tier, FIFO within a tier (``max``
+        keeps the first index on ties)."""
+        best = max(range(len(self.queue)), key=lambda i: self.queue[i][3])
+        entry = self.queue[best]
+        del self.queue[best]
+        return entry
+
+    def _admit_into(self, slot: int):
+        if not self.queue:
+            self.state = deactivate(self.state, slot)
+            self._active_view[slot] = False
+            self._slot_view[slot] = -1
+            self._prio_view[slot] = 0
+            return None
+        stream_id, buf_y, buf_u, prio = self._queue_pop()
+        warm_params = self._warm_get(stream_id)
+        if warm_params is not None:
+            params, opt = warm_params, adamw_init(warm_params)
+        else:
+            params, opt = cold_start(self.seed, stream_id, self.cfg, self.device)
+        self.state = admit(self.state, slot, stream_id, buf_y, buf_u, params, opt)
+        self._active_view[slot] = True
+        self._slot_view[slot] = int(stream_id)
+        self._delta_view[slot] = np.inf
+        self._loss_view[slot] = np.inf
+        self._steps_view[slot] = 0
+        self._prio_view[slot] = int(prio)
+        return stream_id
+
+    def _preempt_host(self):
+        """While a waiting arrival's tier exceeds the lowest-tier COLD active
+        slot (``steps < min_steps``), the victim's params go to the warm
+        registry, the victim re-enters the queue with its LIVE buffers at its
+        own tier, and the arrival takes the slot. Warm slots are never
+        preempted. Terminates: each displacement raises the resident tiers."""
+        while self.queue:
+            prio = max(e[3] for e in self.queue)
+            cold = [
+                s
+                for s in range(self.n_slots)
+                if self._active_view[s] and self._steps_view[s] < self.scfg.min_steps
+            ]
+            if not cold:
+                return
+            victim = min(cold, key=lambda s: (self._prio_view[s], s))
+            if prio <= self._prio_view[victim]:
+                return
+            vid = int(self._slot_view[victim])
+            st = self.state
+            self._warm_put(vid, self._slot_params(victim))
+            self.queue.append(
+                (
+                    vid,
+                    self._host_read(st.buf_y[victim]),
+                    self._host_read(st.buf_u[victim]),
+                    int(self._prio_view[victim]),
+                )
+            )
+            # _admit_into pops by tier: the arrival, not the re-queued victim
+            self._admit_into(victim)
+
+    def fill_slots(self) -> list[int]:
+        """Admit queued streams into every empty slot."""
+        admitted = []
+        active = self._host_read(self.state.active)
+        self._active_view = np.asarray(active, bool).copy()
+        for s in range(self.n_slots):
+            if not active[s] and self.queue:
+                sid = self._admit_into(s)
+                if sid is not None:
+                    admitted.append(sid)
+        return admitted
+
+    # -- the tick loop ------------------------------------------------------
+    def slot_streams(self) -> list[int]:
+        """stream_id per slot (-1 = empty); the caller routes chunks by this."""
+        return [int(i) for i in self._host_read(self.state.stream_id)]
+
+    def _evict(self, slot: int, reason: str) -> StreamResult:
+        st = self.state
+        sid = int(self._host_read(st.stream_id[slot]))
+        res = StreamResult(
+            stream_id=sid,
+            theta=self._host_read(st.theta[slot]),
+            mean=self._host_read(st.mean[slot]),
+            scale=self._host_read(st.scale[slot]),
+            steps=int(self._host_read(st.steps[slot])),
+            reason=reason,
+        )
+        self.results[sid] = res
+        self._undrained.append(res)
+        self._warm_put(sid, self._slot_params(slot))
+        return res
+
+    def tick_once(self, chunks_y: np.ndarray, chunks_u: np.ndarray | None = None) -> dict:
+        """Advance the service one tick; returns an info dict of host scalars."""
+        t0 = time.perf_counter()
+        syncs0 = self.counters["host_syncs"]
+        S, C, m = self.n_slots, self.scfg.chunk, self.cfg.input_dim
+        if chunks_u is None:
+            chunks_u = np.zeros((S, C, m), np.float32)
+        as_dev = lambda x: torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        out = self._tick(self.state, as_dev(chunks_y), as_dev(chunks_u), self.generator)
+        self.ticks += 1
+        # the banked tick returns (state, status[S, 4]): one readback for the
+        # whole eviction scan; the composite tick reads each leaf separately
+        banked = not isinstance(out, SlotState)
+        loss = None
+        if banked:
+            self.state, status = out
+            snap = self._host_read(status)
+            delta, loss = snap[:, 0], snap[:, 1]
+            steps, active = snap[:, 2].astype(np.int64), snap[:, 3] > 0
+        else:
+            self.state = out
+            delta = self._host_read(self.state.delta)
+            steps = self._host_read(self.state.steps)
+            active = self._host_read(self.state.active)
+        self._active_view = np.asarray(active, bool).copy()
+        self._delta_view = np.asarray(delta).copy()
+        if banked:
+            self._loss_view = np.asarray(loss).copy()
+        self._steps_view = np.asarray(steps, np.int64)
+        evicted = []
+        for s in range(S):
+            if not active[s]:
+                continue
+            converged = steps[s] >= self.scfg.min_steps and delta[s] <= self.scfg.delta_tol
+            budget = steps[s] >= self.scfg.max_steps
+            if converged or budget:
+                evicted.append(self._evict(s, "converged" if converged else "budget"))
+                self._admit_into(s)
+        # under pressure a higher-tier waiting arrival may displace a cold slot
+        self._preempt_host()
+        if not banked:
+            self._loss_view = np.array(self._host_read(self.state.loss))
+        info = {
+            "tick": self.ticks,
+            "evicted": evicted,
+            "active": int(self._active_view.sum()),
+            "delta": delta,
+            "loss": self._loss_view,
+            "steps": steps,
+        }
+        self._finish_tick(t0)
+        self.sync_log.append(self.counters["host_syncs"] - syncs0)
+        return info
+
+    def _finish_tick(self, t0: float):
+        """Latency accounting: the tick's wall ms, one heartbeat, straggler check."""
+        dt = time.perf_counter() - t0
+        self.tick_ms.append(dt * 1e3)
+        self.registry.beat("shard0", self.ticks, dt)
+        self.straggler_flags = self.stragglers.check()
+
+    def drain(self) -> list[StreamResult]:
+        """Completed-stream results accumulated since the last drain."""
+        out, self._undrained = self._undrained, []
+        return out
+
+    @property
+    def done(self) -> bool:
+        """True when no stream is queued or running (from the host views)."""
+        return not self.queue and not bool(self._active_view.any())

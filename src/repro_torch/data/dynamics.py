@@ -272,6 +272,32 @@ def true_coef(name: str) -> np.ndarray:
     return np.asarray(get_system(name).true_coef(), float)
 
 
+def embed_true_coef(spec: SystemSpec, n_state: int, n_input: int, order: int) -> np.ndarray:
+    """``spec``'s ground truth in a larger, zero-padded library.
+
+    A mixed stream fleet is padded to common (n_state, n_input, order), so its
+    recovered coefficients live in the padded basis; this maps the spec's
+    [n_terms_spec, state_dim] truth into [n_terms(n_state + n_input, order),
+    n_state], zeros elsewhere. States are named s0.., inputs i0.. on both
+    sides, so every term of the spec's library appears by name in the padded
+    one.
+    """
+    if spec.true_coef is None:
+        raise ValueError(f"system {spec.name!r} has no ground-truth coefficients")
+    if order < spec.order or n_state < spec.state_dim or n_input < spec.input_dim:
+        raise ValueError(f"padded library smaller than {spec.name!r}'s own library")
+    small = np.asarray(spec.true_coef(), float)
+
+    def names(n: int, m: int, k: int) -> list[str]:
+        return term_names(n + m, k, [f"s{i}" for i in range(n)] + [f"i{j}" for j in range(m)])
+
+    ix = {name: k for k, name in enumerate(names(n_state, n_input, order))}
+    big = np.zeros((n_library_terms(n_state + n_input, order), n_state))
+    for k, name in enumerate(names(spec.state_dim, spec.input_dim, spec.order)):
+        big[ix[name], : spec.state_dim] = small[k]
+    return big
+
+
 def generate_trajectory(
     name: str,
     n_samples: int | None = None,

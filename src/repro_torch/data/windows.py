@@ -1,14 +1,20 @@
-"""Windowing of trajectories into training batches (``repro/data/windows.py:20-46``).
+"""Windowing of trajectories into training batches (``repro/data/windows.py``).
 
-Host-side numpy, a copy of the JAX package's ``make_windows``: [T, n]
-trajectories become [N_windows, window, n] batches, z-scored per dimension
-over the whole trajectory (the statistics are returned so recovered
-coefficients map back to physical units).
+Two families, as in the JAX package:
+
+- ``make_windows``: host-side numpy, a copy of the JAX package's: [T, n]
+  trajectories become [N_windows, window, n] batches, z-scored per
+  dimension over the whole trajectory (the statistics are returned so
+  recovered coefficients map back to physical units);
+- ``roll_buffer`` / ``window_views`` / ``buffer_stats``: tensor helpers of the
+  streaming service (``core/stream.py``), which rolls each slot's ring buffer
+  forward and re-windows it on the device every tick.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def make_windows(
@@ -30,3 +36,32 @@ def make_windows(
     if us is not None and us.shape[-1] > 0:
         uw = np.stack([us[s : s + window] for s in starts]).astype(np.float32)
     return yw.astype(np.float32), uw, stats
+
+
+def n_buffer_windows(buf_len: int, window: int, stride: int) -> int:
+    """Number of sliding windows a length-``buf_len`` buffer yields."""
+    if buf_len < window:
+        raise ValueError(f"buffer length {buf_len} shorter than window {window}")
+    return (buf_len - window) // stride + 1
+
+
+def roll_buffer(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Drop the oldest C rows of ``buf`` [..., L, n] and append ``new`` [..., C, n]."""
+    return torch.cat([buf[..., new.shape[-2] :, :], new], dim=-2)
+
+
+def window_views(buf: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Sliding windows over the time axis, [..., L, n] -> [..., N, T, n]: one
+    advanced-index gather, the same slices as ``make_windows``."""
+    n_win = n_buffer_windows(buf.shape[-2], window, stride)
+    idx = np.arange(n_win)[:, None] * stride + np.arange(window)[None, :]
+    return buf[..., torch.as_tensor(idx, device=buf.device), :]
+
+
+def buffer_stats(buf: torch.Tensor, eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-dimension (mean, scale) over the time axis of ``buf`` [..., L, n],
+    each [..., 1, n]. The population std, as ``jnp.std``; a (near-)constant
+    channel, such as a zero-padded state of a mixed fleet, keeps scale 1."""
+    mean = buf.mean(dim=-2, keepdim=True)
+    std = buf.std(dim=-2, correction=0, keepdim=True)
+    return mean, torch.where(std < eps, torch.ones_like(std), std)

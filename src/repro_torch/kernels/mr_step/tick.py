@@ -1,0 +1,161 @@
+"""Banked service tick: the ``mr_tick`` kernel, its wrapper and its dispatch.
+
+Counterpart of ``repro/kernels/mr_step/tick.py`` (``:69-84, 406-560``, fp32).
+The composite service tick (``core/stream.tick``) reads its coefficients out
+as a sequence of plain PyTorch ops: window gather, normalization, the
+per-window encoder scan, the head, the EMA and the delta, hundreds of launches
+a tick. ``mr_tick`` does the whole serving segment (ring ingest, window scan,
+head, EMA readout and delta) for every slot in one launch of
+``csrc/mr_tick.cu``, which replaces ``tick.py:148 mr_tick_pallas``.
+
+``mr_tick`` takes the kernel for CUDA tensors and the plain version
+(``ref.mr_tick_reference``) for CPU tensors; ``force_reference`` wins. The
+tick is serve-only: the K optimizer steps of a training tick stay in the
+stacked train step (``core/stream.tick_banked``), so there is no backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import encoders
+from repro_torch.data.windows import n_buffer_windows, roll_buffer
+from repro_torch.kernels import runtime as rt
+from repro_torch.kernels.mr_step import tiling
+from repro_torch.kernels.mr_step.ops import head_weights
+from repro_torch.kernels.mr_step.ref import mr_tick_reference
+
+
+def tick_supported(cfg) -> bool:
+    """True when the banked tick implements ``cfg``'s encoder cell: the GRU
+    families (one gated update a window step); ``ltc`` and ``node`` stay on
+    the composite tick."""
+    return encoders.get_encoder(cfg.encoder).family == "gru"
+
+
+def mr_tick_cuda(
+    buf_y, new_y, mean, scale, theta0, seed, active, wx, wh, b, time_scale, w1, b1, w2, b2,
+    buf_u=None, new_u=None, *, flow: bool, window: int, stride: int, ema: float,
+    slots_per_bank: int = 1,
+):  # fmt: skip
+    """Launch the banked tick on the current stream.
+
+    Operands as ``mr_tick_reference``'s, with seed and active as float32 [S]
+    (1.0 = true). Returns (buf_y, theta [S, Kc], delta [S][, buf_u]). Counts
+    its launches in ``mr_tick_cuda.launches``.
+    """
+    S, L, n = buf_y.shape
+    C = new_y.shape[1]
+    H = wh.shape[1]
+    D = wx.shape[1]
+    Dh, Ko = w2.shape[1:]
+    Kc = theta0.shape[1]
+    m = D - n
+    N = n_buffer_windows(L, window, stride)
+    dev = buf_y.device
+    operands = dict(
+        buf_y=(buf_y, (S, L, n)),
+        new_y=(new_y, (S, C, n)),
+        mean=(mean, (S, n)),
+        scale=(scale, (S, n)),
+        theta0=(theta0, (S, Kc)),
+        seed=(seed, (S,)),
+        active=(active, (S,)),
+        wx=(wx, (S, D, 3 * H)),
+        wh=(wh, (S, H, 3 * H)),
+        b=(b, (S, 3 * H)),
+        time_scale=(time_scale, (S, H)),
+        w1=(w1, (S, H, Dh)),
+        b1=(b1, (S, Dh)),
+        w2=(w2, (S, Dh, Ko)),
+        b2=(b2, (S, Ko)),
+    )
+    if m > 0:
+        operands.update(buf_u=(buf_u, (S, L, m)), new_u=(new_u, (S, C, m)))
+    rt.check_operands("mr_tick", dev, **operands)
+    if slots_per_bank < 1 or S % slots_per_bank or not 1 <= C <= L or Kc > Ko:
+        raise ValueError(
+            f"mr_tick: slots_per_bank={slots_per_bank} must divide S={S}, chunk C={C} lie "
+            f"in [1, L={L}], Kc={Kc} <= Ko={Ko}"
+        )
+    smem = tiling.tick_smem_bytes(D, H, Dh, Ko, N, window)
+    if smem > tiling.SMEM_BUDGET_BYTES:
+        raise ValueError(f"mr_tick: {smem} bytes of shared memory exceed one block's budget")
+    h0 = torch.zeros(N, H, dtype=torch.float32, device=dev)
+    buf_y_out = torch.empty_like(buf_y)
+    theta = torch.empty((S, Kc), dtype=torch.float32, device=dev)
+    delta = torch.empty((S,), dtype=torch.float32, device=dev)
+    buf_u_out = torch.empty_like(buf_u) if m > 0 else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    tensors = (buf_y, new_y, mean, scale, theta0, seed, active, wx, wh, b, time_scale,
+               w1, b1, w2, b2, h0, buf_u if m > 0 else None, new_u if m > 0 else None,
+               buf_y_out, theta, delta, buf_u_out)  # fmt: skip
+    err = rt.load_library().mr_tick_launch(
+        *(ptr(t) for t in tensors),
+        S, L, n, m, C, window, stride, H, Dh, Ko, Kc, slots_per_bank, int(flow),
+        ema, 1.0 - ema, rt.current_stream(dev),
+    )  # fmt: skip
+    rt.check_launch("mr_tick", err)
+    mr_tick_cuda.launches += 1
+    return (buf_y_out, theta, delta, buf_u_out) if m > 0 else (buf_y_out, theta, delta)
+
+
+mr_tick_cuda.launches = 0
+
+
+def tick_weights(params, cfg) -> tuple:
+    """A slot-stacked MRParams as the tick's weight operands (wx, wh, b,
+    time_scale, w1, b1, w2, b2), the QAT weight treatment applied."""
+    enc = encoders.quantized_gru_params(params.encoder, cfg)
+    d_in = cfg.state_dim + cfg.input_dim
+    return (enc.w[:, :d_in], enc.w[:, d_in:], enc.b, enc.time_scale, *head_weights(params, cfg))
+
+
+@torch.no_grad()
+def mr_tick(
+    params,  # slot-stacked merinda.MRParams (every leaf has leading axis S)
+    cfg,  # merinda.MRConfig of a GRU-family encoder
+    scfg,  # stream.StreamConfig: window, stride, chunk, ema
+    buf_y: torch.Tensor,  # [S, L, n] pre-roll buffers
+    buf_u: torch.Tensor,  # [S, L, m] (m may be 0)
+    new_y: torch.Tensor,  # [S, C, n]
+    new_u: torch.Tensor,  # [S, C, m]
+    mean: torch.Tensor,  # [S, n]
+    scale: torch.Tensor,  # [S, n]
+    theta_prev: torch.Tensor,  # [S, n_terms, n] previous EMA readout
+    seed: torch.Tensor,  # [S] bool: seed the EMA this tick
+    active: torch.Tensor,  # [S] bool
+    *,
+    slots_per_bank: int = 1,
+    force_reference: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-launch serve tick: (buf_y, buf_u, theta [S, n_terms, n], delta [S]).
+
+    The QAT weight treatment (``quantized_gru_params``, ``head_weights``) is
+    applied to the weights before the launch, as in the JAX wrapper.
+    """
+    if not tick_supported(cfg):
+        raise ValueError(
+            f"mr_tick banks the GRU families only; got encoder={cfg.encoder!r} "
+            f"— use the composite tick"
+        )
+    S = buf_y.shape[0]
+    has_u = cfg.input_dim > 0
+    theta0 = theta_prev.reshape(S, cfg.n_coef)
+    u_args = (buf_u, new_u) if has_u else (None, None)
+    tensors = (buf_y, new_y, mean, scale, theta0, seed, active, *tick_weights(params, cfg),
+               *u_args)  # fmt: skip
+    kw = dict(
+        flow=encoders.get_encoder(cfg.encoder).flow,
+        window=scfg.window,
+        stride=scfg.stride,
+        ema=scfg.ema,
+    )
+    if rt.resolve_dispatch(buf_y, force_reference) is rt.Dispatch.REFERENCE:
+        out = mr_tick_reference(*tensors, **kw)
+    else:
+        f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
+        out = mr_tick_cuda(*map(f32, tensors), slots_per_bank=slots_per_bank, **kw)
+    buf_y2, theta_flat, delta = out[:3]
+    buf_u2 = out[3] if has_u else roll_buffer(buf_u, new_u)
+    return buf_y2, buf_u2, theta_flat.reshape(S, cfg.n_terms, cfg.state_dim), delta

@@ -15,6 +15,13 @@ Each ``*_smem_bytes`` function counts exactly what its kernel carves. The
 callers name the kernel by its family: the encoder row's ``family`` (the
 field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
 ``"gru_scan"`` for the bare scan.
+
+The banked service tick (``csrc/mr_tick.cu``) runs one block per bank of
+slots and takes the bank's slots in turn, so its carve
+(``tick_smem_bytes``) holds one slot and does not grow with the bank; the
+bank size (``auto_slots_per_bank``) only decides how many blocks share the
+slots. On the TPU the whole slot set was one bank, so nothing streamed; here
+the grid keeps ``min(S, 132)`` blocks, one slot each for S <= 132.
 """
 
 from __future__ import annotations
@@ -134,3 +141,37 @@ def legal_block_b(block_b: int | None, batch: int) -> int | None:
     ``repro/kernels/mr_step/ops.py:197-203`` does.
     """
     return block_b if block_b and batch % block_b == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# the banked service tick (csrc/mr_tick.cu)
+# ---------------------------------------------------------------------------
+def tick_smem_bytes(D: int, H: int, Dh: int, Ko: int, N: int, T: int) -> int:
+    """``mr_tick``: one slot's GRU scan and head (with its N windows as the
+    tile), the normalized window set [N, T, D], the flow gate's dts [T] and
+    the head output [N, Ko]."""
+    return smem_bytes(D, H, Dh, Ko, N) + 4 * (N * T * D + T + N * Ko)
+
+
+def config_tick_smem_bytes(cfg, scfg) -> int:
+    """``tick_smem_bytes`` of one ``MRConfig`` under one ``StreamConfig``."""
+    return tick_smem_bytes(*_shape(cfg), scfg.n_windows, scfg.window)
+
+
+def slots_per_bank_candidates(n_slots: int) -> list[int]:
+    """Every bank size that divides ``n_slots``, largest first."""
+    if n_slots < 1:
+        return []
+    return [d for d in range(n_slots, 0, -1) if n_slots % d == 0]
+
+
+def auto_slots_per_bank(cfg, scfg, n_slots: int, smem_budget_bytes: int | None = None) -> int:
+    """Largest divisor of ``n_slots`` that leaves at least ``min(n_slots,
+    N_SMS)`` blocks, when one slot's carve fits the budget; 0 when it does
+    not (``compile_plan`` then keeps ``tick_kernel="auto"`` on the composite
+    tick)."""
+    budget = SMEM_BUDGET_BYTES if smem_budget_bytes is None else smem_budget_bytes
+    if n_slots < 1 or config_tick_smem_bytes(cfg, scfg) > budget:
+        return 0
+    min_blocks = min(n_slots, N_SMS)
+    return next(d for d in slots_per_bank_candidates(n_slots) if n_slots // d >= min_blocks)

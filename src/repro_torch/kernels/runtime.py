@@ -56,6 +56,10 @@ LAUNCHERS = {
     "mr_step_node_launch": [_P] * 13 + [_I] * 10 + [_F, _P],
     # xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, block_b, flow, stream
     "gru_scan_launch": [_P] * 8 + [_I] * 6 + [_P],
+    # buf_y, new_y, mean, scale, theta0, seed, active, wx, wh, b, time_scale, w1, b1,
+    # w2, b2, h0, buf_u, new_u, buf_y_out, theta_out, delta_out, buf_u_out,
+    # S, L, n, m, C, T, stride, H, Dh, Ko, Kc, bank, flow, ema, one_minus_ema, stream
+    "mr_tick_launch": [_P] * 22 + [_I] * 13 + [_F, _F, _P],
 }
 
 
@@ -179,12 +183,18 @@ def reference_vjp(fn, inputs, needs_grad, grad_out) -> tuple:
     The backward of every kernel here: the JAX package differentiates its
     reference program (``repro/kernels/mr_step/ops.py:60-62``), so the port
     runs the plain version under ``torch.enable_grad()`` and pulls
-    ``grad_out`` back through it. ``None`` for inputs that need no gradient.
+    ``grad_out`` back through it. ``None`` for inputs that need no gradient,
+    zeros for one the plain version does not read (the standard GRU's
+    ``time_scale``), as ``jax.vjp`` gives.
     """
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(bool(n)) for x, n in zip(inputs, needs_grad)]
         wrt = [x for x, n in zip(leaves, needs_grad) if n]
         if not wrt:
             return (None,) * len(inputs)
-        grads = iter(torch.autograd.grad(fn(*leaves), wrt, grad_out, allow_unused=True))
+        grads = iter(
+            torch.autograd.grad(
+                fn(*leaves), wrt, grad_out, allow_unused=True, materialize_grads=True
+            )
+        )
     return tuple(next(grads) if n else None for n in needs_grad)

@@ -3,6 +3,10 @@
 m and v are float32 whatever the parameters' type, and the weight decay is
 decoupled (Loshchilov & Hutter): applied to the parameter, not folded into
 the moment. The state mirrors the parameters' structure.
+
+A state whose ``step`` is [S] updates a tree stacked along a leading slot
+axis, each slot with its own step count and learning rate (``lr`` a float or
+an [S] tensor): what ``jax.vmap`` of the update gives in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class AdamWState(NamedTuple):
-    step: torch.Tensor  # scalar int32
+    step: torch.Tensor  # int32: a scalar, or [S] for a slot-stacked tree
     m: Any  # like params, float32
     v: Any  # like params, float32
 
@@ -47,13 +51,18 @@ def adamw_update(
     bc1 = 1.0 - torch.pow(b1, stepf)
     bc2 = 1.0 - torch.pow(b2, stepf)
 
+    def per_slot(x, like):
+        if isinstance(x, torch.Tensor) and x.ndim == 1:
+            return x.reshape(x.shape + (1,) * (like.ndim - 1))
+        return x
+
     def upd(g, m, v, p):
         g32 = g.to(torch.float32)
         m = b1 * m + (1.0 - b1) * g32
         v = b2 * v + (1.0 - b2) * g32.square()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        delta = (m / per_slot(bc1, m)) / (torch.sqrt(v / per_slot(bc2, v)) + eps)
         p32 = p.to(torch.float32)
-        new_p = p32 - lr * (delta + weight_decay * p32)
+        new_p = p32 - per_slot(lr, p32) * (delta + weight_decay * p32)
         return new_p.to(p.dtype), m, v
 
     leaves = [tree_leaves(t) for t in (grads, state.m, state.v, params)]

@@ -34,7 +34,7 @@ from repro.data.windows import make_windows as jmake_windows
 from repro.optim import adamw as jadamw
 from repro.optim import clip as jclip
 from repro_torch import convert
-from repro_torch.api import RecoverySpec
+from repro_torch.api import RecoverySpec, TickSpec
 from repro_torch.core import encoders, library, ode
 from repro_torch.core.merinda import MRConfig
 from repro_torch.core.neural_flow import GRUParams, gru_scan_ref
@@ -206,13 +206,20 @@ def test_encoder_registry_has_the_gru_rows_and_refuses_the_rest():
 
 
 def test_unported_options_raise():
-    """QAT and the ltc/node encoders are ported; batch, stream and int8 are not."""
+    """QAT, the ltc/node encoders and the batch and stream modes are ported;
+    int8 serving, a slot mesh, the device control plane and service
+    checkpoints are not."""
     cfg = MRConfig(state_dim=2, encoder="ltc", quant=QuantConfig(4, 10, 2, 12))
     assert cfg.quant.act_bits == 14 and cfg.ltc_substeps == 6
     assert RecoverySpec(state_dim=2, encoder="node", qat=QuantConfig()).to_mr_config().quant
-    for kw in (dict(mode="batch"), dict(mode="stream"), dict(precision="int8_pwl")):
+    assert RecoverySpec(state_dim=2, mode="batch").mode == "batch"
+    assert RecoverySpec(state_dim=2, mode="stream").stream_config().n_windows == 17
+    for kw in (dict(precision="int8_pwl"), dict(mode="stream", mesh_slots=2)):
         with pytest.raises(ValueError, match="not yet ported"):
             RecoverySpec(state_dim=2, **kw)
+    for kw in (dict(control="device"), dict(checkpoint_period=1)):
+        with pytest.raises(ValueError, match="not yet ported"):
+            TickSpec(**kw)
 
 
 def test_tiling_fits_shared_memory_and_fills_the_card():

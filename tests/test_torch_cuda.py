@@ -6,6 +6,10 @@ so it runs on a machine with a card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
+The banked service tick (``mr_tick``) is held to its plain version as the
+JAX tick tests hold theirs: rolled buffers bit for bit, theta and delta
+within 1e-5, and a banked service in lockstep with a composite one.
+
 Tolerance: <= 1e-4 in float32, the JAX package's bound for its fused kernels;
 the kernel sums the gate products in another order than the plain version.
 The head's activation step is checked at the coarse format Q2.3, which moves
@@ -17,10 +21,13 @@ left out of that comparison, and at least three quarters must remain.
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import api
 from repro_torch.core import merinda
+from repro_torch.core.stream import StreamConfig
 from repro_torch.core.ltc import LTCParams, ltc_scan, ltc_sub_dt
 from repro_torch.core.node_mr import NodeEncoderParams, node_scan, node_sub_dt
 from repro_torch.core.quant import QuantConfig
@@ -38,7 +45,8 @@ from repro_torch.kernels.mr_step.ref import (
     mr_step_node_reference,
     mr_step_reference,
 )
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda
+from repro_torch.tree import tree_leaves, tree_stack, tree_unflatten
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 COARSE_BITS = (2, 3)
@@ -181,6 +189,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     [
         ("gru_flow", True, None),
         ("gru_flow_kernel", False, None),
+        ("gru", True, None),
+        ("gru_kernel", False, None),
         ("gru_flow", True, QuantConfig(4, 10, 2, 12)),
         ("ltc", True, None),
         ("node", True, None),
@@ -188,7 +198,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ],
 )
 def test_gradients_through_the_kernels_match_plain(dev, encoder, fused, quant):
-    """The autograd Functions' backward (plain recompute) against plain autograd."""
+    """The autograd Functions' backward (plain recompute) against plain autograd.
+    The standard GRU never reads ``time_scale``: its gradient is 0 on both sides."""
     cfg = merinda.MRConfig(
         state_dim=2, hidden=32, dense_hidden=64, encoder=encoder, fused=fused, quant=quant
     )
@@ -199,7 +210,8 @@ def test_gradients_through_the_kernels_match_plain(dev, encoder, fused, quant):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
         loss, _ = merinda.mr_loss(p, cfg, ys, None, force_reference=force)
-        results.append([loss, *torch.autograd.grad(loss, leaves)])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        results.append([loss, *grads])
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, **TOL)
 
@@ -223,3 +235,111 @@ def test_dispatch_launches_the_kernel_on_a_cuda_tensor(dev):
             mr_step(sub_params, sub, xs)
             mr_step(sub_params, sub, xs, force_reference=True)
         assert kernel.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the banked service tick
+# ---------------------------------------------------------------------------
+TICK_BASE = dict(state_dim=3, order=2, hidden=8, dense_hidden=16, dt=0.01)
+TCFG = StreamConfig(
+    buf_len=16, window=8, stride=4, chunk=4, steps_per_tick=0, min_steps=10**9, max_steps=10**9
+)
+SERVE = dict(state_dim=3, input_dim=1, order=2, hidden=32, dense_hidden=64, dt=0.01)
+
+
+def _tick_operands(cfg, scfg, S, device, seed=0):
+    """Slot-stacked params and random tick operands; slot S-1 is inactive and
+    every other slot seeds its EMA."""
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(device)
+    params = tree_stack(
+        [merinda.init_mr(torch.Generator().manual_seed(seed + i), cfg, "cpu") for i in range(S)]
+    )
+    params = tree_unflatten(params, [t.to(device) for t in tree_leaves(params)])
+    n, m, L, C = cfg.state_dim, cfg.input_dim, scfg.buf_len, scfg.chunk
+    return (
+        params, mk(S, L, n), mk(S, L, m), mk(S, C, n), mk(S, C, m), mk(S, n, scale=0.1),
+        0.5 + torch.rand(S, n, generator=g).to(device), mk(S, cfg.n_terms, n, scale=0.3),
+        torch.tensor([True, False] * (S // 2), device=device),
+        torch.tensor([True] * (S - 1) + [False], device=device),
+    )  # fmt: skip
+
+
+TICK_SWEEP = [  # (encoder, m, slots_per_bank, geometry)
+    ("gru", 0, 1, "test"), ("gru", 2, 2, "test"), ("gru", 0, 4, "test"),
+    ("gru_flow", 0, 2, "test"), ("gru_flow", 2, 1, "test"),
+    ("gru", 1, 1, "serve"), ("gru_flow", 1, 2, "serve"), ("gru_flow", 1, 4, "serve"),
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("encoder,m,spb,geometry", TICK_SWEEP)
+def test_mr_tick_matches_plain(dev, encoder, m, spb, geometry):
+    if geometry == "serve":
+        cfg, scfg = merinda.MRConfig(encoder=encoder, **SERVE), StreamConfig()
+    else:
+        cfg, scfg = merinda.MRConfig(input_dim=m, encoder=encoder, **TICK_BASE), TCFG
+    ops = _tick_operands(cfg, scfg, 4, dev)
+    before = mr_tick_cuda.launches
+    out = mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=spb)
+    torch.cuda.synchronize()
+    assert mr_tick_cuda.launches == before + 1
+    want = mr_tick(ops[0], cfg, scfg, *ops[1:], force_reference=True)
+    assert mr_tick_cuda.launches == before + 1
+    torch.testing.assert_close(out[0], want[0], atol=0, rtol=0)  # rolled buffers
+    torch.testing.assert_close(out[1], want[1], atol=0, rtol=0)
+    torch.testing.assert_close(out[2], want[2], atol=1e-5, rtol=0)  # theta
+    assert torch.isinf(out[3][-1]) and torch.isfinite(out[3][:-1]).all()
+    torch.testing.assert_close(out[3], want[3], atol=1e-5, rtol=0)  # delta
+
+
+def test_mr_tick_does_not_depend_on_the_bank(dev):
+    cfg = merinda.MRConfig(encoder="gru_flow", **SERVE)
+    ops = _tick_operands(cfg, StreamConfig(), 4, dev, seed=3)
+    outs = [mr_tick(ops[0], cfg, StreamConfig(), *ops[1:], slots_per_bank=b) for b in (1, 2, 4)]
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+LOCKSTEP = StreamConfig(
+    buf_len=32, window=8, stride=8, chunk=8, steps_per_tick=2, min_steps=10**9, max_steps=10**9
+)
+
+
+def _lockstep_services(tick_kernel_names, dev, encoder="gru_flow"):
+    rng = np.random.default_rng(0)
+    data = np.cumsum(rng.standard_normal((64, 3)).astype(np.float32) * 0.1, axis=0)
+    services = {}
+    for kernel in tick_kernel_names:
+        spec = api.RecoverySpec(
+            mode="stream", n_slots=2, stream=LOCKSTEP, encoder=encoder, seed=0, **TICK_BASE,
+            tick=api.TickSpec(steps_per_tick=LOCKSTEP.steps_per_tick, tick_kernel=kernel),
+        )  # fmt: skip
+        svc = api.compile_plan(spec, device=dev).make_service()
+        for sid in range(2):
+            svc.submit(sid, data[sid : sid + LOCKSTEP.buf_len])
+        svc.fill_slots()
+        services[kernel] = svc
+    chunks = [np.repeat(data[32 + 8 * t : 40 + 8 * t][None], 2, axis=0) for t in range(3)]
+    return services, chunks
+
+
+def test_banked_service_launches_mr_tick_once_a_tick(dev):
+    services, chunks = _lockstep_services(["banked"], dev)
+    before = (mr_tick_cuda.launches, mr_step_cuda.launches, gru_scan_cuda.launches)
+    services["banked"].tick_once(chunks[0])
+    after = (mr_tick_cuda.launches, mr_step_cuda.launches, gru_scan_cuda.launches)
+    assert after == (before[0] + 1, before[1], before[2])
+
+
+def test_banked_matches_composite_service_on_the_card(dev):
+    services, chunks = _lockstep_services(["banked", "composite"], dev)
+    for chunk in chunks:
+        info_b = services["banked"].tick_once(chunk)
+        info_c = services["composite"].tick_once(chunk)
+        np.testing.assert_allclose(info_b["delta"], info_c["delta"], atol=1e-5)
+    sb, sc = services["banked"].state, services["composite"].state
+    for a, b in zip(tree_leaves(sb.params), tree_leaves(sc.params)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    torch.testing.assert_close(sb.theta, sc.theta, atol=1e-5, rtol=0)
+    assert torch.equal(sb.steps, sc.steps)
