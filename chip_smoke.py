@@ -61,6 +61,31 @@ prints no result):
     kernels a step or tick launches and their busy time. It runs last: a
     process the profiler has traced launches more slowly afterwards.
 
+The int8/PWL serving slice adds, each checked the same way:
+
+- in phase 2, ``gru_scan_int8``, ``mr_step_int8`` and ``mr_step_ltc_int8`` at
+  every shape above on the int8 quantization of the same operands, and in
+  phase 6 ``mr_tick_int8`` at the serve and JAX test shapes, banks 1, 2 and
+  4: max abs error <= 1e-5 against the plain version (the tick's buffers bit
+  for bit), and each output at least 1e-4 from its fp32 twin's;
+- 4b. the standard GRU trained at ``precision="int8_pwl"`` (300 steps,
+  ``mr_step``) and read out once through ``mr_step_int8``; phase 4's LTC read
+  out once through an ``int8_pwl`` plan (``mr_step_ltc_int8``); the same
+  outcome limits, and no other kernel;
+- 8b. ``serve_mr --quant`` at 4 streams (one wave): every stream within the
+  baseline tolerance, ``mr_tick`` once a tick, ``mr_step_int8`` once an
+  eviction, no other kernel, median host syncs a tick at most 1;
+- 8c. a K=0 banked ``int8_pwl`` monitor at the serve width, its 4 slots
+  admitted warm with phase 8's evicted parameters, 10 ticks in lockstep with
+  an fp32 twin: ``mr_tick_int8`` once a tick and no other kernel, every tick
+  within 1e-5 of the plain int8 tick on the same state (buffers bit for
+  bit), theta within 0.25 of the twin's and at least 1e-4 from it; then
+  phase 6's serve-shape operands with initial and with trained weights, the
+  int8-to-fp32 gap split into the weight codes' and the PWL tables' shares
+  (printed, not bounded);
+- in phase 9, the four int8 kernels' times beside their plain versions, their
+  bounds and their fp32 twins.
+
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -123,6 +148,21 @@ SERVE_WIDTH = dict(state_dim=3, input_dim=1, order=2, hidden=32, dense_hidden=64
 # this script well inside its time limit (two waves through the 4 slots, so every
 # slot is still re-admitted from the queue; the step budget is unchanged)
 SERVE_ARGS = ["--tick-kernel", "banked", "--streams", "8", "--slots", "4", "--device", "cuda"]
+# the int8 service: serve_mr --quant at 4 streams, one wave through the 4 slots (a
+# cut for time: the 8-stream run above already covers re-admission)
+QUANT_ARGS = ["--quant", "--tick-kernel", "banked", "--streams", "4", "--slots", "4", "--device",
+              "cuda"]  # fmt: skip
+# the int8/PWL kernels against their plain versions: the fp32 kernels measure
+# 1.1e-7 to 3.6e-7, the quantization itself moves the readout by ~3.4e-3
+INT8_TOL = 1e-5
+QUANT_GAP = 1e-4  # the least an int8 output must differ from its fp32 twin's
+MONITOR_TICKS = 10
+MONITOR_TOL = 0.25  # int8 against fp32 monitor readout (tests/test_tick.py:119)
+# elementwise operations per hidden unit and step of the int8 cells besides the
+# products and their per-column scale multiplies: GRU: 3 PWL evaluations (~8
+# each), bias adds, r*h, the update; LTC substep: 1 PWL evaluation and the
+# semi-implicit update
+ELEMENTWISE_INT8 = {"gru": 34, "ltc": 14}
 
 
 def log(msg: str) -> None:
@@ -213,6 +253,28 @@ def work(family, B, T, D, H, Dh, K, n_sub=SUBSTEPS, head=True) -> tuple[float, f
     return flops + head_flops, 4 * (B * T * D + B * H + weights + head_weights + B * K)
 
 
+def work_int8(family, B, T, D, H, Dh, K, n_sub=SUBSTEPS, head=True) -> tuple[float, float]:
+    """(operations, bytes) of one int8/PWL call: a multiply-add for every
+    weight use and one scale multiply for every output column of a product
+    (the scale factors out of the sum); int8 weights are read as one byte
+    each, their scales, the biases and the PWL tables as floats."""
+    from repro_torch.core.quant import PWL_FLOATS
+
+    e = ELEMENTWISE_INT8[family]
+    tables = 2 * PWL_FLOATS
+    if family == "gru":  # x·Wx and h·Wh, each scaled per column of 3H
+        flops = B * T * (2 * (D + H) * 3 * H + 2 * 3 * H + e * H)
+        wbytes = (D + H) * 3 * H + 4 * (3 * 3 * H + tables)
+    else:  # x·W_in once a step, h·W_rec every substep, each scaled per column of H
+        flops = B * T * (2 * D * H + H + H) + B * T * n_sub * (2 * H * H + H + e * H)
+        wbytes = D * H + H * H + 4 * (5 * H + PWL_FLOATS)
+    if not head:
+        return flops, 4 * (B * T * D + B * H + B * T * H) + wbytes
+    head_flops = B * (2 * H * Dh + Dh + 2 * Dh * K + K + 3 * H + 2 * Dh + K)
+    head_bytes = H * Dh + Dh * K + 4 * (2 * Dh + 2 * K)
+    return flops + head_flops, 4 * (B * T * D + B * H + B * K) + wbytes + head_bytes
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take: the larger of operations over the
     float32 peak and bytes over the memory rate."""
@@ -234,6 +296,22 @@ def tick_work(S, L, C, n, m, N, T, H, Dh, Ko, Kc) -> tuple[float, float]:
     reads = L * D + C * D + 2 * n + Kc + 2 + weights
     writes = L * D + Kc + 1
     return flops, 4 * S * (reads + writes)
+
+
+def tick_work_int8(S, L, C, n, m, N, T, H, Dh, Ko, Kc) -> tuple[float, float]:
+    """``tick_work`` of ``mr_tick_int8``: the int8 cell and head (a
+    multiply-add a weight use, a scale multiply an output column), one-byte
+    weights beside float scales and biases, the two PWL tables read once."""
+    from repro_torch.core.quant import PWL_FLOATS
+
+    D = n + m
+    flops = S * N * T * (2 * D * 3 * H + 2 * H * 3 * H + 2 * 3 * H + ELEMENTWISE_INT8["gru"] * H)
+    flops += S * N * (2 * H * Dh + Dh + 2 * Dh * Ko + Ko + 3 * H + 2 * Dh + Ko)
+    flops += S * (N * T * D * 2 + Kc * (N + 8))
+    weights = (D + H) * 3 * H + H * Dh + Dh * Ko + 4 * (3 * 3 * H + 2 * Dh + 2 * Ko)
+    reads = 4 * (L * D + C * D + 2 * n + Kc + 2) + weights
+    writes = 4 * (L * D + Kc + 1)
+    return flops, S * (reads + writes) + 4 * 2 * PWL_FLOATS
 
 
 def time_ms(fn, runs: int = 25, per_run: int = 10) -> float:
@@ -262,21 +340,43 @@ def main() -> None:
     from repro_torch.core.library import term_names
     from repro_torch.core.ltc import LTCParams, ltc_scan, ltc_sub_dt
     from repro_torch.core.node_mr import NodeEncoderParams, node_scan, node_sub_dt
-    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.quant import (
+        QuantConfig,
+        make_sigmoid_table,
+        make_tanh_table,
+        quantize_int8,
+        serving_packs,
+        serving_tables,
+    )
     from repro_torch.data.dynamics import generate_trajectory, get_system
     from repro_torch.data.windows import make_windows
     from repro_torch.kernels import runtime as rt
-    from repro_torch.kernels.gru_scan.ops import gru_scan_cuda
-    from repro_torch.kernels.gru_scan.ref import gru_scan_reference
+    from repro_torch.kernels.gru_scan.ops import gru_scan_cuda, gru_scan_int8_cuda
+    from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
     from repro_torch.kernels.mr_step import tiling
-    from repro_torch.kernels.mr_step.ops import mr_step_cuda, mr_step_ltc_cuda, mr_step_node_cuda
+    from repro_torch.kernels.mr_step.ops import (
+        int8_weights,
+        mr_step_cuda,
+        mr_step_int8_cuda,
+        mr_step_ltc_cuda,
+        mr_step_ltc_int8_cuda,
+        mr_step_node_cuda,
+    )
     from repro_torch.kernels.mr_step.ref import (
+        mr_step_int8_reference,
+        mr_step_ltc_int8_reference,
         mr_step_ltc_reference,
         mr_step_node_reference,
         mr_step_reference,
+        mr_tick_int8_reference,
     )
     from repro_torch.core import stream
-    from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda, tick_weights
+    from repro_torch.kernels.mr_step.tick import (
+        mr_tick,
+        mr_tick_cuda,
+        mr_tick_int8_cuda,
+        tick_weights,
+    )
     from repro_torch.launch import serve_mr
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves, tree_map, tree_stack
@@ -290,7 +390,12 @@ def main() -> None:
         "mr_step_node": mr_step_node_cuda,
         "gru_scan": gru_scan_cuda,
         "mr_tick": mr_tick_cuda,
+        "gru_scan_int8": gru_scan_int8_cuda,
+        "mr_step_int8": mr_step_int8_cuda,
+        "mr_step_ltc_int8": mr_step_ltc_int8_cuda,
+        "mr_tick_int8": mr_tick_int8_cuda,
     }
+    tables = serving_tables()
     substep = {  # family -> (kernel, plain version, sub_dt)
         "ltc": (mr_step_ltc_cuda, mr_step_ltc_reference, ltc_sub_dt),
         "node": (mr_step_node_cuda, mr_step_node_reference, node_sub_dt),
@@ -313,6 +418,54 @@ def main() -> None:
 
     def plain_substep(family, ops, n_sub=SUBSTEPS, act_bits=None):
         return substep[family][1](*ops, dt=DT, n_substeps=n_sub, act_bits=act_bits)
+
+    def quantized(ops, family):
+        """The int8 operands of fp32 kernel operands: (activation inputs,
+        [Int8Quantized cell and head weights], float vectors)."""
+        if family == "gru":  # xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2
+            xs, h0, wx, wh, b, _, dts, w1, b1, w2, b2 = ops
+            return (xs, h0, dts), [quantize_int8(w) for w in (wx, wh, w1, w2)], (b, b1, b2)
+        xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2 = ops  # ltc
+        return ((xs, h0), [quantize_int8(w) for w in (w_in, w_rec, w1, w2)],
+                (bias, a, inv_tau, b1, b2))  # fmt: skip
+
+    def launch_int8(family, ops, head=True):
+        return int8_kernel(family, ops, head)()
+
+    def int8_kernel(family, ops, head=True):
+        """A launch of an int8 kernel at the fitted tile on operands quantized
+        once: mr_step_int8 (``head``) or gru_scan_int8 for the GRU,
+        mr_step_ltc_int8 for the LTC."""
+        act, (qa, qb, q1, q2), vec = quantized(ops, family)
+        B, _, D = act[0].shape
+        H, (Dh, K) = act[1].shape[1], q2.values.shape
+        sig, tanh = serving_packs(dev)
+        flat = lambda q: q.scale.reshape(-1)
+        head_ops = (q1.values, flat(q1), vec[-2], q2.values, flat(q2), vec[-1])
+        if family == "ltc":
+            bb = tiling.fit_block_b("ltc", B, D, H, Dh, K, int8=True)
+            args = (*act, qa.values, flat(qa), qb.values, flat(qb), *vec[:3], sig, *head_ops)
+            kw = dict(sub_dt=ltc_sub_dt(DT, SUBSTEPS), n_substeps=SUBSTEPS, block_b=bb)
+            return lambda: mr_step_ltc_int8_cuda(*args, **kw)
+        cell = (*act[:2], qa.values, qb.values, flat(qa), flat(qb), vec[0], sig, tanh)
+        if not head:
+            bb = tiling.fit_block_b("gru_scan", B, D, H, int8=True)
+            return lambda: gru_scan_int8_cuda(*cell, block_b=bb)
+        bb = tiling.fit_block_b("gru", B, D, H, Dh, K, int8=True)
+        return lambda: mr_step_int8_cuda(*cell, *head_ops, block_b=bb)
+
+    def plain_int8(family, ops, head=True):
+        act, (qa, qb, q1, q2), vec = quantized(ops, family)
+        head_ops = (q1.values, q1.scale, vec[-2], q2.values, q2.scale, vec[-1])
+        if family == "ltc":
+            return mr_step_ltc_int8_reference(
+                *act, qa.values, qa.scale, qb.values, qb.scale, *vec[:3], *head_ops, tables[0],
+                dt=DT, n_substeps=SUBSTEPS,
+            )  # fmt: skip
+        cell = (*act[:2], qa.values, qb.values, qa.scale, qb.scale, vec[0], act[2])
+        if not head:
+            return gru_scan_int8_reference(*cell, *tables)
+        return mr_step_int8_reference(*cell, *head_ops, *tables)
 
     def plain_summary(family, ops):
         """The plain encoder's final state [B, H]: what the head normalizes."""
@@ -352,10 +505,18 @@ def main() -> None:
     # -- 2. kernel parity ------------------------------------------------------
     err = dict.fromkeys(counters, 0.0)
 
-    def record(kernel: str, label: str, e: float) -> None:
+    def record(kernel: str, label: str, e: float, tol: float = TOL) -> None:
         log(f"[parity] {label}: {kernel} {e:.3e}")
-        check(e <= TOL, f"{kernel} parity at {label}")
+        check(e <= tol, f"{kernel} parity at {label}")
         err[kernel] = max(err[kernel], e)
+
+    def record_int8(kernel: str, label: str, out, want, fp32_out) -> None:
+        """An int8 kernel within INT8_TOL of its plain version, and at least
+        QUANT_GAP from its fp32 twin's output on the same operands."""
+        gap = (out - fp32_out).abs().max().item()
+        record(kernel, f"{label} (int8 against fp32 {gap:.3e})", (out - want).abs().max().item(),
+               INT8_TOL)  # fmt: skip
+        check(gap >= QUANT_GAP, f"{kernel} differs from its fp32 twin by {gap:.3e} at {label}")
 
     def record_coarse(kernel, label, out_q, out, want_q, h) -> None:
         keep = settled(h)
@@ -398,6 +559,14 @@ def main() -> None:
                 mr_step_reference(*ops, flow=True, act_bits=COARSE_BITS),
                 plain_summary("gru", ops),
             )
+            # the int8/PWL twins of the standard GRU (flow=False) on the same operands
+            out = launch_int8("gru", ops)
+            hs = launch_int8("gru", ops, head=False)
+            torch.cuda.synchronize()
+            record_int8("mr_step_int8", shape, out, plain_int8("gru", ops),
+                        mr_step_cuda(*ops, flow=False, block_b=bb_mr))  # fmt: skip
+            record_int8("gru_scan_int8", shape, hs, plain_int8("gru", ops, head=False),
+                        gru_scan_cuda(*ops[:7], flow=False, block_b=bb_gru))  # fmt: skip
             for family in substep:
                 ops = substep_operands(family, B, T, D, H, Dh, K, seed=10 + i, device=dev)
                 variants = [(SUBSTEPS, None)]
@@ -416,6 +585,11 @@ def main() -> None:
                     plain_substep(family, ops, act_bits=COARSE_BITS),
                     plain_summary(family, ops),
                 )
+                if family == "ltc":
+                    out = launch_int8("ltc", ops)
+                    torch.cuda.synchronize()
+                    record_int8("mr_step_ltc_int8", shape, out, plain_int8("ltc", ops),
+                                launch_substep("ltc", ops))  # fmt: skip
 
     # -- 3. gradient parity ----------------------------------------------------
     system = get_system("lotka_volterra")
@@ -472,6 +646,7 @@ def main() -> None:
     # -- 4. the main paths -------------------------------------------------------
     true = system.true_coef()
     results = {}
+    trained = {}  # label -> the run's trained parameters
     for label, (run_spec, own) in runs.items():
         plan = plans[label]
         with Phase(f"main {label}"):
@@ -518,6 +693,75 @@ def main() -> None:
                 max_err=max_err,
                 first_loss=metrics["loss"][0].item(),
             )
+            trained[label] = params
+
+    # -- 4b. int8/PWL serving offline: the standard GRU trained and read out at
+    # int8_pwl, then phase 4's trained LTC read out through an int8_pwl plan -----
+    with Phase("main gru+int8"):
+        q_spec = dataclasses.replace(spec, encoder="gru", precision="int8_pwl")
+        q_plan = api.compile_plan(q_spec)
+        check(q_plan.lowering.quant_serving and q_plan.lowering.dispatch == "cuda",
+              f"gru+int8 lowering: {q_plan.lowering}")  # fmt: skip
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, metrics = q_plan.run_offline(yw, uw, norm=norm)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        theta = q_plan.readout(params, yw, uw, norm=norm, n_active=4)
+        counts = read_counts()
+        recon = metrics["recon_mse"][-1].item()
+        max_err = float(np.abs(theta - true).max())
+        fp_plan = api.compile_plan(dataclasses.replace(q_spec, precision="fp32"))
+        theta_fp = fp_plan.readout(params, yw, uw, norm=norm, n_active=4)
+        gap = float(np.abs(q_plan.readout(params, yw, uw) - fp_plan.readout(params, yw, uw)).max())
+        log(f"[main gru+int8] {q_plan.lowering}")
+        for i, term in enumerate(term_names(2, 2, ["h", "l"])):
+            log(
+                f"[main gru+int8] {term:>6s} {theta[i, 0]:10.4f} {true[i, 0]:8.4f} "
+                f"{theta[i, 1]:10.4f} {true[i, 1]:8.4f}"
+            )
+        log(
+            f"[main gru+int8] {q_spec.steps} steps in {t_train:.2f} s = "
+            f"{t_train / q_spec.steps * 1e3:.2f} ms/step; launches {counts}; final recon_mse "
+            f"{recon:.3e}; max |theta - true| {max_err:.4f} through the int8 readout, "
+            f"{float(np.abs(theta_fp - true).max()):.4f} through the fp32 readout; the two "
+            f"readouts differ by {gap:.3e} in normalized coordinates"
+        )
+        check(counts["mr_step"] >= q_spec.steps and counts["mr_step_int8"] == 1,
+              f"gru+int8 launches: {counts}")  # fmt: skip
+        others = {k: n for k, n in counts.items() if k not in ("mr_step", "mr_step_int8")}
+        check(not any(others.values()), f"gru+int8 launched other kernels: {others}")
+        check(np.isfinite(theta).all() and recon <= 1e-3 and max_err <= 0.5,
+              f"gru+int8 outcome: recon_mse {recon:.3e}, max |theta - true| {max_err:.4f}")  # fmt: skip
+        check(gap >= QUANT_GAP, f"gru+int8 readout differs from fp32 by {gap:.3e}")
+        results["gru+int8"] = dict(launches=counts["mr_step_int8"], train_launches=counts["mr_step"],
+                                   ms_per_step=t_train / q_spec.steps * 1e3, recon_mse=recon,
+                                   max_err=max_err, gap=gap)  # fmt: skip
+
+    with Phase("ltc int8 readout"):
+        lq_plan = api.compile_plan(dataclasses.replace(runs["ltc"][0], precision="int8_pwl"))
+        zero_counts()
+        theta = lq_plan.readout(trained["ltc"], yw, uw, norm=norm, n_active=4)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        max_err = float(np.abs(theta - true).max())
+        recon = results["ltc"]["recon_mse"]
+        gap = float(np.abs(lq_plan.readout(trained["ltc"], yw, uw)
+                           - plans["ltc"].readout(trained["ltc"], yw, uw)).max())  # fmt: skip
+        log(
+            f"[ltc int8 readout] phase 4's LTC through {lq_plan.lowering.encoder} int8_pwl: "
+            f"launches {counts}; max |theta - true| {max_err:.4f} (fp32 readout "
+            f"{results['ltc']['max_err']:.4f}); the readouts differ by {gap:.3e}"
+        )
+        others = {k: n for k, n in counts.items() if k != "mr_step_ltc_int8"}
+        check(counts["mr_step_ltc_int8"] == 1 and not any(others.values()),
+              f"ltc int8 readout launches: {counts}")  # fmt: skip
+        check(np.isfinite(theta).all() and recon <= 1e-3 and max_err <= 0.5,
+              f"ltc int8 outcome: recon_mse {recon:.3e}, max |theta - true| {max_err:.4f}")  # fmt: skip
+        check(gap >= QUANT_GAP, f"ltc int8 readout differs from fp32 by {gap:.3e}")
+        results["ltc+int8"] = dict(launches=counts["mr_step_ltc_int8"], recon_mse=recon,
+                                   max_err=max_err, gap=gap)  # fmt: skip
 
     # -- 5. the unfused kernel row ---------------------------------------------
     with Phase("row"):
@@ -589,6 +833,30 @@ def main() -> None:
                 check(bufs_exact and inf_ok, f"mr_tick buffers or inactive delta at {label}")
                 check(max(e_theta, e_delta) <= TICK_TOL, f"mr_tick parity at {label} bank={bank}")
                 err["mr_tick"] = max(err["mr_tick"], e_theta, e_delta)
+            if enc != "gru":
+                continue  # the int8 twin implements the standard GRU only
+            want_q = mr_tick(ops[0], cfg, scfg, *ops[1:], quant=True, force_reference=True)
+            for bank in (1, 2, 4):
+                got = mr_tick(ops[0], cfg, scfg, *ops[1:], quant=True, slots_per_bank=bank)
+                fp = mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=bank)
+                torch.cuda.synchronize()
+                bufs_exact = torch.equal(got[0], want_q[0]) and torch.equal(got[1], want_q[1])
+                e_theta = (got[2] - want_q[2]).abs().max().item()
+                finite = torch.isfinite(want_q[3])
+                e_delta = (got[3][finite] - want_q[3][finite]).abs().max().item()
+                inf_ok = bool(torch.isinf(got[3][-1])) and bool(torch.isfinite(got[3][:-1]).all())
+                gap = (got[2] - fp[2]).abs().max().item()
+                log(
+                    f"[tick parity] {label} bank={bank} int8: buffers "
+                    f"{'bit-exact' if bufs_exact else 'DIFFER'}, theta {e_theta:.3e}, delta "
+                    f"{e_delta:.3e}, inactive slot delta {got[3][-1].item()}; theta against the "
+                    f"fp32 kernel {gap:.3e}"
+                )
+                check(bufs_exact and inf_ok, f"mr_tick_int8 buffers or inactive delta at {label}")
+                check(max(e_theta, e_delta) <= INT8_TOL,
+                      f"mr_tick_int8 parity at {label} bank={bank}")  # fmt: skip
+                check(gap >= QUANT_GAP, f"mr_tick_int8 differs from mr_tick by {gap:.3e} at {label}")
+                err["mr_tick_int8"] = max(err["mr_tick_int8"], e_theta, e_delta)
 
     # -- 7. banked and composite services in lockstep ------------------------------
     with Phase("lockstep"):
@@ -653,6 +921,149 @@ def main() -> None:
             baseline_s=scenario["baseline_s"],
         )  # fmt: skip
 
+    # -- 8b. the int8 service: serve_mr --quant, every eviction through mr_step_int8 --------
+    with Phase("main stream int8"):
+        quant_args = serve_mr.build_parser().parse_args(QUANT_ARGS)
+        log(f"[main stream int8] python -m repro_torch.launch.serve_mr {' '.join(QUANT_ARGS)}")
+        zero_counts()
+        torch.cuda.synchronize()
+        q_scenario = serve_mr.serve(quant_args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        q_svc, q_stats = q_scenario["service"], q_scenario["stats"]
+        q_ticks = q_stats["ticks"]
+        steady = float(np.median(q_svc.sync_log[1:]))
+        q_tick_ms = np.asarray(q_svc.tick_ms)
+        log(
+            f"[main stream int8] {len(q_svc.results)}/{quant_args.streams} streams in {q_ticks} "
+            f"ticks; tick p50 {np.percentile(q_tick_ms, 50):.1f} ms, p99 "
+            f"{np.percentile(q_tick_ms, 99):.1f} ms; service {q_stats['wall_s']:.1f} s, baseline "
+            f"{q_scenario['baseline_s']:.1f} s; launches {counts}; median host syncs a tick "
+            f"after the first {steady}"
+        )
+        check(q_svc.quant and q_scenario["plan"].lowering.quant_serving, "int8 service lowering")
+        check(q_scenario["failures"] == 0 and len(q_scenario["rows"]) == quant_args.streams,
+              f"int8 stream scenario: {q_scenario['failures']} streams failed")  # fmt: skip
+        check(counts["mr_tick"] == q_ticks, f"mr_tick launched {counts['mr_tick']} times in {q_ticks} ticks")
+        check(counts["mr_step_int8"] == len(q_svc.results),
+              f"mr_step_int8 launched {counts['mr_step_int8']} times for {len(q_svc.results)} evictions")
+        others = {k: n for k, n in counts.items() if k not in ("mr_tick", "mr_step_int8")}
+        check(not any(others.values()), f"the int8 stream path launched other kernels: {others}")
+        check(steady <= 1, f"int8 service median host syncs a tick {steady}")
+        results["stream int8"] = dict(
+            launches=counts["mr_step_int8"], tick_launches=counts["mr_tick"], ticks=q_ticks,
+            tick_p50=float(np.percentile(q_tick_ms, 50)), wall_s=q_stats["wall_s"],
+            baseline_s=q_scenario["baseline_s"],
+        )  # fmt: skip
+
+    # -- 8c. the int8 monitor: K=0 banked int8_pwl, warm from phase 8, beside an fp32 twin --
+    with Phase("monitor int8"):
+        names = [n for n in serve_args.systems.split(",") if n]
+        n_samples = serve_args.buf_len + serve_args.chunk * (
+            serve_args.max_steps // serve_args.steps_per_tick + 2
+        )
+        _, fleet_y, fleet_u, _ = serve_mr.build_stream_fleet(
+            names, serve_args.streams, n_samples, noise=serve_args.noise, seed=serve_args.seed
+        )
+        monitors = {}
+        for precision in ("int8_pwl", "fp32"):
+            m_spec = api.RecoverySpec(
+                mode="stream", n_slots=4, encoder="gru", seed=0, precision=precision,
+                tick=api.TickSpec(steps_per_tick=0, tick_kernel="banked"), **SERVE_WIDTH,
+            )  # fmt: skip
+            m_plan = api.compile_plan(m_spec)
+            m_svc = m_plan.make_service()
+            for sid in range(4):  # phase 8's evicted parameters: every slot admitted warm
+                m_svc._warm_put(sid, scenario["service"].warm[sid])
+                m_svc.submit(sid, fleet_y[sid, :160], fleet_u[sid, :160])
+            m_svc.fill_slots()
+            monitors[precision] = (m_plan, m_svc)
+        check(monitors["int8_pwl"][0].tick.keywords["quant"], "the monitor plan's int8 tick")
+        m_cfg, m_scfg = monitors["int8_pwl"][0].cfg, monitors["int8_pwl"][0].scfg
+        q_monitor = monitors["int8_pwl"][1]
+        tick_counts, plain_err, plain_bufs = [], 0.0, True
+        for t in range(MONITOR_TICKS):
+            rows = slice(160 + 16 * t, 176 + 16 * t)
+            chunk = (fleet_y[:4, rows], fleet_u[:4, rows])
+            pre = q_monitor.state
+            zero_counts()
+            q_monitor.tick_once(*chunk)
+            torch.cuda.synchronize()
+            tick_counts.append(read_counts())
+            monitors["fp32"][1].tick_once(*chunk)
+            # the same tick through the plain version, on the state the kernel served
+            new_y, new_u = (torch.as_tensor(c, dtype=torch.float32).to(dev) for c in chunk)
+            seed = (pre.steps == 0) & torch.isinf(pre.delta)
+            want = mr_tick(pre.params, m_cfg, m_scfg, pre.buf_y, pre.buf_u, new_y, new_u, pre.mean,
+                           pre.scale, pre.theta, seed, pre.active, quant=True,
+                           force_reference=True)  # fmt: skip
+            got = q_monitor.state
+            plain_bufs &= torch.equal(got.buf_y, want[0]) and torch.equal(got.buf_u, want[1])
+            finite = torch.isfinite(want[3])
+            plain_bufs &= torch.equal(torch.isfinite(got.delta), finite)
+            plain_err = max(plain_err, (got.theta - want[2]).abs().max().item(),
+                            (got.delta[finite] - want[3][finite]).abs().max().item())  # fmt: skip
+        q_state, f_state = q_monitor.state, monitors["fp32"][1].state
+        diff = (q_state.theta - f_state.theta).abs().max().item()
+        log(
+            f"[monitor int8] {MONITOR_TICKS} K=0 ticks, 4 warm slots: mr_tick_int8 launches a tick "
+            f"{[c['mr_tick_int8'] for c in tick_counts]}; against the plain int8 tick on the "
+            f"same state: buffers {'bit-exact' if plain_bufs else 'DIFFER'}, theta and delta "
+            f"{plain_err:.3e}; theta against the fp32 twin {diff:.3e}; tick p50 "
+            f"{np.percentile(q_monitor.tick_ms, 50):.2f} ms (fp32 twin "
+            f"{np.percentile(monitors['fp32'][1].tick_ms, 50):.2f} ms)"
+        )
+        check(plain_bufs and plain_err <= INT8_TOL,
+              f"mr_tick_int8 at the trained weights against its plain version: {plain_err:.3e}")
+        err["mr_tick_int8"] = max(err["mr_tick_int8"], plain_err)
+        # why the gap to fp32 is larger than at phase 6: its serve-shape operands,
+        # once with their own initial weights and once with the monitor's
+        # trained ones; fine (4096-segment) tables leave the weight codes'
+        # share, the 16-segment tables against the fine ones the PWL's share
+        probe_cfg = merinda.MRConfig(encoder="gru", **SERVE_WIDTH)
+        probe = tick_operands(probe_cfg, serve_scfg, 4, seed=30)  # phase 6's first case
+        fine = (make_sigmoid_table(4096), make_tanh_table(4096))
+
+        def plain_theta(params, tables=None):
+            """theta [S, Kc] of the plain tick on ``probe`` (fp32 without tables)."""
+            _, buf_y, buf_u, new_y, new_u, mean, scale, theta, seed, active = probe
+            if tables is None:
+                return mr_tick(params, probe_cfg, serve_scfg, *probe[1:], force_reference=True)[2]
+            wq, hq, w1q, w2q = int8_weights(params, probe_cfg, batch_dims=1)
+            return mr_tick_int8_reference(
+                buf_y, new_y, mean, scale, theta.reshape(4, -1), seed, active, wq.values,
+                hq.values, wq.scale, hq.scale, params.encoder.b, w1q.values, w1q.scale,
+                params.head_b1, w2q.values, w2q.scale, params.head_b2, *tables, buf_u, new_u,
+                window=serve_scfg.window, stride=serve_scfg.stride, ema=serve_scfg.ema,
+            )[1].reshape(theta.shape)  # fmt: skip
+
+        cause = {}
+        for label, params in (("initial", probe[0]), ("trained", q_state.params)):
+            fp, q16, qfine = (plain_theta(params, tb) for tb in (None, tables, fine))
+            step = max(q.scale.max().item() for q in int8_weights(params, probe_cfg, batch_dims=1))
+            cause[label] = dict(total=(q16 - fp).abs().max().item(),
+                                codes=(qfine - fp).abs().max().item(),
+                                pwl=(q16 - qfine).abs().max().item(), step=step,
+                                theta=fp.abs().max().item())  # fmt: skip
+            c = cause[label]
+            log(
+                f"[monitor int8] phase 6's serve operands with {label} weights: int8 against "
+                f"fp32 {c['total']:.3e} (weight codes alone {c['codes']:.3e}, 16-segment PWL "
+                f"alone {c['pwl']:.3e}); max |theta| {c['theta']:.3e}; largest int8 step "
+                f"{step:.3e}"
+            )
+        for c in tick_counts:
+            others = {k: n for k, n in c.items() if k != "mr_tick_int8"}
+            check(c["mr_tick_int8"] == 1 and not any(others.values()), f"monitor tick launches {c}")
+        check(bool(q_state.active.all()) and all(s in q_monitor._slot_view for s in range(4)),
+              "every monitor slot active")  # fmt: skip
+        check(torch.isfinite(q_state.theta).all() and QUANT_GAP <= diff <= MONITOR_TOL,
+              f"int8 monitor theta against fp32 {diff:.3e}")  # fmt: skip
+        results["monitor int8"] = dict(
+            launches=sum(c["mr_tick_int8"] for c in tick_counts), diff=diff, plain_err=plain_err,
+            tick_p50=float(np.percentile(q_monitor.tick_ms, 50)), cause=cause,
+        )  # fmt: skip
+
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
 
@@ -715,6 +1126,27 @@ def main() -> None:
                     lambda: gru_scan_reference(*ops[:7], flow=True),
                     work("gru", B, T, D, H, Dh, K, head=False),
                 )
+                calls["gru_scan_int8"] = (
+                    int8_kernel("gru", ops, head=False),
+                    lambda: plain_int8("gru", ops, head=False),
+                    work_int8("gru", B, T, D, H, Dh, K, head=False),
+                )
+            # the int8 kernels beside their fp32 twins (the standard GRU: flow=False)
+            calls["mr_step (flow=False)"] = (
+                lambda: mr_step_cuda(*ops, flow=False, block_b=bb_mr),
+                lambda: mr_step_reference(*ops, flow=False),
+                work("gru", B, T, D, H, Dh, K),
+            )
+            calls["mr_step_int8"] = (
+                int8_kernel("gru", ops),
+                lambda: plain_int8("gru", ops),
+                work_int8("gru", B, T, D, H, Dh, K),
+            )
+            calls["mr_step_ltc_int8"] = (
+                int8_kernel("ltc", ltc_ops),
+                lambda: plain_int8("ltc", ltc_ops),
+                work_int8("ltc", B, T, D, H, Dh, K),
+            )
             for kernel, (k_fn, p_fn, (flops, nbytes)) in calls.items():
                 k_ms = time_ms(k_fn)
                 p_ms = time_ms(p_fn, per_run=1)
@@ -731,6 +1163,12 @@ def main() -> None:
             f"ms, mr_step_ltc {timed['mr_step_ltc', cycles][0]:.4f} ms "
             f"({timed['mr_step_ltc', cycles][0] / timed['mr_step', cycles][0]:.2f}x)"
         )
+        for where in (quick, cycles):
+            for q, f in (("mr_step_int8", "mr_step (flow=False)"), ("mr_step_ltc_int8", "mr_step_ltc")):
+                log(
+                    f"[time] int8 against fp32 at {where}: {q} {timed[q, where][0]:.4f} ms, {f} "
+                    f"{timed[f, where][0]:.4f} ms ({timed[q, where][0] / timed[f, where][0]:.2f}x)"
+                )
         cfg = merinda.MRConfig(encoder="gru", **SERVE_WIDTH)
         ops = tick_operands(cfg, serve_scfg, 4, seed=50)
         N, T = serve_scfg.n_windows, serve_scfg.window
@@ -751,6 +1189,26 @@ def main() -> None:
             f"[time] mr_tick at the serve shape (S=4 N={N} T={T} D=4 H=32 Dh=64 Ko=45): kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
             f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e3:.1f} KB)"
+        )
+        # the int8 twin on the same operands, quantized once per slot
+        wq, hq, w1q, w2q = int8_weights(params, cfg, batch_dims=1)
+        flat = lambda q: q.scale.reshape(4, -1)
+        f32 = lambda t: t.to(torch.float32).contiguous()
+        q_ops = (*kernel_ops[:7], wq.values, hq.values, flat(wq), flat(hq), f32(params.encoder.b),
+                 *serving_packs(dev), w1q.values, flat(w1q), f32(params.head_b1),
+                 w2q.values, flat(w2q), f32(params.head_b2), *kernel_ops[-2:])  # fmt: skip
+        k_ms = time_ms(lambda: mr_tick_int8_cuda(*q_ops, window=T, stride=serve_scfg.stride,
+                                                 ema=serve_scfg.ema))  # fmt: skip
+        p_ms = time_ms(lambda: mr_tick(ops[0], cfg, serve_scfg, *ops[1:], quant=True,
+                                       force_reference=True), per_run=1)  # fmt: skip
+        flops, nbytes = tick_work_int8(4, serve_scfg.buf_len, serve_scfg.chunk, 3, 1, N, T, 32, 64,
+                                       cfg.n_coef + cfg.n_shifts, cfg.n_coef)  # fmt: skip
+        b_ms, b_by = bound_ms(flops, nbytes)
+        timed["mr_tick_int8", quick] = (k_ms, p_ms, b_ms, b_by)
+        log(
+            f"[time] mr_tick_int8 at the serve shape: kernel {k_ms:.4f} ms "
+            f"({k_ms / timed['mr_tick', quick][0]:.2f}x mr_tick), plain {p_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}: {flops / 1e6:.1f} MFLOP, {nbytes / 1e3:.1f} KB)"
         )
 
     # -- 10. where the time of a training step and of a tick goes ----------------------
@@ -817,6 +1275,10 @@ def main() -> None:
         "no single PyTorch call computes it: PyTorch has no LTC or ODE-RNN cell, "
         "and a loop of its operators is the plain version"
     )
+    int8_note = (
+        "no PyTorch call computes it: none evaluates a PWL-activated int8 GRU, LTC or "
+        "service tick"
+    )
     table = [  # name, source, replaces, the main path whose launches it reports, note
         ("mr_step", "mr_step.cu", "mr_step/kernel.py:129", "gru_flow", gru_note),
         ("gru_scan", "gru_scan.cu", "gru_scan/kernel.py:107", "gru_flow_kernel", gru_note),
@@ -825,6 +1287,13 @@ def main() -> None:
         ("mr_tick", "mr_tick.cu", "mr_step/tick.py:148", "stream",
          "no single PyTorch call computes it: the GRU above, and the ring roll, window "
          "gather, head, mean, EMA and delta around it"),
+        # the int8/PWL serving kernels; gru_scan_int8 is on no main path (only its op
+        # reaches it, as in the JAX package), so it reports 0 launches
+        ("gru_scan_int8", "gru_scan_int8.cu", "gru_scan/kernel.py:246", None, int8_note),
+        ("mr_step_int8", "mr_step_int8.cu", "mr_step/kernel.py:251", "gru+int8", int8_note),
+        ("mr_step_ltc_int8", "mr_step_ltc_int8.cu", "mr_step/kernel.py:695", "ltc+int8",
+         int8_note),
+        ("mr_tick_int8", "mr_tick_int8.cu", "mr_step/tick.py:313", "monitor int8", int8_note),
     ]
     kernels = []
     for kernel, src, replaces, path, note in table:
@@ -834,7 +1303,7 @@ def main() -> None:
             "route": "cuda",
             "source": f"{REPO_PATH}/{src}",
             "replaces": f"{PALLAS}/{replaces}",
-            "launches": results[path]["launches"],
+            "launches": results[path]["launches"] if path else 0,
             "main_path": path,
             "max_abs_err": err[kernel],
             "ms": k_ms,
@@ -844,7 +1313,7 @@ def main() -> None:
             "bound_by": b_by,
             "library_ms": None,
             "library_note": note,
-            "shape": "serve_mr acceptance, S=4" if kernel == "mr_tick" else quick,
+            "shape": "serve_mr acceptance, S=4" if kernel.startswith("mr_tick") else quick,
         }
         if (kernel, cycles) in timed:
             k2, p2, b2, by2 = timed[kernel, cycles]
@@ -863,6 +1332,25 @@ def main() -> None:
         f"baseline {r['baseline_s']:.1f} s; ms/tick at the serve shape banked "
         f"{results['banked tick']['wall_ms']:.1f}, composite {results['composite tick']['wall_ms']:.1f}"
     )
+    r = results["gru+int8"]
+    log(
+        f"[summary] gru+int8: {r['ms_per_step']:.2f} ms/step, {r['train_launches']} mr_step and "
+        f"{r['launches']} mr_step_int8 launches, recon_mse {r['recon_mse']:.3e}, max |theta - "
+        f"true| {r['max_err']:.4f}, int8 against fp32 readout {r['gap']:.3e}"
+    )
+    r = results["ltc+int8"]
+    log(f"[summary] ltc int8 readout: max |theta - true| {r['max_err']:.4f}, int8 against fp32 "
+        f"readout {r['gap']:.3e}")  # fmt: skip
+    r = results["stream int8"]
+    log(
+        f"[summary] stream int8 (banked, --quant): {r['ticks']} ticks, {r['tick_launches']} "
+        f"mr_tick and {r['launches']} mr_step_int8 launches, tick p50 {r['tick_p50']:.1f} ms; "
+        f"service {r['wall_s']:.1f} s, baseline {r['baseline_s']:.1f} s"
+    )
+    r = results["monitor int8"]
+    log(f"[summary] monitor int8: {r['launches']} mr_tick_int8 launches in {MONITOR_TICKS} ticks, "
+        f"tick p50 {r['tick_p50']:.2f} ms, against its plain version {r['plain_err']:.3e}, "
+        f"theta against fp32 {r['diff']:.3e}")  # fmt: skip
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,9 @@
 """compile_plan: lower a RecoverySpec into a RecoveryPlan (``repro/api/plan.py``).
 
-Every execution decision (encoder backend, fusion, QAT, the ``block_b`` tile,
-the service tick's kernel and bank size, where the kernels run) is resolved
-once, into one :class:`Lowering` record. Plans run on the card:
-``compile_plan(spec)`` resolves the device to ``"cuda"`` and raises when no
+Every execution decision (encoder backend, fusion, QAT, int8/PWL serving,
+the ``block_b`` tile, the service tick's kernel and bank size, where the
+kernels run) is resolved once, into one :class:`Lowering` record. Plans run
+on the card: ``compile_plan(spec)`` resolves the device to ``"cuda"`` and raises when no
 card is visible. ``device="cpu"`` runs every kernel's plain version on the
 CPU, as the tests do.
 
@@ -14,6 +14,14 @@ plane, its tick composite or banked (the ``mr_tick`` kernel). Batch and
 stream train through ``torch.func.vmap`` of the plain loss, which cannot
 enter the kernels' autograd Functions, so ``fused=True`` and the
 ``*_kernel`` rows are refused there (not yet ported: a slot-axis ``mr_step``).
+
+``precision="int8_pwl"`` (``Lowering.quant_serving``) serves through the
+fixed-point fused stage: ``readout`` and every eviction of the service read
+out through ``mr_step_int8`` (``mr_step_ltc_int8`` on the ltc row), and a
+pure serve tick (``steps_per_tick=0``) of the banked tick launches
+``mr_tick_int8``; training ticks and the composite tick read out in fp32,
+and batch mode's ``run_batch`` too, as in the JAX package. It is refused on
+a row without an int8 stage (the flow rows, ``node``).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ class Lowering:
     fused: bool
     kernel: bool  # encoder row routes through the gru_scan kernel
     qat: bool  # fixed-point fake-quant during training (spec.qat)
+    quant_serving: bool  # int8/PWL fused readout at serving time (precision="int8_pwl")
     dispatch: str  # "cuda" | "reference"
     block_b: int | None  # resolved fused-stage batch tile (None = fitted per call)
     smem_bytes: int | None  # the row family's fused kernel's shared memory per block
@@ -134,6 +143,7 @@ class RecoveryPlan:
                 stream_mod.tick_banked,
                 cfg=self.cfg,
                 scfg=self.scfg,
+                quant=_quant_tick(self.lowering.quant_serving, self.scfg),
                 slots_per_bank=self.lowering.tick_slots_per_bank,
             )
         return functools.partial(stream_mod.tick, cfg=self.cfg, scfg=self.scfg)
@@ -149,16 +159,21 @@ class RecoveryPlan:
             device=self.device,
             tick_program=self.tick,
             warm_capacity=self.lowering.warm_capacity,
+            quant=self.lowering.quant_serving,
         )
 
     @torch.no_grad()
     def readout(
         self, params, yw, uw=None, norm: dict | None = None, n_active: int | None = None
     ) -> np.ndarray:
-        """Theta [n_terms, n] in fp32: the mean of ``mr_forward``'s Theta over
-        windows, then denormalized (``norm``), then pruned (``n_active``, by
-        default the spec's)."""
-        theta = stream_mod.readout_theta(params, self.cfg, self._tensor(yw), self._tensor(uw))
+        """Theta [n_terms, n] through the spec's serving precision: the mean
+        over windows of ``mr_forward``'s Theta (fp32) or of ``mr_step_int8``'s
+        (int8_pwl), then denormalized (``norm``), then pruned (``n_active``,
+        by default the spec's)."""
+        theta = stream_mod.readout_theta(
+            params, self.cfg, self._tensor(yw), self._tensor(uw),
+            quant=self.lowering.quant_serving,
+        )  # fmt: skip
         theta = theta.cpu().numpy()
         if norm is not None:
             theta = denormalize_theta(
@@ -175,39 +190,37 @@ class RecoveryPlan:
         return theta
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "compile_plan: no CUDA device is visible; pass device='cpu' to run "
-            "the plain PyTorch versions on the CPU"
-        )
-    return device
+def _quant_tick(quant_serving: bool, scfg) -> bool:
+    """The int8 tick is engaged only for pure serve ticks (K = 0) under
+    int8_pwl serving, as ``repro/api/plan.py:353-363``."""
+    return quant_serving and scfg.steps_per_tick == 0
 
 
-def _resolve_tick_kernel(spec: RecoverySpec, cfg: MRConfig) -> tuple[str, int | None]:
+def _resolve_tick_kernel(
+    spec: RecoverySpec, cfg: MRConfig, quant_tick: bool = False
+) -> tuple[str, int | None]:
     """``TickSpec.tick_kernel`` -> ("banked" | "composite", slots_per_bank).
 
-    ``"banked"`` on a row the kernel does not implement (ltc, node) raises;
-    ``"auto"`` takes banked when the row is a GRU family and one slot's carve
-    fits a block's shared memory, else composite. The bank size is
-    ``tiling.auto_slots_per_bank`` (1 when an explicit request does not fit:
-    the launch then raises, as the JAX package runs an explicit request at
-    bank 1)."""
+    ``"banked"`` on a row the kernel does not implement (ltc, node; for the
+    int8 tick every row but the standard GRU) raises; ``"auto"`` takes banked
+    when the row is supported and one slot's carve fits a block's shared
+    memory, else composite. The bank size is ``tiling.auto_slots_per_bank``
+    (1 when an explicit request does not fit: the launch then raises, as the
+    JAX package runs an explicit request at bank 1)."""
     from repro_torch.kernels.mr_step.tick import tick_supported
 
     requested = spec.tick_spec().tick_kernel
     if requested == "composite":
         return "composite", None
-    if not tick_supported(cfg):
+    if not tick_supported(cfg, int8=quant_tick):
         if requested == "banked":
             raise ValueError(
-                f"tick_kernel='banked' requires a GRU-family encoder "
-                f"(csrc/mr_tick.cu banks the gru cell); got encoder={spec.encoder!r} "
-                f"— use 'composite' or 'auto'"
+                f"tick_kernel='banked' requires a GRU-family encoder (csrc/mr_tick.cu banks "
+                f"the gru cell; its int8 twin the standard 'gru' cell); got "
+                f"encoder={spec.encoder!r} int8={quant_tick} — use 'composite' or 'auto'"
             )
         return "composite", None
-    spb = tiling.auto_slots_per_bank(cfg, spec.stream_config(), spec.n_slots)
+    spb = tiling.auto_slots_per_bank(cfg, spec.stream_config(), spec.n_slots, int8=quant_tick)
     if spb < 1:
         return ("banked", 1) if requested == "banked" else ("composite", None)
     return "banked", spb
@@ -215,8 +228,15 @@ def _resolve_tick_kernel(spec: RecoverySpec, cfg: MRConfig) -> tuple[str, int | 
 
 def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -> RecoveryPlan:
     """Validate and lower a RecoverySpec; see the module docstring."""
-    device = _resolve_device(device)
+    device = rt.resolve_device(device, "compile_plan")
     row = encoders.validate_config(spec.to_mr_config())  # unknown name, unfusable row
+    quant_serving = spec.precision == "int8_pwl"
+    if quant_serving and not row.int8:
+        raise ValueError(
+            f"precision='int8_pwl' serves through a fixed-point fused stage, implemented for "
+            f"the families with a PWL activation mapping ({encoders.int8_names()}); got "
+            f"{spec.encoder!r}"
+        )
     if spec.mode in ("batch", "stream") and (spec.fused or row.kernel):
         raise ValueError(
             f"mode={spec.mode!r} with fused=True or a *_kernel row (got encoder="
@@ -243,10 +263,11 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
             block_b = spec.block_b
         if block_b is not None:
             smem = tiling.config_smem_bytes(spec.to_mr_config(), row.family, block_b)
-    routes_kernel = spec.fused or row.kernel
+    routes_kernel = spec.fused or row.kernel or quant_serving
     stream_fields = {}
     if spec.mode == "stream":
-        tick_kernel, spb = _resolve_tick_kernel(spec, spec.to_mr_config())
+        quant_tick = _quant_tick(quant_serving, spec.stream_config())
+        tick_kernel, spb = _resolve_tick_kernel(spec, spec.to_mr_config(), quant_tick)
         tspec = spec.tick_spec()
         stream_fields = dict(
             tick_kernel=tick_kernel,
@@ -260,6 +281,7 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
         fused=spec.fused,
         kernel=row.kernel,
         qat=spec.qat is not None,
+        quant_serving=quant_serving,
         dispatch="cuda" if routes_kernel and device.type == "cuda" else "reference",
         block_b=block_b,
         smem_bytes=smem,

@@ -1,10 +1,10 @@
 """RecoverySpec: one declarative record of what to recover and how to run it.
 
 Counterpart of ``repro/api/spec.py``: the offline, batch and stream modes, QAT
-included, and the service tick's ``TickSpec``. Not yet ported, and refused
-when the spec is built: ``precision="int8_pwl"``, the device-resident control
-plane (``TickSpec(control="device")``), service checkpoints
-(``checkpoint_period > 0``) and a slot mesh (``mesh_slots > 1``).
+and int8/PWL serving (``precision="int8_pwl"``) included, and the service
+tick's ``TickSpec``. Not yet ported, and refused when the spec is built: the
+device-resident control plane (``TickSpec(control="device")``), service
+checkpoints (``checkpoint_period > 0``) and a slot mesh (``mesh_slots > 1``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from repro_torch.core.stream import StreamConfig
 
 MODES = ("offline", "batch", "stream")
 PRECISIONS = ("fp32", "int8_pwl")
-PORTED_PRECISIONS = ("fp32",)
 TICK_KERNELS = ("banked", "composite", "auto")
 CONTROL_PLANES = ("host", "device")
 
@@ -81,7 +80,7 @@ class RecoverySpec:
 
     # -- numerics / lowering -----------------------------------------------
     encoder: str = "gru_flow"  # any name registered in core/encoders.py
-    precision: str = "fp32"  # serving readout
+    precision: str = "fp32"  # serving readout: "fp32" | "int8_pwl" (int8 weights, PWL activations)
     qat: QuantConfig | None = None  # fixed-point fake-quant during training
     fused: bool = False  # stage-fused per-window step (kernels/mr_step)
     block_b: int | str | None = None  # fused batch tile: int, None, or "auto"
@@ -109,8 +108,6 @@ class RecoverySpec:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {self.precision!r}")
-        if self.precision not in PORTED_PRECISIONS:
-            raise ValueError(f"precision={self.precision!r} is not yet ported to repro_torch")
         if self.state_dim < 1 or self.input_dim < 0 or self.order < 1:
             raise ValueError(
                 f"bad library shape: state_dim={self.state_dim} "

@@ -17,8 +17,9 @@ plain version on a CPU tensor. A row's fields:
     fusable   the fused stage (``kernels/mr_step``, ``MRConfig.fused``)
               implements this encoder
     kernel    encode routes through the gru_scan kernel
-    int8      the JAX package has a fixed-point fused serving stage for the
-              family; recorded for the int8 slice, nothing reads it yet
+    int8      the fixed-point fused serving stage (int8 weights and PWL
+              activations, ``kernels/mr_step/ops.mr_step_int8``) implements
+              this encoder: the standard GRU cell and the LTC substep
     family    which fused kernel a row lowers to: "gru", "ltc" or "node"
 
 ``encode`` owns the GRU families' QAT weight treatment
@@ -44,7 +45,7 @@ class EncoderSpec(NamedTuple):
     flow: bool | None  # GRU families: time-gated flow update?
     fusable: bool  # kernels/mr_step implements this encoder
     kernel: bool  # encode routes through the gru_scan kernel
-    int8: bool = False  # the JAX package has an int8 fused serving stage for it
+    int8: bool = False  # the int8/PWL fused serving stage implements it
     family: str = "gru"  # fused kernel: "gru" | "ltc" | "node"
 
 
@@ -119,6 +120,11 @@ def encoder_names() -> list[str]:
 
 def fusable_names() -> list[str]:
     return [n for n in encoder_names() if _REGISTRY[n].fusable]
+
+
+def int8_names() -> list[str]:
+    """Encoders with a fixed-point (int8 and PWL) fused serving stage."""
+    return [n for n in encoder_names() if _REGISTRY[n].int8]
 
 
 def validate_config(cfg) -> EncoderSpec:

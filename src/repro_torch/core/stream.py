@@ -25,6 +25,12 @@ plane): a priority queue, admission, eviction, preemption of cold slots and
 the warm LRU, moving O(slots) scalars across the host boundary a tick and
 counting every device-to-host readback (``counters``, ``sync_log``). The
 device-resident control plane, the slot mesh and checkpointing are not ported.
+
+Under ``precision="int8_pwl"`` (``quant=True``) every eviction reads the
+stream's coefficients out through the fixed-point fused stage
+(``readout_theta(..., quant=True)``: ``mr_step_int8``) on the slot's current
+windows, and a pure serve tick (K = 0) of ``tick_banked`` runs the int8 twin
+of ``mr_tick``.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.merinda import MRConfig, MRParams, init_mr, mr_forward
 from repro_torch.data.windows import buffer_stats, n_buffer_windows, roll_buffer, window_views
 from repro_torch.kernels.mr_step.tick import mr_tick
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.optim import adamw_init
 from repro_torch.runtime.heartbeat import HeartbeatRegistry, StragglerDetector
 from repro_torch.tree import tree_index, tree_map, tree_stack, tree_write_slot
@@ -267,13 +274,15 @@ def tick_banked(
     *,
     cfg: MRConfig,
     scfg: StreamConfig,
+    quant: bool = False,
     slots_per_bank: int = 1,
 ) -> tuple[SlotState, torch.Tensor]:
     """Banked tick: ``tick``'s contract, plus the packed status [S, 4].
 
     The training segment (K > 0) is the composite tick's code; the serving
     segment (ring ingest, window scan, head, EMA readout, delta) is one
-    ``mr_tick`` launch on the card (its plain version on the CPU).
+    ``mr_tick`` launch on the card (its plain version on the CPU). ``quant``
+    serves it through the int8/PWL twin (the K = 0 monitor tick).
     """
     if scfg.steps_per_tick:
         buf_y = roll_buffer(state.buf_y, new_y)
@@ -288,7 +297,7 @@ def tick_banked(
     seed = (state.steps == 0) & torch.isinf(state.delta)
     buf_y, buf_u, theta, delta = mr_tick(
         params, cfg, scfg, state.buf_y, state.buf_u, new_y, new_u, state.mean, state.scale,
-        state.theta, seed, state.active, slots_per_bank=slots_per_bank,
+        state.theta, seed, state.active, quant=quant, slots_per_bank=slots_per_bank,
     )  # fmt: skip
     state = state._replace(
         params=params,
@@ -309,9 +318,21 @@ def readout_theta(
     cfg: MRConfig,
     yw: torch.Tensor,  # [N, T, n] normalized windows
     uw: torch.Tensor | None = None,
+    quant: bool = False,
 ) -> torch.Tensor:
-    """Serving readout in fp32: the mean over windows of Theta (normalized coords)."""
-    theta, _ = mr_forward(params, cfg, yw, uw)
+    """Serving readout: the mean over windows of Theta (normalized coords).
+
+    fp32 runs ``mr_forward``; ``quant=True`` the fixed-point fused stage
+    (``mr_step_int8``: int8 cell and head weights, PWL activations), which
+    needs an int8-capable encoder ('gru', 'gru_kernel' or 'ltc').
+    """
+    if not quant:
+        theta, _ = mr_forward(params, cfg, yw, uw)
+        return theta.mean(dim=0)
+    from repro_torch.kernels.mr_step.ops import mr_step_int8
+
+    xs = yw if uw is None or uw.shape[-1] == 0 else torch.cat([yw, uw], dim=-1)
+    theta, _ = mr_step_int8(params, cfg, xs)
     return theta.mean(dim=0)
 
 
@@ -356,6 +377,10 @@ class RecoveryService:
     and ``sync_log`` holds each tick's count: the banked tick reads the packed
     status once, the composite tick reads delta, steps, active and loss
     separately, and each eviction reads the evicted slot's record.
+
+    ``device=None`` is the card (raising when none is visible); the CPU runs
+    only when the caller passes ``device="cpu"``. ``quant`` reads every
+    evicted stream out through ``mr_step_int8`` (``precision="int8_pwl"``).
     """
 
     def __init__(
@@ -364,14 +389,16 @@ class RecoveryService:
         scfg: StreamConfig,
         n_slots: int,
         seed: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         tick_program=None,
         warm_capacity: int = 32,
+        quant: bool = False,
     ):
         encoders.validate_config(cfg)
         self.cfg, self.scfg, self.n_slots = cfg, scfg, n_slots
         self.seed = seed
-        self.device = torch.device(device)
+        self.quant = quant
+        self.device = resolve_device(device, "RecoveryService")
         self.counters = {"host_syncs": 0}
         self.sync_log: list[int] = []
         self._tick = tick_program or functools.partial(tick, cfg=cfg, scfg=scfg)
@@ -534,9 +561,15 @@ class RecoveryService:
     def _evict(self, slot: int, reason: str) -> StreamResult:
         st = self.state
         sid = int(self._host_read(st.stream_id[slot]))
+        theta = st.theta[slot]
+        if self.quant:
+            yw, uw = _slot_windows(
+                st.buf_y[slot], st.buf_u[slot], st.mean[slot], st.scale[slot], self.scfg
+            )
+            theta = readout_theta(tree_index(st.params, slot), self.cfg, yw, uw, quant=True)
         res = StreamResult(
             stream_id=sid,
-            theta=self._host_read(st.theta[slot]),
+            theta=self._host_read(theta),
             mean=self._host_read(st.mean[slot]),
             scale=self._host_read(st.scale[slot]),
             steps=int(self._host_read(st.steps[slot])),

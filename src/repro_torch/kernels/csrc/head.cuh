@@ -55,15 +55,13 @@ __device__ inline float* head_setup(HeadShared& s, float* p, const float* __rest
   return p;
 }
 
-// out_tile[w, :] = relu(q(norm(h[w])) . w1 + b1) . w2 + b2 for the tile's bb
-// windows. h and hn are [bb, H] in shared memory; hn receives the normalized
-// (and quantized) state and may be h itself, since each lane rewrites only
-// the units it read after the warp's reduction. Every thread of the block
-// calls it, after a barrier that published h.
-__device__ inline void head_tile(const HeadShared& s, const float* h, float* hn,
-                                 float* __restrict__ out_tile, int H, int Dh, int K, int bb,
-                                 int act_int, int act_frac) {
-  // RMS-norm: one warp per window, a shuffle reduction over H
+// hn[w] = q(h[w] * rsqrt(mean(h[w]^2) + eps)) for the tile's bb windows, one
+// warp a window with a shuffle reduction over H; q is the optional Qm.n step
+// (act_frac < 0: none). h and hn are [bb, H] in shared memory; hn may be h
+// itself, since each lane rewrites only the units it read after the warp's
+// reduction. The caller publishes hn with a barrier.
+__device__ inline void rms_norm_tile(const float* h, float* hn, int H, int bb, int act_int,
+                                     int act_frac) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
   for (int w = warp; w < bb; w += n_warps) {
     const float* hw = h + w * H;
@@ -76,6 +74,16 @@ __device__ inline void head_tile(const HeadShared& s, const float* h, float* hn,
       hn[w * H + k] = act_frac >= 0 ? quantize_fixed(v, act_int, act_frac) : v;
     }
   }
+}
+
+// out_tile[w, :] = relu(q(norm(h[w])) . w1 + b1) . w2 + b2 for the tile's bb
+// windows. h and hn are [bb, H] in shared memory; hn receives the normalized
+// (and quantized) state and may be h itself (rms_norm_tile). Every thread of
+// the block calls it, after a barrier that published h.
+__device__ inline void head_tile(const HeadShared& s, const float* h, float* hn,
+                                 float* __restrict__ out_tile, int H, int Dh, int K, int bb,
+                                 int act_int, int act_frac) {
+  rms_norm_tile(h, hn, H, bb, act_int, act_frac);
   __syncthreads();
 
   // layer 1: relu(hn . w1 + b1)

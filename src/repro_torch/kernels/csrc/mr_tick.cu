@@ -22,7 +22,8 @@
 // [N, T, D] there straight from the pre-roll buffer and the chunk, and runs
 // the same scan and head as mr_step (gru_step.cuh with the N windows as the
 // tile, head.cuh into a shared [N, Ko] tile); warp 0 then reduces the mean,
-// the EMA and the delta. Device memory sees the buffers, the chunk and the
+// the EMA and the delta. The ingest and that readout are tick.cuh's, shared
+// with mr_tick_int8.cu. Device memory sees the buffers, the chunk and the
 // weights read once, and the rolled buffers, theta [Kc] and delta written
 // once. The TPU kernel banked every slot into one grid step; here a bank of
 // one slot per block spreads the slots over the SMs (tiling.py
@@ -33,23 +34,15 @@
 // (S=4, N=17, T=32, D=4, H=32, Dh=64, Ko=45) the whole call is ~16 MFLOP and
 // ~0.1 MB, a fraction of a microsecond of the card's float32 rate and its
 // memory rate alike; the time is the latency of the chain.
-#include <math.h>
-
 #include "gru_step.cuh"
 #include "head.cuh"
+#include "tick.cuh"
 
 namespace repro {
 
 inline size_t mr_tick_shared_floats(int N, int T, int D, int H, int Dh, int Ko) {
   return gru_shared_floats(D, H, N) + head_shared_floats(H, Dh, Ko, N) + (size_t)N * T * D + T +
          (size_t)N * Ko;
-}
-
-// Row `row` of a rolled buffer: buf [L, w] keeps its rows C.., then chunk [C, w].
-__device__ __forceinline__ float rolled(const float* __restrict__ buf,
-                                        const float* __restrict__ chunk, int row, int col,
-                                        int keep, int C, int w) {
-  return row < keep ? buf[(row + C) * w + col] : chunk[(row - keep) * w + col];
 }
 
 template <bool FLOW>
@@ -66,32 +59,18 @@ __global__ void mr_tick_kernel(
     int L, int n, int m, int C, int T, int stride, int N, int H, int Dh, int Ko, int Kc, int bank,
     float ema, float one_minus_ema) {
   extern __shared__ float smem[];
-  const int D = n + m, H3 = 3 * H, keep = L - C;
+  const int D = n + m, H3 = 3 * H;
   float* xs = smem + gru_shared_floats(D, H, N) + head_shared_floats(H, Dh, Ko, N);  // [N, T, D]
   float* dts = xs + N * T * D;                                                       // [T]
   float* out = dts + T;                                                              // [N, Ko]
 
   for (int k = 0; k < bank; ++k) {
     const int s = blockIdx.x * bank + k;
-    const float* by = buf_y + (size_t)s * L * n;
-    const float* ny = new_y + (size_t)s * C * n;
-    const float* bu = m > 0 ? buf_u + (size_t)s * L * m : nullptr;
-    const float* nu = m > 0 ? new_u + (size_t)s * C * m : nullptr;
     __syncthreads();  // the previous slot is done with shared memory
 
-    // 1. the rolled buffers, written out
-    for (int i = threadIdx.x; i < L * n; i += blockDim.x)
-      buf_y_out[(size_t)s * L * n + i] = rolled(by, ny, i / n, i % n, keep, C, n);
-    for (int i = threadIdx.x; i < L * m; i += blockDim.x)
-      buf_u_out[(size_t)s * L * m + i] = rolled(bu, nu, i / m, i % m, keep, C, m);
-
-    // 2-3. the normalized window set, from the pre-roll buffer and the chunk
-    for (int i = threadIdx.x; i < N * T * D; i += blockDim.x) {
-      const int w = i / (T * D), r = i - w * T * D, t = r / D, d = r - t * D;
-      const int row = w * stride + t;
-      xs[i] = d < n ? (rolled(by, ny, row, d, keep, C, n) - mean[s * n + d]) / scale[s * n + d]
-                    : rolled(bu, nu, row, d - n, keep, C, m);
-    }
+    // 1-3. the rolled buffers, written out, and the normalized window set
+    tick_ingest(buf_y, new_y, buf_u, new_u, mean, scale, buf_y_out, buf_u_out, xs, s, L, n, m, C,
+                T, stride, N);
     for (int t = threadIdx.x; t < T; t += blockDim.x) dts[t] = 1.0f;
 
     // 4-5. the scan over the N windows, then the head (gru_setup's barrier
@@ -107,28 +86,9 @@ __global__ void mr_tick_kernel(
     __syncthreads();
 
     // 6-8. mean over windows, EMA, delta: warp 0
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      const bool first = seed[s] > 0.0f;
-      float change = 0.0f, mag = 0.0f;
-      for (int c = lane; c < Kc; c += 32) {
-        float acc = 0.0f;
-        for (int w = 0; w < N; ++w) acc += out[w * Ko + c];
-        const float raw = acc / (float)N;
-        const float prev = theta0[(size_t)s * Kc + c];
-        // no fused multiply-add: the plain version rounds each product
-        const float th =
-            first ? raw : __fadd_rn(__fmul_rn(ema, prev), __fmul_rn(one_minus_ema, raw));
-        theta_out[(size_t)s * Kc + c] = th;
-        change = fmaxf(change, fabsf(th - prev));
-        mag = fmaxf(mag, fabsf(th));
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        change = fmaxf(change, __shfl_xor_sync(0xffffffffu, change, off));
-        mag = fmaxf(mag, __shfl_xor_sync(0xffffffffu, mag, off));
-      }
-      if (lane == 0) delta_out[s] = active[s] > 0.0f ? change / (mag + 1e-3f) : INFINITY;
-    }
+    if (threadIdx.x < 32)
+      tick_readout(out, theta0, seed, active, theta_out, delta_out, s, N, Ko, Kc, ema,
+                   one_minus_ema);
   }
 }
 
@@ -142,8 +102,7 @@ extern "C" int mr_tick_launch(
     float* theta_out, float* delta_out, float* buf_u_out, int S, int L, int n, int m, int C,
     int T, int stride, int H, int Dh, int Ko, int Kc, int bank, int flow, float ema,
     float one_minus_ema, void* stream) {
-  if (bank < 1 || S % bank != 0 || T < 1 || T > L || C < 1 || C > L || stride < 1 || Kc > Ko ||
-      n < 1 || m < 0 || (m > 0 && (!buf_u || !new_u || !buf_u_out)))
+  if (repro::tick_geometry_bad(S, L, n, m, C, T, stride, Ko, Kc, bank, buf_u, new_u, buf_u_out))
     return (int)cudaErrorInvalidValue;
   const int N = (L - T) / stride + 1;
   const size_t smem = repro::mr_tick_shared_floats(N, T, n + m, H, Dh, Ko) * sizeof(float);

@@ -1,0 +1,91 @@
+// The ingest and the readout of a banked service tick, shared by mr_tick.cu
+// and mr_tick_int8.cu: the two kernels differ only in the cell and head
+// between them (gru_step.cuh and head.cuh, or their int8 twins).
+//
+// Counterpart of the code around the cell in repro/kernels/mr_step/tick.py
+// _mr_tick_kernel (:86-142) and _mr_tick_q_kernel (:251-310).
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace repro {
+
+// Row `row` of a rolled buffer: buf [L, w] keeps its rows C.., then chunk [C, w].
+__device__ __forceinline__ float rolled(const float* __restrict__ buf,
+                                        const float* __restrict__ chunk, int row, int col,
+                                        int keep, int C, int w) {
+  return row < keep ? buf[(row + C) * w + col] : chunk[(row - keep) * w + col];
+}
+
+// Slot s's ingest: writes its rolled buffers out (y, and u when m > 0) and
+// builds its normalized window set xs [N, T, n + m] in shared memory, both
+// from the pre-roll buffers and the chunks. The caller publishes xs with a
+// barrier.
+__device__ inline void tick_ingest(const float* __restrict__ buf_y,
+                                   const float* __restrict__ new_y,
+                                   const float* __restrict__ buf_u,
+                                   const float* __restrict__ new_u,
+                                   const float* __restrict__ mean,
+                                   const float* __restrict__ scale, float* __restrict__ buf_y_out,
+                                   float* __restrict__ buf_u_out, float* xs, int s, int L, int n,
+                                   int m, int C, int T, int stride, int N) {
+  const int D = n + m, keep = L - C;
+  const float* by = buf_y + (size_t)s * L * n;
+  const float* ny = new_y + (size_t)s * C * n;
+  const float* bu = m > 0 ? buf_u + (size_t)s * L * m : nullptr;
+  const float* nu = m > 0 ? new_u + (size_t)s * C * m : nullptr;
+  for (int i = threadIdx.x; i < L * n; i += blockDim.x)
+    buf_y_out[(size_t)s * L * n + i] = rolled(by, ny, i / n, i % n, keep, C, n);
+  for (int i = threadIdx.x; i < L * m; i += blockDim.x)
+    buf_u_out[(size_t)s * L * m + i] = rolled(bu, nu, i / m, i % m, keep, C, m);
+  for (int i = threadIdx.x; i < N * T * D; i += blockDim.x) {
+    const int w = i / (T * D), r = i - w * T * D, t = r / D, d = r - t * D;
+    const int row = w * stride + t;
+    xs[i] = d < n ? (rolled(by, ny, row, d, keep, C, n) - mean[s * n + d]) / scale[s * n + d]
+                  : rolled(bu, nu, row, d - n, keep, C, m);
+  }
+}
+
+// Slot s's readout from the head output out [N, Ko] in shared memory: the
+// mean over windows of the first Kc outputs, blended into the previous
+// readout (EMA) or seeding it on the slot's first tick, then
+// delta = max|theta - theta0| / (max|theta| + 1e-3), inf for an inactive
+// slot. Warp 0 calls it, after a barrier that published out.
+__device__ inline void tick_readout(const float* out, const float* __restrict__ theta0,
+                                    const float* __restrict__ seed,
+                                    const float* __restrict__ active,
+                                    float* __restrict__ theta_out, float* __restrict__ delta_out,
+                                    int s, int N, int Ko, int Kc, float ema,
+                                    float one_minus_ema) {
+  const int lane = threadIdx.x;
+  const bool first = seed[s] > 0.0f;
+  float change = 0.0f, mag = 0.0f;
+  for (int c = lane; c < Kc; c += 32) {
+    float acc = 0.0f;
+    for (int w = 0; w < N; ++w) acc += out[w * Ko + c];
+    const float raw = acc / (float)N;
+    const float prev = theta0[(size_t)s * Kc + c];
+    // no fused multiply-add: the plain version rounds each product
+    const float th = first ? raw : __fadd_rn(__fmul_rn(ema, prev), __fmul_rn(one_minus_ema, raw));
+    theta_out[(size_t)s * Kc + c] = th;
+    change = fmaxf(change, fabsf(th - prev));
+    mag = fmaxf(mag, fabsf(th));
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    change = fmaxf(change, __shfl_xor_sync(0xffffffffu, change, off));
+    mag = fmaxf(mag, __shfl_xor_sync(0xffffffffu, mag, off));
+  }
+  if (lane == 0) delta_out[s] = active[s] > 0.0f ? change / (mag + 1e-3f) : INFINITY;
+}
+
+// The launchers' shared refusals (cudaErrorInvalidValue when true).
+inline bool tick_geometry_bad(int S, int L, int n, int m, int C, int T, int stride, int Ko,
+                              int Kc, int bank, const float* buf_u, const float* new_u,
+                              const float* buf_u_out) {
+  return bank < 1 || S % bank != 0 || T < 1 || T > L || C < 1 || C > L || stride < 1 || Kc > Ko ||
+         n < 1 || m < 0 || (m > 0 && (!buf_u || !new_u || !buf_u_out));
+}
+
+}  // namespace repro

@@ -1,4 +1,4 @@
-"""GRU(-flow) sequence scan: the CUDA kernel, its wrapper and its gradient.
+"""GRU(-flow) sequence scan: the CUDA kernels, their wrappers and the gradient.
 
 Counterpart of ``repro/kernels/gru_scan/ops.py``. ``gru_scan`` dispatches
 through ``kernels/runtime.resolve_dispatch``: a CUDA tensor launches the
@@ -7,6 +7,11 @@ hand-written kernel (``csrc/gru_scan.cu``, which replaces
 ``force_reference`` takes the plain version (``ref.py``). The gradient
 recomputes the plain version, as ``repro/kernels/gru_scan/ops.py:39-53``
 does: the JAX package has no backward kernel, and neither has the port.
+
+``gru_scan_int8`` is the serving scan (``ops.py:92-136``): the standard GRU
+with int8 weights quantized on the fly per output channel and PWL
+activations, through ``csrc/gru_scan_int8.cu`` (which replaces
+``kernel.py:246 gru_scan_pallas_int8``). It is serve-only: no gradient.
 """
 
 from __future__ import annotations
@@ -14,8 +19,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.neural_flow import GRUParams
+from repro_torch.core.quant import N_SEG, PWL_FLOATS, quantize_int8, serving_packs, serving_tables
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.gru_scan.ref import gru_scan_reference
+from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
 from repro_torch.kernels.mr_step import tiling
 
 
@@ -110,4 +116,79 @@ def gru_scan(
         hs = _GRUScanFn.apply(
             xs.contiguous(), h0.contiguous(), wx, wh, params.b, params.time_scale, dts, flow, bb
         )
+    return hs[:, -1, :], hs
+
+
+def gru_scan_int8_cuda(xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, *, block_b: int):
+    """Launch the int8/PWL scan on the current stream: returns hs [B, T, H].
+
+    ``wxq`` [D, 3H] and ``whq`` [H, 3H] are int8, their scales float32 [3H];
+    ``sig`` and ``tanh`` are packed tables (``core.quant.serving_packs``). Counts
+    its launches in ``gru_scan_int8_cuda.launches``.
+    """
+    B, T, D = xs.shape
+    H = h0.shape[-1]
+    rt.check_operands(
+        "gru_scan_int8",
+        xs.device,
+        xs=(xs, (B, T, D)),
+        h0=(h0, (B, H)),
+        wxq=(wxq, (D, 3 * H), torch.int8),
+        whq=(whq, (H, 3 * H), torch.int8),
+        wx_scale=(wx_scale, (3 * H,)),
+        wh_scale=(wh_scale, (3 * H,)),
+        b=(b, (3 * H,)),
+        sig=(sig, (PWL_FLOATS,)),
+        tanh=(tanh, (PWL_FLOATS,)),
+    )
+    if T < 1 or block_b < 1 or B % block_b:
+        raise ValueError(f"gru_scan_int8: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
+    smem = tiling.gru_scan_int8_smem_bytes(D, H, block_b)
+    if smem > tiling.SMEM_BUDGET_BYTES:
+        raise ValueError(f"gru_scan_int8: {smem} bytes of shared memory exceed one block's budget")
+    hs = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
+    err = rt.load_library().gru_scan_int8_launch(
+        *(t.data_ptr() for t in (xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, hs)),
+        B, T, D, H, block_b, N_SEG, rt.current_stream(xs.device),
+    )  # fmt: skip
+    rt.check_launch("gru_scan_int8", err)
+    gru_scan_int8_cuda.launches += 1
+    return hs
+
+
+gru_scan_int8_cuda.launches = 0
+
+
+@torch.no_grad()
+def gru_scan_int8(
+    params: GRUParams,
+    xs: torch.Tensor,  # [B, T, D]
+    h0: torch.Tensor,  # [B, H]
+    dts: torch.Tensor | None = None,
+    block_b: int | None = None,
+    force_reference: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Serving scan: int8 weights and PWL activations, the standard GRU.
+    Returns (h_final [B, H], hs [B, T, H]).
+
+    Quantizes the float weights on every call, as the JAX wrapper does.
+    ``dts`` and ``time_scale`` are unread: the standard cell has no time gate.
+    """
+    B, T, D = xs.shape
+    H = params.hidden
+    if dts is None:
+        dts = torch.ones(T, dtype=torch.float32, device=xs.device)
+    wxq = quantize_int8(params.w[:D])
+    whq = quantize_int8(params.w[D:])
+    if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
+        hs = gru_scan_int8_reference(xs, h0, wxq.values, whq.values, wxq.scale, whq.scale,
+                                     params.b, dts, *serving_tables())  # fmt: skip
+    else:
+        bb = tiling.legal_block_b(block_b, B) or tiling.fit_block_b("gru_scan", B, D, H, int8=True)
+        f32 = lambda t: t.to(torch.float32).contiguous()
+        hs = gru_scan_int8_cuda(
+            f32(xs), f32(h0), wxq.values, whq.values, wxq.scale.reshape(-1),
+            whq.scale.reshape(-1), f32(params.b), *serving_packs(xs.device),
+            block_b=bb,
+        )  # fmt: skip
     return hs[:, -1, :], hs

@@ -18,6 +18,17 @@ QAT (``cfg.quant``): the head weights get ``qat_weight`` on every family, the
 encoder weights on the GRU families only, and the kernels' head quantizes its
 RMS-normalized input (``act_bits``). The straight-through weight treatment
 runs before the autograd Function, so its gradient is the identity.
+
+``mr_step_int8`` is the fixed-point serving stage (``ops.py:317-465``):
+int8 cell and head weights with one float scale per output channel, PWL
+activations, dispatched on ``family`` as well:
+
+    "gru"   csrc/mr_step_int8.cu      replaces kernel.py:251 mr_step_pallas_int8
+    "ltc"   csrc/mr_step_ltc_int8.cu  replaces kernel.py:695 mr_step_ltc_pallas_int8
+
+It quantizes the RAW weights on every call (no ``qat_weight`` first, as the
+JAX wrapper), keeps the biases, ``a`` and ``inv_tau`` in float, and is
+serve-only: no autograd Function. The flow rows and NODE have no int8 stage.
 """
 
 from __future__ import annotations
@@ -28,10 +39,19 @@ from repro_torch.core import encoders
 from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.node_mr import node_sub_dt
 from repro_torch.core.quant import act_bits as quant_act_bits
-from repro_torch.core.quant import qat_weight
+from repro_torch.core.quant import (
+    N_SEG,
+    PWL_FLOATS,
+    qat_weight,
+    quantize_int8,
+    serving_packs,
+    serving_tables,
+)
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.mr_step import tiling
 from repro_torch.kernels.mr_step.ref import (
+    mr_step_int8_reference,
+    mr_step_ltc_int8_reference,
     mr_step_ltc_reference,
     mr_step_node_reference,
     mr_step_reference,
@@ -168,9 +188,100 @@ def mr_step_node_cuda(
     return out
 
 
+def _int8_head_operands(H: int, w1q, s1, b1, w2q, s2, b2) -> dict:
+    Dh, K = w2q.shape
+    return dict(w1q=(w1q, (H, Dh), torch.int8), s1=(s1, (Dh,)), b1=(b1, (Dh,)),
+                w2q=(w2q, (Dh, K), torch.int8), s2=(s2, (K,)), b2=(b2, (K,)))  # fmt: skip
+
+
+def mr_step_int8_cuda(
+    xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, w1q, s1, b1, w2q, s2, b2, *,
+    block_b: int,
+):  # fmt: skip
+    """Launch the fused int8/PWL standard-GRU stage on the current stream:
+    out [B, K]. Weights int8 with float32 scales per output channel; ``sig``
+    and ``tanh`` packed tables (``core.quant.serving_packs``). Counts its launches
+    in ``mr_step_int8_cuda.launches``."""
+    B, T, D = xs.shape
+    H = h0.shape[-1]
+    Dh, K = w2q.shape
+    rt.check_operands(
+        "mr_step_int8",
+        xs.device,
+        xs=(xs, (B, T, D)),
+        h0=(h0, (B, H)),
+        wxq=(wxq, (D, 3 * H), torch.int8),
+        whq=(whq, (H, 3 * H), torch.int8),
+        wx_scale=(wx_scale, (3 * H,)),
+        wh_scale=(wh_scale, (3 * H,)),
+        b=(b, (3 * H,)),
+        sig=(sig, (PWL_FLOATS,)),
+        tanh=(tanh, (PWL_FLOATS,)),
+        **_int8_head_operands(H, w1q, s1, b1, w2q, s2, b2),
+    )
+    _check_tile("mr_step_int8", B, T, block_b, tiling.int8_smem_bytes(D, H, Dh, K, block_b))
+    out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
+    tensors = (xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, w1q, s1, b1, w2q, s2, b2, out)
+    err = rt.load_library().mr_step_int8_launch(
+        *(t.data_ptr() for t in tensors),
+        B, T, D, H, Dh, K, block_b, N_SEG, rt.current_stream(xs.device),
+    )  # fmt: skip
+    rt.check_launch("mr_step_int8", err)
+    mr_step_int8_cuda.launches += 1
+    return out
+
+
+def mr_step_ltc_int8_cuda(
+    xs, h0, w_inq, w_in_scale, w_recq, w_rec_scale, bias, a, inv_tau, sig, w1q, s1, b1, w2q,
+    s2, b2, *, sub_dt: float, n_substeps: int, block_b: int,
+):  # fmt: skip
+    """Launch the fused int8/PWL LTC stage on the current stream: out [B, K].
+
+    ``sub_dt`` is ``dt / n_substeps`` in float32 (``core.ltc.ltc_sub_dt``).
+    Counts its launches in ``mr_step_ltc_int8_cuda.launches``.
+    """
+    B, T, D = xs.shape
+    H = h0.shape[-1]
+    Dh, K = w2q.shape
+    rt.check_operands(
+        "mr_step_ltc_int8",
+        xs.device,
+        xs=(xs, (B, T, D)),
+        h0=(h0, (B, H)),
+        w_inq=(w_inq, (D, H), torch.int8),
+        w_in_scale=(w_in_scale, (H,)),
+        w_recq=(w_recq, (H, H), torch.int8),
+        w_rec_scale=(w_rec_scale, (H,)),
+        bias=(bias, (H,)),
+        a=(a, (H,)),
+        inv_tau=(inv_tau, (H,)),
+        sig=(sig, (PWL_FLOATS,)),
+        **_int8_head_operands(H, w1q, s1, b1, w2q, s2, b2),
+    )
+    smem = tiling.ltc_int8_smem_bytes(D, H, Dh, K, block_b)
+    _check_tile("mr_step_ltc_int8", B, T, block_b, smem)
+    if block_b * H > tiling.MAX_THREADS or n_substeps < 1:
+        raise ValueError(
+            f"mr_step_ltc_int8: block_b * H = {block_b * H} must be <= {tiling.MAX_THREADS} "
+            f"(one thread a window and unit) and n_substeps={n_substeps} >= 1"
+        )
+    out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
+    tensors = (xs, h0, w_inq, w_in_scale, w_recq, w_rec_scale, bias, a, inv_tau, sig, w1q, s1,
+               b1, w2q, s2, b2, out)  # fmt: skip
+    err = rt.load_library().mr_step_ltc_int8_launch(
+        *(t.data_ptr() for t in tensors),
+        B, T, D, H, Dh, K, block_b, n_substeps, N_SEG, sub_dt, rt.current_stream(xs.device),
+    )  # fmt: skip
+    rt.check_launch("mr_step_ltc_int8", err)
+    mr_step_ltc_int8_cuda.launches += 1
+    return out
+
+
 mr_step_cuda.launches = 0
 mr_step_ltc_cuda.launches = 0
 mr_step_node_cuda.launches = 0
+mr_step_int8_cuda.launches = 0
+mr_step_ltc_int8_cuda.launches = 0
 
 
 def _fused_fn(name: str, kernel, reference) -> type:
@@ -275,4 +386,90 @@ def mr_step(
         return split_out(reference(*tensors, **ref_kw), cfg)
     bb = tiling.legal_block_b(block_b, B) or tiling.auto_block_b(cfg, spec.family, B)
     out = fn.apply(dict(kernel_kw, block_b=bb), ref_kw, xs.contiguous(), *tensors[1:])
+    return split_out(out, cfg)
+
+
+def _int8_spec(cfg) -> encoders.EncoderSpec:
+    spec = _fusable_spec(cfg)
+    if not spec.int8:
+        raise ValueError(
+            f"int8 mr_step implements the fixed-point cells with a PWL activation mapping: "
+            f"encoder='gru' (standard cell, paper Eq. 12-15) or encoder='ltc' (sigmoid-only "
+            f"substep); got {cfg.encoder!r} (int8-capable: {encoders.int8_names()})"
+        )
+    return spec
+
+
+def int8_weights(params, cfg, batch_dims: int = 0) -> tuple:
+    """The raw cell and head weights quantized per output channel, as
+    ``Int8Quantized`` pairs: (wx, wh, w1, w2) for the GRU rows, (w_in, w_rec,
+    w1, w2) for ``ltc``. ``batch_dims=1`` quantizes each slot of a
+    slot-stacked tree on its own."""
+    enc = params.encoder
+    if encoders.get_encoder(cfg.encoder).family == "ltc":
+        cell = (enc.w_in, enc.w_rec)
+    else:
+        d_in = cfg.state_dim + cfg.input_dim
+        cell = (enc.w[..., :d_in, :], enc.w[..., d_in:, :])
+    return tuple(quantize_int8(w, batch_dims=batch_dims)
+                 for w in (*cell, params.head_w1, params.head_w2))  # fmt: skip
+
+
+@torch.no_grad()
+def mr_step_int8(
+    params,  # merinda.MRParams of an int8-capable encoder (gru, gru_kernel, ltc)
+    cfg,  # merinda.MRConfig
+    xs: torch.Tensor,  # [B, T, n + m] normalized windows
+    dts: torch.Tensor | None = None,
+    block_b: int | None = None,
+    force_reference: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-point serving stage: (theta [B, n_terms, n], shifts [B, q]).
+
+    ``dts`` and ``time_scale`` are unread (the standard cell); the LTC twin
+    integrates on ``cfg.dt`` with ``cfg.ltc_substeps`` substeps.
+    """
+    spec = _int8_spec(cfg)
+    B, T, D = xs.shape
+    H = cfg.hidden
+    h0 = torch.zeros(B, H, dtype=torch.float32, device=xs.device)
+    cell_a, cell_b, w1q, w2q = int8_weights(params, cfg)
+    enc = params.encoder
+    ltc = spec.family == "ltc"
+    if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
+        sig_t, tanh_t = serving_tables()
+        if ltc:
+            out = mr_step_ltc_int8_reference(
+                xs, h0, cell_a.values, cell_a.scale, cell_b.values, cell_b.scale, enc.bias,
+                enc.a, enc.inv_tau, w1q.values, w1q.scale, params.head_b1, w2q.values,
+                w2q.scale, params.head_b2, sig_t, dt=cfg.dt, n_substeps=cfg.ltc_substeps,
+            )  # fmt: skip
+        else:
+            if dts is None:
+                dts = torch.ones(T, dtype=torch.float32, device=xs.device)
+            out = mr_step_int8_reference(
+                xs, h0, cell_a.values, cell_b.values, cell_a.scale, cell_b.scale, enc.b, dts,
+                w1q.values, w1q.scale, params.head_b1, w2q.values, w2q.scale, params.head_b2,
+                sig_t, tanh_t,
+            )  # fmt: skip
+        return split_out(out, cfg)
+    Dh, K = cfg.dense_hidden, cfg.n_coef + cfg.n_shifts
+    bb = tiling.legal_block_b(block_b, B) or tiling.fit_block_b(
+        spec.family, B, D, H, Dh, K, int8=True
+    )
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    flat = lambda q: q.scale.reshape(-1)
+    sig, tanh = serving_packs(xs.device)
+    head = (w1q.values, flat(w1q), f32(params.head_b1), w2q.values, flat(w2q), f32(params.head_b2))
+    if ltc:
+        out = mr_step_ltc_int8_cuda(
+            f32(xs), h0, cell_a.values, flat(cell_a), cell_b.values, flat(cell_b), f32(enc.bias),
+            f32(enc.a), f32(enc.inv_tau), sig, *head, sub_dt=ltc_sub_dt(cfg.dt, cfg.ltc_substeps),
+            n_substeps=cfg.ltc_substeps, block_b=bb,
+        )  # fmt: skip
+    else:
+        out = mr_step_int8_cuda(
+            f32(xs), h0, cell_a.values, cell_b.values, flat(cell_a), flat(cell_b), f32(enc.b),
+            sig, tanh, *head, block_b=bb,
+        )  # fmt: skip
     return split_out(out, cfg)

@@ -16,6 +16,13 @@ callers name the kernel by its family: the encoder row's ``family`` (the
 field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
 ``"gru_scan"`` for the bare scan.
 
+The int8 serving kernels (``csrc/gru_scan_int8.cu``, ``mr_step_int8.cu``,
+``mr_step_ltc_int8.cu``, ``mr_tick_int8.cu``) carve the same buffers with the
+weights as int8 (rounded up to whole floats), one float scale per output
+channel beside them, and the packed PWL tables (``core/quant.py``
+``PWL_FLOATS`` floats each); the functions below that serve both kinds take
+``int8=True`` for them.
+
 The banked service tick (``csrc/mr_tick.cu``) runs one block per bank of
 slots and takes the bank's slots in turn, so its carve
 (``tick_smem_bytes``) holds one slot and does not grow with the bank; the
@@ -25,6 +32,8 @@ the grid keeps ``min(S, 132)`` blocks, one slot each for S <= 132.
 """
 
 from __future__ import annotations
+
+from repro_torch.core.quant import PWL_FLOATS
 
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most dynamic shared memory a block can use
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -59,8 +68,53 @@ def node_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
     return 4 * (floats + head_floats(H, Dh, K, block_b))
 
 
-def family_smem_bytes(family: str, D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """Shared memory of one block of the kernel of ``family``."""
+def q_floats(n: int) -> int:
+    """Floats that ``n`` int8 values occupy in a carve (``csrc/common.cuh``)."""
+    return (n + 3) // 4
+
+
+def head_q_floats(H: int, Dh: int, K: int, block_b: int) -> int:
+    """``csrc/head_q.cuh``: scales and biases, the hidden layer, int8 w1 and w2."""
+    return 2 * Dh + 2 * K + block_b * Dh + q_floats(H * Dh) + q_floats(Dh * K)
+
+
+def gru_q_floats(D: int, H: int, block_b: int) -> int:
+    """``csrc/gru_q_step.cuh``: scales, bias, both tables, the tile's state
+    and the int8 gate weights."""
+    return (9 * H + 2 * PWL_FLOATS + 4 * block_b * H + q_floats(D * 3 * H)
+            + q_floats(H * 3 * H))  # fmt: skip
+
+
+def gru_scan_int8_smem_bytes(D: int, H: int, block_b: int) -> int:
+    """``gru_scan_int8``: the quantized scan's carve."""
+    return 4 * gru_q_floats(D, H, block_b)
+
+
+def int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """``mr_step_int8``: the quantized scan, then the int8 head."""
+    return 4 * (gru_q_floats(D, H, block_b) + head_q_floats(H, Dh, K, block_b))
+
+
+def ltc_int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """``mr_step_ltc_int8``: two scale rows, bias, a, inv_tau, the sigmoid
+    table, two h buffers, int8 w_in and w_rec, the int8 head."""
+    floats = 5 * H + PWL_FLOATS + 2 * block_b * H + q_floats(D * H) + q_floats(H * H)
+    return 4 * (floats + head_q_floats(H, Dh, K, block_b))
+
+
+def family_smem_bytes(
+    family: str, D: int, H: int, Dh: int, K: int, block_b: int, int8: bool = False
+) -> int:
+    """Shared memory of one block of the kernel of ``family`` (its int8
+    serving twin with ``int8=True``; the NODE family has none)."""
+    if int8:
+        if family == "gru":
+            return int8_smem_bytes(D, H, Dh, K, block_b)
+        if family == "ltc":
+            return ltc_int8_smem_bytes(D, H, Dh, K, block_b)
+        if family == "gru_scan":
+            return gru_scan_int8_smem_bytes(D, H, block_b)
+        raise ValueError(f"no int8 kernel for family {family!r}; int8 families: gru, ltc, gru_scan")
     if family == "ltc":
         return ltc_smem_bytes(D, H, Dh, K, block_b)
     if family == "node":
@@ -96,10 +150,12 @@ def fit_block_b(
     K: int = 0,
     *,
     smem_budget_bytes: int | None = None,
+    int8: bool = False,
 ) -> int:
     """Largest tile that divides ``batch``, fits the shared-memory budget and
     leaves at least ``min(batch, N_SMS)`` blocks in the grid (and, for the
-    LTC kernel, at most ``MAX_THREADS`` (window, unit) pairs).
+    LTC kernels, at most ``MAX_THREADS`` (window, unit) pairs). ``int8``
+    fits the family's int8 serving kernel.
 
     Raises when not even one window fits the budget: the weights alone
     overflow a block.
@@ -107,7 +163,7 @@ def fit_block_b(
     budget = SMEM_BUDGET_BYTES if smem_budget_bytes is None else smem_budget_bytes
 
     def nbytes(bb: int) -> int:
-        return family_smem_bytes(family, D, H, Dh, K, bb)
+        return family_smem_bytes(family, D, H, Dh, K, bb, int8=int8)
 
     min_blocks = min(batch, N_SMS)
     for bb in block_b_candidates(batch):
@@ -116,19 +172,21 @@ def fit_block_b(
             return bb
     raise ValueError(
         f"no batch tile fits {budget} bytes of shared memory: one window needs "
-        f"{nbytes(1)} ({family}, D={D}, H={H}, Dh={Dh}, K={K})"
+        f"{nbytes(1)} ({family}, D={D}, H={H}, Dh={Dh}, K={K}, int8={int8})"
     )
 
 
 def auto_block_b(
-    cfg, family: str, batch: int | None, smem_budget_bytes: int | None = None
+    cfg, family: str, batch: int | None, smem_budget_bytes: int | None = None, int8: bool = False
 ) -> int | None:
     """``fit_block_b`` of the fused kernel of one ``MRConfig`` whose encoder
     row is of ``family``; ``None`` when the batch is unknown at compile time
     (the kernel wrapper then fits the batch it is given)."""
     if batch is None:
         return None
-    return fit_block_b(family, batch, *_shape(cfg), smem_budget_bytes=smem_budget_bytes)
+    return fit_block_b(
+        family, batch, *_shape(cfg), smem_budget_bytes=smem_budget_bytes, int8=int8
+    )
 
 
 def legal_block_b(block_b: int | None, batch: int) -> int | None:
@@ -146,16 +204,19 @@ def legal_block_b(block_b: int | None, batch: int) -> int | None:
 # ---------------------------------------------------------------------------
 # the banked service tick (csrc/mr_tick.cu)
 # ---------------------------------------------------------------------------
-def tick_smem_bytes(D: int, H: int, Dh: int, Ko: int, N: int, T: int) -> int:
+def tick_smem_bytes(D: int, H: int, Dh: int, Ko: int, N: int, T: int, int8: bool = False) -> int:
     """``mr_tick``: one slot's GRU scan and head (with its N windows as the
     tile), the normalized window set [N, T, D], the flow gate's dts [T] and
-    the head output [N, Ko]."""
+    the head output [N, Ko]. ``int8``: ``mr_tick_int8``, the quantized scan
+    and head, no dts."""
+    if int8:
+        return int8_smem_bytes(D, H, Dh, Ko, N) + 4 * (N * T * D + N * Ko)
     return smem_bytes(D, H, Dh, Ko, N) + 4 * (N * T * D + T + N * Ko)
 
 
-def config_tick_smem_bytes(cfg, scfg) -> int:
+def config_tick_smem_bytes(cfg, scfg, int8: bool = False) -> int:
     """``tick_smem_bytes`` of one ``MRConfig`` under one ``StreamConfig``."""
-    return tick_smem_bytes(*_shape(cfg), scfg.n_windows, scfg.window)
+    return tick_smem_bytes(*_shape(cfg), scfg.n_windows, scfg.window, int8=int8)
 
 
 def slots_per_bank_candidates(n_slots: int) -> list[int]:
@@ -165,13 +226,15 @@ def slots_per_bank_candidates(n_slots: int) -> list[int]:
     return [d for d in range(n_slots, 0, -1) if n_slots % d == 0]
 
 
-def auto_slots_per_bank(cfg, scfg, n_slots: int, smem_budget_bytes: int | None = None) -> int:
+def auto_slots_per_bank(
+    cfg, scfg, n_slots: int, smem_budget_bytes: int | None = None, int8: bool = False
+) -> int:
     """Largest divisor of ``n_slots`` that leaves at least ``min(n_slots,
     N_SMS)`` blocks, when one slot's carve fits the budget; 0 when it does
     not (``compile_plan`` then keeps ``tick_kernel="auto"`` on the composite
     tick)."""
     budget = SMEM_BUDGET_BYTES if smem_budget_bytes is None else smem_budget_bytes
-    if n_slots < 1 or config_tick_smem_bytes(cfg, scfg) > budget:
+    if n_slots < 1 or config_tick_smem_bytes(cfg, scfg, int8=int8) > budget:
         return 0
     min_blocks = min(n_slots, N_SMS)
     return next(d for d in slots_per_bank_candidates(n_slots) if n_slots // d >= min_blocks)

@@ -60,6 +60,21 @@ LAUNCHERS = {
     # w2, b2, h0, buf_u, new_u, buf_y_out, theta_out, delta_out, buf_u_out,
     # S, L, n, m, C, T, stride, H, Dh, Ko, Kc, bank, flow, ema, one_minus_ema, stream
     "mr_tick_launch": [_P] * 22 + [_I] * 13 + [_F, _F, _P],
+    # the int8/PWL serving kernels: int8 weights, float scales per output
+    # channel, PWL tables packed by core/quant.py serving_packs (N_SEG segments)
+    # xs, h0, wxq, whq, sx, sh, b, sig, tanh, hs, B, T, D, H, block_b, n_seg, stream
+    "gru_scan_int8_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # xs, h0, wxq, whq, sx, sh, b, sig, tanh, w1q, s1, b1, w2q, s2, b2, out,
+    # B, T, D, H, Dh, K, block_b, n_seg, stream
+    "mr_step_int8_launch": [_P] * 16 + [_I] * 8 + [_P],
+    # xs, h0, w_inq, s_in, w_recq, s_rec, bias, a, inv_tau, sig, w1q, s1, b1, w2q, s2, b2,
+    # out, B, T, D, H, Dh, K, block_b, n_substeps, n_seg, sub_dt, stream
+    "mr_step_ltc_int8_launch": [_P] * 17 + [_I] * 9 + [_F, _P],
+    # buf_y, new_y, mean, scale, theta0, seed, active, wxq, whq, sx, sh, b, sig, tanh,
+    # w1q, s1, b1, w2q, s2, b2, h0, buf_u, new_u, buf_y_out, theta_out, delta_out,
+    # buf_u_out, S, L, n, m, C, T, stride, H, Dh, Ko, Kc, bank, n_seg, ema,
+    # one_minus_ema, stream
+    "mr_tick_int8_launch": [_P] * 27 + [_I] * 13 + [_F, _F, _P],
 }
 
 
@@ -153,14 +168,16 @@ def load_library() -> ctypes.CDLL:
 def check_operands(kernel: str, device: torch.device, **operands) -> None:
     """Raise on any operand the kernel does not take.
 
-    ``operands`` maps a name to ``(tensor, expected_shape)``: every tensor
-    must be a contiguous float32 CUDA tensor on ``device`` of that shape.
+    ``operands`` maps a name to ``(tensor, expected_shape)`` or ``(tensor,
+    expected_shape, dtype)``: every tensor must be a contiguous CUDA tensor on
+    ``device`` of that shape and dtype (float32 unless named).
     """
-    for name, (t, shape) in operands.items():
+    for name, (t, shape, *dtype) in operands.items():
+        dtype = dtype[0] if dtype else torch.float32
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{kernel}: {name} must be on {device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{kernel}: {name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -171,6 +188,18 @@ def check_launch(name: str, err: int) -> None:
     """Raise when a launcher returned a CUDA error (refused or failed launch)."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``None`` -> the card; raises when a CUDA device is asked for and none
+    is visible. The CPU runs only when the caller names it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is visible; pass device='cpu' to run the plain "
+            f"PyTorch versions on the CPU"
+        )
+    return device
 
 
 def current_stream(device: torch.device) -> int:

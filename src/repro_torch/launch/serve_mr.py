@@ -21,6 +21,10 @@ tick as one launch of the ``mr_tick`` kernel:
         --streams 12 --slots 4
 
 and the same scenario with the plain versions on the CPU: ``--device cpu``.
+
+``--quant`` serves with ``precision="int8_pwl"``: every evicted stream's
+coefficients are read out through the fixed-point fused stage (the
+``mr_step_int8`` kernel: int8 gate and head weights, PWL activations).
 """
 
 from __future__ import annotations
@@ -149,6 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="pass if stream MSE <= factor * per-system MEDIAN one-shot MSE + tol-abs",
     )
     ap.add_argument("--tol-abs", type=float, default=0.05)
+    ap.add_argument("--quant", action="store_true", help="int8/PWL kernel readout at eviction")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)"
@@ -194,6 +199,7 @@ def serve(args: argparse.Namespace, verbose: bool = True) -> dict:
         dense_hidden=2 * args.hidden,
         dt=specs[0].dt,
         encoder=args.encoder,
+        precision="int8_pwl" if args.quant else "fp32",
         mode="stream",
         lr=args.lr,
         seed=args.seed,
@@ -208,7 +214,8 @@ def serve(args: argparse.Namespace, verbose: bool = True) -> dict:
     log(
         f"[serve_mr] streams={args.streams} slots={args.slots} K={args.steps_per_tick} "
         f"windows/slot={scfg.n_windows} library={cfg.n_terms}x{cfg.state_dim} "
-        f"encoder={args.encoder} tick={plan.lowering.tick_kernel} device={args.device}",
+        f"encoder={args.encoder} tick={plan.lowering.tick_kernel} quant={args.quant} "
+        f"device={args.device}",
         flush=True,
     )
     stats = run_service(service, ys, us, args.max_ticks, verbose=verbose)

@@ -229,8 +229,9 @@ def test_batch_mode_refuses_what_is_not_ported():
     for kw in (dict(fused=True), dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):
         with pytest.raises(ValueError, match="not yet ported"):
             api.compile_plan(api.RecoverySpec(**base, **kw), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        api.RecoverySpec(**base, precision="int8_pwl")
+    # int8 serving is ported, but the default gru_flow row has no int8 stage
+    with pytest.raises(ValueError, match="int8_pwl"):
+        api.compile_plan(api.RecoverySpec(**base, precision="int8_pwl"), device="cpu")
     with pytest.raises(ValueError, match="requires mode='stream'"):
         api.RecoverySpec(**base, tick=api.TickSpec())
     plan = api.compile_plan(api.RecoverySpec(**base), device="cpu")

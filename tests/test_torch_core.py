@@ -206,17 +206,17 @@ def test_encoder_registry_has_the_gru_rows_and_refuses_the_rest():
 
 
 def test_unported_options_raise():
-    """QAT, the ltc/node encoders and the batch and stream modes are ported;
-    int8 serving, a slot mesh, the device control plane and service
+    """QAT, the ltc/node encoders, the batch and stream modes and int8
+    serving are ported; a slot mesh, the device control plane and service
     checkpoints are not."""
     cfg = MRConfig(state_dim=2, encoder="ltc", quant=QuantConfig(4, 10, 2, 12))
     assert cfg.quant.act_bits == 14 and cfg.ltc_substeps == 6
     assert RecoverySpec(state_dim=2, encoder="node", qat=QuantConfig()).to_mr_config().quant
     assert RecoverySpec(state_dim=2, mode="batch").mode == "batch"
     assert RecoverySpec(state_dim=2, mode="stream").stream_config().n_windows == 17
-    for kw in (dict(precision="int8_pwl"), dict(mode="stream", mesh_slots=2)):
-        with pytest.raises(ValueError, match="not yet ported"):
-            RecoverySpec(state_dim=2, **kw)
+    assert RecoverySpec(state_dim=2, encoder="gru", precision="int8_pwl").precision == "int8_pwl"
+    with pytest.raises(ValueError, match="not yet ported"):
+        RecoverySpec(state_dim=2, mode="stream", mesh_slots=2)
     for kw in (dict(control="device"), dict(checkpoint_period=1)):
         with pytest.raises(ValueError, match="not yet ported"):
             TickSpec(**kw)

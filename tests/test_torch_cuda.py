@@ -10,6 +10,11 @@ The banked service tick (``mr_tick``) is held to its plain version as the
 JAX tick tests hold theirs: rolled buffers bit for bit, theta and delta
 within 1e-5, and a banked service in lockstep with a composite one.
 
+The int8/PWL serving kernels (``gru_scan_int8``, ``mr_step_int8``,
+``mr_step_ltc_int8``, ``mr_tick_int8``) are held to their plain versions
+within 1e-5 (the tick's buffers bit for bit), and each must differ from its
+fp32 twin by at least 1e-4, so a kernel that skipped the quantization fails.
+
 Tolerance: <= 1e-4 in float32, the JAX package's bound for its fused kernels;
 the kernel sums the gate products in another order than the plain version.
 The head's activation step is checked at the coarse format Q2.3, which moves
@@ -29,15 +34,19 @@ from repro_torch import api
 from repro_torch.core import merinda
 from repro_torch.core.stream import StreamConfig
 from repro_torch.core.ltc import LTCParams, ltc_scan, ltc_sub_dt
+from repro_torch.core.neural_flow import GRUParams
 from repro_torch.core.node_mr import NodeEncoderParams, node_scan, node_sub_dt
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.gru_scan.ops import gru_scan, gru_scan_cuda
+from repro_torch.kernels.gru_scan.ops import gru_scan, gru_scan_cuda, gru_scan_int8, gru_scan_int8_cuda
 from repro_torch.kernels.gru_scan.ref import gru_scan_reference
 from repro_torch.kernels.mr_step.ops import (
     mr_step,
     mr_step_cuda,
+    mr_step_int8,
+    mr_step_int8_cuda,
     mr_step_ltc_cuda,
+    mr_step_ltc_int8_cuda,
     mr_step_node_cuda,
 )
 from repro_torch.kernels.mr_step.ref import (
@@ -45,7 +54,7 @@ from repro_torch.kernels.mr_step.ref import (
     mr_step_node_reference,
     mr_step_reference,
 )
-from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda
+from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda, mr_tick_int8_cuda
 from repro_torch.tree import tree_leaves, tree_stack, tree_unflatten
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -343,3 +352,106 @@ def test_banked_matches_composite_service_on_the_card(dev):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
     torch.testing.assert_close(sb.theta, sc.theta, atol=1e-5, rtol=0)
     assert torch.equal(sb.steps, sc.steps)
+
+
+# ---------------------------------------------------------------------------
+# the int8/PWL serving kernels
+# ---------------------------------------------------------------------------
+INT8_TOL = dict(atol=1e-5, rtol=0)
+QUANT_GAP = 1e-4  # the least an int8 output must differ from its fp32 twin's
+INT8_SHAPES = [  # (B, T, D, H, Dh, block_b): the JAX tests', the quickstart's, a tile of 2
+    (4, 20, 3, 32, 64, None), (64, 32, 2, 32, 64, None), (193, 32, 2, 32, 64, None),
+    (8, 9, 3, 64, 128, 2),
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("B,T,D,H,Dh,block_b", INT8_SHAPES)
+@pytest.mark.parametrize("encoder", ["gru", "ltc"])
+def test_int8_stages_match_plain(dev, encoder, B, T, D, H, Dh, block_b):
+    cfg = merinda.MRConfig(state_dim=D, hidden=H, dense_hidden=Dh, encoder=encoder, dt=0.05)
+    params = merinda.init_mr(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    xs = torch.randn(B, T, D, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    kernel = mr_step_int8_cuda if encoder == "gru" else mr_step_ltc_int8_cuda
+    before = kernel.launches
+    theta, shifts = mr_step_int8(params, cfg, xs, block_b=block_b)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = mr_step_int8(params, cfg, xs, force_reference=True)
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(theta, want[0], **INT8_TOL)
+    torch.testing.assert_close(shifts, want[1], **INT8_TOL)
+    with torch.no_grad():
+        theta_fp, _ = mr_step(params, cfg, xs)
+    assert (theta - theta_fp).abs().max().item() >= QUANT_GAP
+
+
+@pytest.mark.parametrize("B,T,D,H", [(4, 20, 8, 32), (64, 32, 2, 32), (193, 32, 2, 32)])
+def test_gru_scan_int8_matches_plain(dev, B, T, D, H):
+    g = torch.Generator(device=dev).manual_seed(2)
+    params = GRUParams(
+        torch.randn(D + H, 3 * H, device=dev, generator=g) * (D + H) ** -0.5,
+        torch.randn(3 * H, device=dev, generator=g) * 0.1,
+        torch.randn(H, device=dev, generator=g),
+    )
+    xs = torch.randn(B, T, D, device=dev, generator=g)
+    h0 = torch.randn(B, H, device=dev, generator=g) * 0.1
+    before = gru_scan_int8_cuda.launches
+    _, hs = gru_scan_int8(params, xs, h0)
+    torch.cuda.synchronize()
+    assert gru_scan_int8_cuda.launches == before + 1
+    _, want = gru_scan_int8(params, xs, h0, force_reference=True)
+    torch.testing.assert_close(hs, want, **INT8_TOL)
+    with torch.no_grad():
+        _, hs_fp = gru_scan(params, xs, h0, flow=False)
+    assert (hs - hs_fp).abs().max().item() >= QUANT_GAP
+
+
+INT8_TICK_SWEEP = [(0, 1, "test"), (2, 2, "test"), (1, 1, "serve"), (1, 2, "serve"), (1, 4, "serve")]
+
+
+@pytest.mark.parametrize("m,spb,geometry", INT8_TICK_SWEEP)
+def test_mr_tick_int8_matches_plain(dev, m, spb, geometry):
+    if geometry == "serve":
+        cfg, scfg = merinda.MRConfig(encoder="gru", **SERVE), StreamConfig()
+    else:
+        cfg, scfg = merinda.MRConfig(input_dim=m, encoder="gru", **TICK_BASE), TCFG
+    ops = _tick_operands(cfg, scfg, 4, dev, seed=5)
+    before = (mr_tick_int8_cuda.launches, mr_tick_cuda.launches)
+    out = mr_tick(ops[0], cfg, scfg, *ops[1:], quant=True, slots_per_bank=spb)
+    torch.cuda.synchronize()
+    assert (mr_tick_int8_cuda.launches, mr_tick_cuda.launches) == (before[0] + 1, before[1])
+    want = mr_tick(ops[0], cfg, scfg, *ops[1:], quant=True, force_reference=True)
+    torch.testing.assert_close(out[0], want[0], atol=0, rtol=0)  # rolled buffers
+    torch.testing.assert_close(out[1], want[1], atol=0, rtol=0)
+    torch.testing.assert_close(out[2], want[2], **INT8_TOL)  # theta
+    assert torch.isinf(out[3][-1]) and torch.isfinite(out[3][:-1]).all()
+    torch.testing.assert_close(out[3], want[3], **INT8_TOL)  # delta
+    theta_fp = mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=spb)[2]
+    assert (out[2] - theta_fp).abs().max().item() >= QUANT_GAP
+
+
+def test_int8_monitor_launches_mr_tick_int8_once_a_tick(dev):
+    """A K=0 banked int8_pwl plan: each tick is one mr_tick_int8 launch and
+    no other kernel; the service reads an eviction out through mr_step_int8."""
+    scfg = StreamConfig(buf_len=32, window=8, stride=8, chunk=8, steps_per_tick=0,
+                        min_steps=10**9, max_steps=10**9)  # fmt: skip
+    spec = api.RecoverySpec(
+        mode="stream", n_slots=2, stream=scfg, encoder="gru", seed=0, precision="int8_pwl",
+        tick=api.TickSpec(steps_per_tick=0, tick_kernel="banked"), **TICK_BASE,
+    )  # fmt: skip
+    plan = api.compile_plan(spec, device=dev)
+    assert plan.lowering.quant_serving and plan.lowering.dispatch == "cuda"
+    svc = plan.make_service()
+    rng = np.random.default_rng(0)
+    data = np.cumsum(rng.standard_normal((64, 3)).astype(np.float32) * 0.1, axis=0)
+    for sid in range(2):
+        svc.submit(sid, data[sid : sid + 32])
+    svc.fill_slots()
+    kernels = (mr_tick_int8_cuda, mr_tick_cuda, mr_step_int8_cuda, mr_step_cuda, gru_scan_cuda)
+    before = [k.launches for k in kernels]
+    for t in range(3):
+        svc.tick_once(np.repeat(data[32 + 8 * t : 40 + 8 * t][None], 2, axis=0))
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 0, 0, 0, 0]
+    before = mr_step_int8_cuda.launches
+    svc._evict(0, "budget")
+    assert mr_step_int8_cuda.launches == before + 1

@@ -16,7 +16,8 @@ At the JAX tests' own sizes (H=8; ``tests/test_tick.py`` TCFG and CCFG,
   eviction falls at ``max_steps``; cold starts carried over from JAX's keys):
   slot maps, steps and eviction reasons equal, theta within 1e-3;
 - host-plane priority preemption and the bounded warm LRU;
-- every refusal of what is not yet ported, the tick's shared-memory model, and
+- every refusal of what is not yet ported (and of int8 serving on a flow
+  row), the tick's shared-memory model, and
   ``serve_mr`` end to end at a small size on the CPU.
 """
 
@@ -348,8 +349,9 @@ def test_stream_mode_refuses_what_is_not_ported():
     for kw in (dict(fused=True), dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):
         with pytest.raises(ValueError, match="not yet ported"):
             api.compile_plan(_spec(**kw), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        _spec(precision="int8_pwl")
+    # int8 serving is ported, but not on a flow row (no int8 stage)
+    with pytest.raises(ValueError, match="int8_pwl"):
+        api.compile_plan(_spec(precision="int8_pwl", encoder="gru_flow"), device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         _spec(mesh_slots=2)
     with pytest.raises(ValueError, match="not yet ported"):
