@@ -56,10 +56,11 @@ prints no result):
    kernel and its plain version at the quickstart shapes, of ``mr_step``
    and ``mr_step_ltc`` at the bench_cycles shape and of ``mr_tick`` at the
    serve shape, beside the least time the card could take for the same work;
-10. where the time goes: ``torch.profiler`` over one step of each offline
-    main path, and over two banked and two composite ticks, counts the device
-    kernels a step or tick launches and their busy time. It runs last: a
-    process the profiler has traced launches more slowly afterwards.
+10. where the time goes: ``torch.profiler`` over one step of the GRU-flow and
+    LTC main paths (MERINDA and its primary baseline) and over two banked
+    ticks counts the device kernels a step or tick launches and their busy
+    time (the NODE, QAT and composite-tick profiles are cut for time). It runs
+    last: a process the profiler has traced launches more slowly afterwards.
 
 The int8/PWL serving slice adds, each checked the same way:
 
@@ -85,6 +86,43 @@ The int8/PWL serving slice adds, each checked the same way:
   (printed, not bounded);
 - in phase 9, the four int8 kernels' times beside their plain versions, their
   bounds and their fp32 twins.
+
+The LM zoo's slice adds, before phase 10:
+
+- 8d. kernel parity: ``ssd_scan`` at the JAX tests' shapes (chunk 32, float32,
+  the JAX bound 5e-5 absolute plus 5e-5 relative), at the model's width in
+  float32 (within 1e-5 of the largest magnitude: each output sums ~256
+  products) and at Mamba2-130m's prefill shapes (B = 4 and 1, T = 1024,
+  H = 24, P = 64, N = 128, chunk 128, bf16 x, B and C) against
+  ``ssd_chunked`` on float32 copies (what the Pallas kernel computes): y
+  within one bf16 rounding (2^-8 of its magnitude) plus 1e-4, the float32
+  state within 1e-4 of its largest magnitude; ``flash_attention`` at every
+  case of ``tests/test_kernels_flash.py`` in float32 (2e-5) and in bf16
+  against the oracle on float32 copies (one bf16 rounding plus 1e-4, as
+  ``ssd_scan``'s bf16 y), the q_offset tail, two block shapes, and
+  minitron-8b's geometry (B = 1, S = 4096, 32 query heads on 8 kv heads,
+  Dh = 128, causal, bf16, bounded the same way); one backward through each
+  op against ``force_reference`` (5e-4);
+- 8e. the LM serving path: ``python -m repro_torch.launch.serve --arch
+  mamba2-130m --full --requests 8 --slots 4 --prompt-len 1024 --max-new 32``
+  (random bf16 weights at the published widths). The launch counts are set
+  to 0 just before and read just after: ``ssd_scan`` exactly 24 times a
+  prefill call (120), no other kernel, every request its 32 tokens or an
+  end at eos. Then, on the same weights cast to float32 (exact) and the
+  same prompts: the kernel path's prefill logits against
+  ``force_reference``'s, and a full-width prefill of 1,024 tokens plus 4
+  decode steps against prefills of the longer prompts, both within 1e-3 of
+  the largest logit. In bf16 the same two numbers, the kernel at chunk 64
+  against chunk 128, and the share of greedy tokens on which the kernel and
+  the reference serve agree are printed, not bounded: 24 random layers
+  amplify a last-bit difference past ``tests/test_models.py:99``'s 0.12
+  (``tests/test_torch_lm_depth.py``). Prefill, admission and decode times,
+  tokens/s and peak device memory;
+- in phase 9, both kernels' times beside their plain versions and bounds,
+  and ``flash_attention``'s beside ``scaled_dot_product_attention``'s.
+
+Phase 8b takes phase 8's batch baseline (its 4 streams are the first 4 of
+phase 8's fleet) instead of training the same 400 steps again.
 
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
@@ -118,8 +156,10 @@ ACT_BITS = (4, 10)  # the QAT run's activation format, Q4.10
 COARSE_BITS = (2, 3)
 MARGIN = 1e-5
 QAT = (4, 10, 2, 12)  # QuantConfig of the QAT main path
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3 rate
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, bf16 on
+# the tensor cores (dense), HBM3 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # elementwise operations per hidden unit and step besides the products:
 # GRU: bias adds, two sigmoids, r*h, tanh, the (flow) update;
@@ -163,6 +203,27 @@ MONITOR_TOL = 0.25  # int8 against fp32 monitor readout (tests/test_tick.py:119)
 # each), bias adds, r*h, the update; LTC substep: 1 PWL evaluation and the
 # semi-implicit update
 ELEMENTWISE_INT8 = {"gru": 34, "ltc": 14}
+# the LM zoo's kernels
+SSD_TEST_SHAPES = [(1, 64, 1, 8, 4, 1), (2, 128, 2, 16, 8, 1), (2, 96, 4, 32, 16, 2)]  # B,S,H,P,N,G
+SSD_MODEL = dict(T=1024, H=24, P=64, N=128, G=1, chunk=128)  # mamba2-130m's prefill of 1,024 tokens
+FLASH_CASES = [  # B, S, QH, KH, Dh, causal, window: tests/test_kernels_flash.py:11-19
+    (1, 128, 1, 1, 32, True, None),
+    (2, 256, 4, 2, 64, True, None),
+    (2, 256, 8, 1, 64, True, None),
+    (1, 256, 4, 4, 128, False, None),
+    (2, 256, 4, 2, 64, True, 128),
+    (1, 384, 2, 2, 64, True, 64),
+]
+MINITRON = (1, 4096, 32, 8, 128)  # B, S, QH, KH, Dh: benchmarks/roofline.py's flash shape
+LM_ARGS = ["--arch", "mamba2-130m", "--full", "--requests", "8", "--slots", "4", "--prompt-len",
+           "1024", "--max-new", "32", "--device", "cuda"]  # fmt: skip
+# the LM path's float32 logits, kernel against reference and prefill against decode,
+# relative to the largest logit: at Mamba2-130m's depth two float32 summation orders
+# part by ~1.2e-4 of it (tests/test_torch_lm_depth.py, at the SMOKE widths)
+LM_F32_REL = 1e-3
+# phase 10 profiles MERINDA's main path and its primary baseline only: a cut for
+# time, so that the script stays well inside its limit on a slow host
+PROFILED_PATHS = ("gru_flow", "ltc")
 
 
 def log(msg: str) -> None:
@@ -275,10 +336,10 @@ def work_int8(family, B, T, D, H, Dh, K, n_sub=SUBSTEPS, head=True) -> tuple[flo
     return flops + head_flops, 4 * (B * T * D + B * H + B * K) + wbytes + head_bytes
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of operations over the
-    float32 peak and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    peak for their type (float32 unless named) and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -312,6 +373,54 @@ def tick_work_int8(S, L, C, n, m, N, T, H, Dh, Ko, Kc) -> tuple[float, float]:
     reads = 4 * (L * D + C * D + 2 * n + Kc + 2) + weights
     writes = 4 * (L * D + Kc + 1)
     return flops, S * (reads + writes) + 4 * 2 * PWL_FLOATS
+
+
+def ssd_work(B, T, H, P, N, G, L, itemsize) -> tuple[float, float, float]:
+    """(operations, bytes, peak) of one ``ssd_scan`` call: per (sequence,
+    head, chunk) the lower triangle of C.B^T and of the scores times x (with
+    the decay and dt factors), C times the entering state, the state update
+    and D*x; x, B, C and y at ``itemsize`` bytes, dt, A, D and the state as
+    float32. The peak is the tensor cores' bf16 rate when x, B and C are bf16
+    (every product has a bf16 operand), the float32 rate otherwise."""
+    tri = L * (L + 1) / 2
+    per_chunk = 2 * N * tri + 3 * tri + 2 * P * tri + 2 * L * N * P + L + 2 * N * L * P
+    per_chunk += N * P + N * L + 2 * L * P + 3 * L
+    flops = B * H * (T // L) * per_chunk
+    nbytes = itemsize * (2 * B * T * H * P + 2 * B * T * G * N) + 4 * (B * T * H + 2 * H)
+    nbytes += 4 * B * H * N * P
+    return flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+
+
+def flash_work(B, Sq, Sk, QH, KH, Dh, causal, window, q_offset, itemsize):
+    """(operations, bytes, peak) of one ``flash_attention`` call: for every
+    query head and row, the keys its mask keeps (the causal triangle, the
+    window), each a q.k and a p*v product over Dh and ~5 softmax operations;
+    q, k, v read once and o written once at ``itemsize`` bytes."""
+    qpos = np.arange(Sq) + q_offset
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(Sq, np.int64)
+    pairs = float(np.clip(hi - lo + 1, 0, None).sum())
+    flops = B * QH * pairs * (4 * Dh + 5)
+    nbytes = itemsize * (2 * B * Sq * QH * Dh + 2 * B * Sk * KH * Dh)
+    return flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+
+
+def ssd_inputs(B, T, H, P, N, G, seed, device, dtype=torch.float32):
+    """``ssd_scan`` operands scaled as the JAX tests scale them, from a seed."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+
+    x, dt, A = mk(B, T, H, P, scale=0.5), torch.nn.functional.softplus(mk(B, T, H)), -torch.exp(mk(H, scale=0.5))
+    bm, cm, D = mk(B, T, G, N, scale=0.5), mk(B, T, G, N, scale=0.5), mk(H)
+    return x.to(dtype), dt, A, bm.to(dtype), cm.to(dtype), D
+
+
+def qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+    return mk(B, Sq, QH, Dh), mk(B, Sk, KH, Dh), mk(B, Sk, KH, Dh)
 
 
 def time_ms(fn, runs: int = 25, per_run: int = 10) -> float:
@@ -378,6 +487,11 @@ def main() -> None:
         tick_weights,
     )
     from repro_torch.launch import serve_mr
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models import model as lm
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
@@ -394,6 +508,8 @@ def main() -> None:
         "mr_step_int8": mr_step_int8_cuda,
         "mr_step_ltc_int8": mr_step_ltc_int8_cuda,
         "mr_tick_int8": mr_tick_int8_cuda,
+        "ssd_scan": ssd_scan_cuda,
+        "flash_attention": flash_attention_cuda,
     }
     tables = serving_tables()
     substep = {  # family -> (kernel, plain version, sub_dt)
@@ -924,10 +1040,14 @@ def main() -> None:
     # -- 8b. the int8 service: serve_mr --quant, every eviction through mr_step_int8 --------
     with Phase("main stream int8"):
         quant_args = serve_mr.build_parser().parse_args(QUANT_ARGS)
+        same = lambda a: {k: v for k, v in vars(a).items() if k not in ("streams", "quant")}
+        check(same(quant_args) == same(serve_args) and quant_args.streams <= serve_args.streams,
+              "the int8 service's fleet begins phase 8's")  # fmt: skip
         log(f"[main stream int8] python -m repro_torch.launch.serve_mr {' '.join(QUANT_ARGS)}")
         zero_counts()
         torch.cuda.synchronize()
-        q_scenario = serve_mr.serve(quant_args)
+        # the 4 streams are the first 4 of phase 8's fleet: its baseline serves them
+        q_scenario = serve_mr.serve(quant_args, baseline=scenario["theta_base"])
         torch.cuda.synchronize()
         counts = read_counts()
         q_svc, q_stats = q_scenario["service"], q_scenario["stats"]
@@ -938,8 +1058,7 @@ def main() -> None:
             f"[main stream int8] {len(q_svc.results)}/{quant_args.streams} streams in {q_ticks} "
             f"ticks; tick p50 {np.percentile(q_tick_ms, 50):.1f} ms, p99 "
             f"{np.percentile(q_tick_ms, 99):.1f} ms; service {q_stats['wall_s']:.1f} s, baseline "
-            f"{q_scenario['baseline_s']:.1f} s; launches {counts}; median host syncs a tick "
-            f"after the first {steady}"
+            f"phase 8's; launches {counts}; median host syncs a tick after the first {steady}"
         )
         check(q_svc.quant and q_scenario["plan"].lowering.quant_serving, "int8 service lowering")
         check(q_scenario["failures"] == 0 and len(q_scenario["rows"]) == quant_args.streams,
@@ -1063,6 +1182,212 @@ def main() -> None:
             launches=sum(c["mr_tick_int8"] for c in tick_counts), diff=diff, plain_err=plain_err,
             tick_p50=float(np.percentile(q_monitor.tick_ms, 50)), cause=cause,
         )  # fmt: skip
+
+    # -- 8d. the LM zoo's kernels against their plain versions ------------------------
+    lm_err = {}  # kernel -> max abs error of its bf16 checks (the float32 ones go to err)
+
+    def record_close(kernel, label, got, want, atol, rtol) -> None:
+        """float32 ``got`` within atol + rtol * |want| of ``want`` everywhere (the
+        JAX tests' assert_allclose); records the max abs error."""
+        diff = (got.float() - want.float()).abs()
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        log(f"[lm parity] {label}: {kernel} max abs {diff.max().item():.3e}")
+        check(ok, f"{kernel} parity at {label}")
+        err[kernel] = max(err[kernel], diff.max().item())
+
+    def record_rounded(kernel, label, got, want32) -> None:
+        """bf16 ``got`` within one bf16 rounding (2^-8 of the value) plus 1e-4 of
+        the plain version's float32 result on the same values; records the error."""
+        diff = (got.float() - want32).abs()
+        log(f"[lm parity] {label}: {kernel} max abs {diff.max().item():.3e} from the float32 "
+            f"result (max |value| {want32.abs().max().item():.3e}; bound one bf16 rounding + "
+            "1e-4)")  # fmt: skip
+        check(got.dtype == torch.bfloat16 and bool((diff <= want32.abs() * 2.0**-8 + 1e-4).all()),
+              f"{kernel} bf16 parity at {label}")  # fmt: skip
+        lm_err[kernel] = max(lm_err.get(kernel, 0.0), diff.max().item())
+
+    with Phase("lm parity"):
+        for B, S, H, P, N, G in SSD_TEST_SHAPES:
+            args = ssd_inputs(B, S, H, P, N, G, seed=S, device=dev)
+            y, st = ssd_scan(*args, chunk=32)
+            want_y, want_s = ssd_scan(*args, chunk=32, force_reference=True)
+            label = f"JAX test shape B={B} S={S} H={H} P={P} N={N} G={G} chunk=32 float32"
+            record_close("ssd_scan", f"{label} y", y, want_y, 5e-5, 5e-5)
+            record_close("ssd_scan", f"{label} state", st, want_s, 5e-5, 5e-5)
+        m = SSD_MODEL
+        args = ssd_inputs(2, 256, m["H"], m["P"], m["N"], m["G"], seed=7, device=dev)
+        y, st = ssd_scan(*args, chunk=m["chunk"])
+        want_y, want_s = ssd_scan(*args, chunk=m["chunk"], force_reference=True)
+        e_y, e_s = ((a - b).abs().max().item() for a, b in ((y, want_y), (st, want_s)))
+        log(f"[lm parity] model width B=2 T=256 float32: ssd_scan y {e_y:.3e} (of "
+            f"{want_y.abs().max().item():.3e}), state {e_s:.3e} (of {want_s.abs().max().item():.3e})")  # fmt: skip
+        check(e_y <= 1e-5 * want_y.abs().max().item() and e_s <= 1e-5 * want_s.abs().max().item(),
+              "ssd_scan float32 parity at the model width")  # fmt: skip
+        err["ssd_scan"] = max(err["ssd_scan"], e_y, e_s)
+        for B in (4, 1):  # the serve path's prefills: bootstrap and admission
+            args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=60 + B, device=dev,
+                              dtype=torch.bfloat16)  # fmt: skip
+            y, st = ssd_scan(*args, chunk=m["chunk"])
+            want_y, want_s = ssd_chunked(*(a.float() for a in args), chunk=m["chunk"])
+            label = f"mamba2-130m prefill B={B} T={m['T']} bf16"
+            record_rounded("ssd_scan", f"{label} y", y, want_y)
+            e_s = (st - want_s).abs().max().item()
+            scale_s = want_s.abs().max().item()
+            log(f"[lm parity] {label}: ssd_scan state {e_s:.3e} (of {scale_s:.3e})")
+            check(e_s <= 1e-4 * scale_s, f"ssd_scan bf16 state at B={B}")
+        for B, S, QH, KH, Dh, causal, window in FLASH_CASES:
+            label = f"B={B} S={S} QH={QH} KH={KH} Dh={Dh} causal={causal} window={window}"
+            q, k, v = qkv_inputs(B, S, S, QH, KH, Dh, seed=S + QH, device=dev)
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention(q, k, v, causal=causal, window=window, force_reference=True)
+            record_close("flash_attention", f"{label} float32", o, want, 2e-5, 2e-5)
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention(q.float(), k.float(), v.float(), causal=causal, window=window,
+                                   force_reference=True)  # fmt: skip
+            record_rounded("flash_attention", f"{label} bf16", o, want)
+        q, k, v = qkv_inputs(1, 256, 256, 2, 2, 64, seed=9, device=dev)
+        full = flash_attention(q, k, v)
+        tail = flash_attention(q[:, -128:], k, v, q_offset=128)
+        record_close("flash_attention", "q_offset=128 tail against the full result", tail,
+                     full[:, -128:], 2e-5, 2e-5)  # fmt: skip
+        want = flash_attention(q, k, v, force_reference=True)
+        for bq, bk in ((64, 64), (128, 256)):
+            record_close("flash_attention", f"block_q={bq} block_k={bk}",
+                         flash_attention(q, k, v, block_q=bq, block_k=bk), want, 2e-5, 2e-5)  # fmt: skip
+        Bm, Sm, QHm, KHm, Dhm = MINITRON
+        q, k, v = qkv_inputs(Bm, Sm, Sm, QHm, KHm, Dhm, seed=11, device=dev, dtype=torch.bfloat16)
+        want = flash_attention(q.float(), k.float(), v.float(), force_reference=True)
+        record_rounded("flash_attention", f"minitron-8b B={Bm} S={Sm} QH={QHm} KH={KHm} Dh={Dhm} "
+                       "causal bf16", flash_attention(q, k, v), want)  # fmt: skip
+        del want
+        del q, k, v
+        # one backward through each op against the plain version's
+        args = [a.requires_grad_(True) for a in ssd_inputs(2, 64, 2, 8, 4, 1, seed=4, device=dev)]
+        grads = [torch.autograd.grad((ssd_scan(*args, chunk=32, force_reference=f)[0] ** 2).sum(), args)
+                 for f in (False, True)]  # fmt: skip
+        e_ssd = max((a - b).abs().max().item() for a, b in zip(*grads))
+        qkv = [t.requires_grad_(True) for t in qkv_inputs(1, 128, 128, 2, 1, 32, seed=8, device=dev)]
+        grads = [torch.autograd.grad((flash_attention(*qkv, force_reference=f) ** 2).sum(), qkv)
+                 for f in (False, True)]  # fmt: skip
+        e_fa = max((a - b).abs().max().item() for a, b in zip(*grads))
+        log(f"[lm parity] one backward against force_reference: ssd_scan {e_ssd:.3e}, "
+            f"flash_attention {e_fa:.3e}")  # fmt: skip
+        check(e_ssd <= 5e-4 and e_fa <= 5e-4, "the LM kernels' gradients")
+
+    # -- 8e. the LM serving path: Mamba2-130m at full width through ssd_scan --------------
+    with Phase("main lm"):
+        lm_args = lm_serve.build_parser().parse_args(LM_ARGS)
+        log(f"[main lm] python -m repro_torch.launch.serve {' '.join(LM_ARGS)}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        served = lm_serve.run(lm_args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lm_cfg, lm_params, prompts = served["cfg"], served["params"], served["prompts"]
+        outputs = served["outputs"]
+        n_new = sum(len(t) for t in outputs.values())
+        want_launches = lm_cfg.num_layers * (1 + lm_args.requests - lm_args.slots)
+        decode_p50 = float(np.percentile(served["decode_ms"], 50))
+        log(
+            f"[main lm] {lm_cfg.name}: {lm_cfg.num_layers} layers, d_model {lm_cfg.d_model}, vocab "
+            f"{lm_cfg.vocab_padded}; {served['steps']} decode steps, {n_new} new tokens, "
+            f"{n_new / served['wall_s']:.1f} tokens/s; bootstrap prefill ({lm_args.slots} x "
+            f"{lm_args.prompt_len} tokens) "
+            f"{served['prefill_ms']:.1f} ms, admissions {[round(t, 1) for t in served['admit_ms']]} "
+            f"ms, decode p50 {decode_p50:.2f} ms a step; peak device memory {peak_gb:.2f} GB; "
+            f"launches {counts}"
+        )
+        for r in range(3):
+            log(f"[main lm]   req{r}: {outputs[r][:12]}...")
+        check(counts["ssd_scan"] == want_launches,
+              f"ssd_scan launched {counts['ssd_scan']} times, not {want_launches}")  # fmt: skip
+        others = {k: n for k, n in counts.items() if k != "ssd_scan"}
+        check(not any(others.values()), f"the LM path launched other kernels: {others}")
+        check(all(len(t) == lm_args.max_new or (t and t[-1] == lm_args.eos) for t in outputs.values())
+              and len(outputs) == lm_args.requests, "every request its tokens")  # fmt: skip
+        # the same weights and prompts through the plain scan; warm prefill times
+        first = torch.as_tensor(prompts[: lm_args.slots], device=dev).long()
+        extra = np.random.default_rng(70).integers(1, min(lm_cfg.vocab_size, 1000), size=(2, 4))
+        toks = torch.as_tensor(np.concatenate([prompts[:2], extra.astype(np.int32)], axis=1),
+                               device=dev).long()  # fmt: skip
+        S_p = prompts.shape[1]
+
+        def teacher_forcing(cfg, params, force=False) -> tuple[float, float]:
+            """A prefill of S_p tokens and 3 decode steps against prefills of the
+            longer prompts (tests/test_models.py:71): (max abs gap, max |logit|)."""
+            run = lambda n: lm.prefill(params, {"tokens": toks[:, :n]}, cfg, S_p + 4,
+                                       force_reference=force)  # fmt: skip
+            ref = [run(t)[0] for t in range(S_p, S_p + 4)]
+            lg, cache = run(S_p)
+            got = [lg]
+            for t in range(S_p, S_p + 3):
+                lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], t, cfg)
+                got.append(lg)
+            gap = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+            return gap, max(b.float().abs().max().item() for b in ref)
+
+        times, logits = {}, {}
+        with torch.no_grad():
+            for label, prompt_batch in (("admission", first[:1]), ("bootstrap", first)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits[label], _ = lm.prefill(lm_params, {"tokens": prompt_batch}, lm_cfg,
+                                              lm_args.cache_len)  # fmt: skip
+                torch.cuda.synchronize()
+                times[label] = (time.perf_counter() - t0) * 1e3
+            # bf16, printed: 24 random layers amplify a last-bit difference past 0.12
+            # (tests/test_torch_lm_depth.py), so the plain path misses it against itself
+            lg_k = logits["bootstrap"]
+            lg_r, _ = lm.prefill(lm_params, {"tokens": first}, lm_cfg, lm_args.cache_len,
+                                 force_reference=True)  # fmt: skip
+            e_logits = (lg_k.float() - lg_r.float()).abs().max().item()
+            cfg64 = dataclasses.replace(lm_cfg, ssm=dataclasses.replace(lm_cfg.ssm, chunk=64))
+            lg_64, _ = lm.prefill(lm_params, {"tokens": first}, cfg64, lm_args.cache_len)
+            e_chunk = (lg_k.float() - lg_64.float()).abs().max().item()  # the same sums reordered
+            e_tf = teacher_forcing(lm_cfg, lm_params)[0]
+            e_tf_plain = teacher_forcing(lm_cfg, lm_params, force=True)[0]
+            # bounded: the same weights in float32, where the kernel and ssd_chunked
+            # both compute in float32 and 24 layers keep them within LM_F32_REL
+            cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
+            params32 = tree_map(lambda t: t.float(), lm_params)
+            lg32_k, _ = lm.prefill(params32, {"tokens": first}, cfg32, lm_args.cache_len)
+            lg32_r, _ = lm.prefill(params32, {"tokens": first}, cfg32, lm_args.cache_len,
+                                   force_reference=True)  # fmt: skip
+            e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
+            e32_tf, scale32_tf = teacher_forcing(cfg32, params32)
+        ref_serve = lm_serve.serve_lm(lm_cfg, lm_params, prompts, slots=lm_args.slots,
+                                      max_new=lm_args.max_new, cache_len=lm_args.cache_len,
+                                      eos=lm_args.eos, force_reference=True)  # fmt: skip
+        pairs = [(a, b) for r in outputs for a, b in zip(outputs[r], ref_serve["outputs"][r])]
+        agree = sum(a == b for a, b in pairs) / len(pairs)
+        log(
+            f"[main lm] warm prefill: bootstrap {times['bootstrap']:.1f} ms, admission "
+            f"{times['admission']:.1f} ms. bf16, printed, not bounded: prefill logits, kernel "
+            f"against force_reference, max abs {e_logits:.3e} (max |logit| "
+            f"{lg_r.float().abs().max().item():.3e}), the kernel at chunk 64 against chunk 128 "
+            f"{e_chunk:.3e}; teacher forcing ({S_p} + 4 tokens) max abs {e_tf:.3e} on the kernel "
+            f"path, {e_tf_plain:.3e} on the plain path; greedy tokens the kernel and the reference "
+            f"serve agree on: {agree:.4f} of {len(pairs)}"
+        )
+        log(
+            f"[main lm] float32 (the same weights; bound {LM_F32_REL} of the largest logit): "
+            f"prefill logits, kernel against force_reference, max abs {e32_logits:.3e} (max |logit| "
+            f"{scale32:.3e}); teacher forcing on the kernel path max abs {e32_tf:.3e} (max |logit| "
+            f"{scale32_tf:.3e})"
+        )
+        check(e32_logits <= LM_F32_REL * scale32,
+              f"float32 LM logits, kernel against reference: {e32_logits:.3e}")  # fmt: skip
+        check(e32_tf <= LM_F32_REL * scale32_tf, f"float32 LM teacher forcing: {e32_tf:.3e}")
+        results["lm"] = dict(launches=counts["ssd_scan"], steps=served["steps"], new=n_new,
+                             tok_s=n_new / served["wall_s"], prefill_ms=served["prefill_ms"],
+                             admit_ms=served["admit_ms"], decode_p50=decode_p50, peak_gb=peak_gb,
+                             warm=times, e_logits=e_logits, e_chunk=e_chunk, e_tf=e_tf,
+                             e_tf_plain=e_tf_plain, e32_logits=e32_logits, e32_tf=e32_tf,
+                             agree=agree)  # fmt: skip
+        del served, lm_params, params32, ref_serve
 
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
@@ -1211,9 +1536,49 @@ def main() -> None:
             f"{b_ms:.6f} ms ({b_by}: {flops / 1e6:.1f} MFLOP, {nbytes / 1e3:.1f} KB)"
         )
 
+    # the LM zoo's kernels at the shapes their callers give them
+    lm_timed = {}  # (kernel, shape) -> dict of ms, plain ms, bound, library ms
+    with Phase("time lm"):
+        m = SSD_MODEL
+        for B in (4, 1):  # the serve path's bootstrap and admission prefills, one layer
+            args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=80 + B, device=dev,
+                              dtype=torch.bfloat16)  # fmt: skip
+            k_ms = time_ms(lambda: ssd_scan_cuda(*args, chunk=m["chunk"]))
+            p_ms = time_ms(lambda: ssd_chunked(*args, chunk=m["chunk"]), runs=10, per_run=1)
+            flops, nbytes, peak = ssd_work(B, m["T"], m["H"], m["P"], m["N"], m["G"], m["chunk"], 2)
+            b_ms, b_by = bound_ms(flops, nbytes, peak)
+            shape = f"mamba2-130m prefill B={B} T={m['T']} H={m['H']} P={m['P']} N={m['N']} bf16"
+            lm_timed["ssd_scan", B] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                          library_ms=None, shape=shape)  # fmt: skip
+            log(f"[time] ssd_scan at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+                f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
+        Bm, Sm, QHm, KHm, Dhm = MINITRON
+        q, k, v = qkv_inputs(Bm, Sm, Sm, QHm, KHm, Dhm, seed=81, device=dev, dtype=torch.bfloat16)
+        fa = lambda: flash_attention_cuda(q, k, v, causal=True, window=None, q_offset=0,
+                                          block_q=128, block_k=128)  # fmt: skip
+        k_ms = time_ms(fa, runs=10, per_run=3)
+        p_ms = time_ms(lambda: flash_attention(q, k, v, force_reference=True), runs=5, per_run=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention  # the yardstick only
+        l_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        o_l = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        e_l = (o_l.float() - fa().float()).abs().max().item()
+        flops, nbytes, peak = flash_work(Bm, Sm, Sm, QHm, KHm, Dhm, True, None, 0, 2)
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        shape = f"minitron-8b B={Bm} S={Sm} QH={QHm} KH={KHm} Dh={Dhm} causal bf16"
+        lm_timed["flash_attention", 0] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                              library_ms=l_ms, shape=shape)  # fmt: skip
+        log(f"[time] flash_attention at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"scaled_dot_product_attention {l_ms:.4f} ms (its output {e_l:.3e} from the kernel's), "
+            f"bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
+        del q, k, v, qt, kt, vt, o_l
+
     # -- 10. where the time of a training step and of a tick goes ----------------------
     with Phase("profile"):
-        for label, plan in plans.items():
+        for label in PROFILED_PATHS:
+            plan = plans[label]
             cfg = plan.cfg
             phys = make_phys(cfg, norm, dev)
             p = merinda.init_mr(torch.Generator(device=dev).manual_seed(0), cfg, dev)
@@ -1247,7 +1612,7 @@ def main() -> None:
                 )
 
     with Phase("tick profile"):
-        for kernel in ("banked", "composite"):
+        for kernel in ("banked",):
             svc = serve_service(kernel)
             n_prof = 2  # a tick is ~65,000 device activities to process
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1295,6 +1660,37 @@ def main() -> None:
          int8_note),
         ("mr_tick_int8", "mr_tick_int8.cu", "mr_step/tick.py:313", "monitor int8", int8_note),
     ]
+    lm_rows = [  # name, source, replaces, main path, timed shape, note
+        ("ssd_scan", "ssd_scan.cu", "ssd_scan/kernel.py:91", "lm", 4,
+         "no PyTorch call computes a chunked SSD scan"),
+        # no model path reaches flash_attention (its op only, as in the JAX package)
+        ("flash_attention", "flash_attention.cu", "flash_attention/kernel.py:104", None, 0,
+         "torch.nn.functional.scaled_dot_product_attention (enable_gqa=True, is_causal=True)"),
+    ]
+    lm_kernels = []
+    for kernel, src, replaces, path, key, note in lm_rows:
+        t = lm_timed[kernel, key]
+        row = {
+            "name": kernel,
+            "route": "cuda",
+            "source": f"{REPO_PATH}/{src}",
+            "replaces": f"{PALLAS}/{replaces}",
+            "launches": results[path]["launches"] if path else 0,
+            "main_path": path,
+            "max_abs_err": err[kernel],
+            "bf16_max_abs_err": lm_err[kernel],
+            "ms": t["ms"],
+            "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_note": note,
+            "shape": t["shape"],
+        }
+        if kernel == "ssd_scan":
+            row["admission_B1"] = {k: lm_timed[kernel, 1][k] for k in ("ms", "plain_ms", "bound_ms")}
+        lm_kernels.append(row)
     kernels = []
     for kernel, src, replaces, path, note in table:
         k_ms, p_ms, b_ms, b_by = timed[kernel, quick]
@@ -1319,6 +1715,7 @@ def main() -> None:
             k2, p2, b2, by2 = timed[kernel, cycles]
             row[cycles.replace(" ", "_")] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2)
         kernels.append(row)
+    kernels += lm_kernels
     for label in runs:
         r = results[label]
         log(
@@ -1351,6 +1748,16 @@ def main() -> None:
     log(f"[summary] monitor int8: {r['launches']} mr_tick_int8 launches in {MONITOR_TICKS} ticks, "
         f"tick p50 {r['tick_p50']:.2f} ms, against its plain version {r['plain_err']:.3e}, "
         f"theta against fp32 {r['diff']:.3e}")  # fmt: skip
+    r = results["lm"]
+    log(
+        f"[summary] lm (mamba2-130m, full width): {r['launches']} ssd_scan launches, "
+        f"{r['steps']} decode steps, {r['new']} tokens at {r['tok_s']:.1f} tokens/s; prefill "
+        f"{r['prefill_ms']:.1f} ms (warm {r['warm']['bootstrap']:.1f}), admission warm "
+        f"{r['warm']['admission']:.1f} ms, decode p50 {r['decode_p50']:.2f} ms; peak "
+        f"{r['peak_gb']:.2f} GB; float32: logits {r['e32_logits']:.3e}, teacher forcing "
+        f"{r['e32_tf']:.3e}; bf16: logits {r['e_logits']:.3e}, teacher forcing {r['e_tf']:.3e} "
+        f"(plain path {r['e_tf_plain']:.3e}), greedy agreement {r['agree']:.4f}"
+    )
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,88 @@
+"""Model configuration schema and registry (``repro/configs/base.py``).
+
+The port's own copy of the JAX package's schema: ``SSMConfig``,
+``AttentionConfig`` and ``ModelConfig`` with the same fields, defaults and
+derived sizes (``vocab_padded``, ``ssm_heads``, ``d_inner``). Every ported
+architecture ships as ``repro_torch/configs/<id>.py`` exposing ``CONFIG``
+(the published dimensions) and ``SMOKE`` (a reduced model of the same
+family for CPU tests); ``get_config`` resolves either. Only the families in
+``PORTED_FAMILIES`` have configs here so far; ``get_config`` names the
+ported architectures when asked for another.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+# architecture id -> family, for every architecture the port runs
+PORTED = {"mamba2-130m": "ssm"}
+PORTED_FAMILIES = frozenset(PORTED.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    window: Optional[int] = None  # sliding-window size (SWA); None = full
+    rope_theta: float = 1e6
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int  # N
+    head_dim: int = 64  # P
+    num_heads: int = 0  # H (0 -> derived: expand*d_model/head_dim)
+    num_groups: int = 1  # G (B/C groups)
+    conv_width: int = 4
+    expand: int = 2
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # ssm here; dense | moe | hybrid | vlm | audio | gru wait for their slices
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attn: Optional[AttentionConfig] = None
+    ssm: Optional[SSMConfig] = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up to a multiple of 256 (the JAX package's padding)."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def ssm_heads(self) -> int:
+        assert self.ssm is not None
+        if self.ssm.num_heads:
+            return self.ssm.num_heads
+        return self.ssm.expand * self.d_model // self.ssm.head_dim
+
+    @property
+    def d_inner(self) -> int:
+        assert self.ssm is not None
+        return self.ssm_heads * self.ssm.head_dim
+
+
+def ported_archs() -> list[str]:
+    return sorted(PORTED)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    """``CONFIG`` (or ``SMOKE``) of a ported architecture; raises for any other."""
+    if name not in PORTED:
+        raise ValueError(
+            f"architecture {name!r} is not yet ported; the port runs {', '.join(ported_archs())}"
+        )
+    mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
+    return mod.SMOKE if smoke else mod.CONFIG

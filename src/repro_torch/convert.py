@@ -12,6 +12,11 @@ with numpy leaves, field for field the JAX package's layout.
 the same way. Every function is shape-agnostic, so a slot-stacked tree
 (leading slot or system axis on every leaf, what ``jax.vmap`` builds) crosses
 as it is.
+
+``lm_params_from_numpy`` and ``lm_params_to_numpy`` carry a language model's nested dict
+of parameters, or of its cache, the same way: a bfloat16 leaf crosses as
+float32, which holds every bfloat16 value exactly, and is cast back to
+bfloat16 on the far side, so both frameworks compute from the same weights.
 """
 
 from __future__ import annotations
@@ -52,6 +57,25 @@ def opt_from_numpy(o, device: torch.device | str = "cpu") -> AdamWState:
     """The JAX package's ``AdamWState`` (numpy leaves) as the port's."""
     step = torch.from_numpy(np.array(o.step, dtype=np.int32)).to(device)
     return AdamWState(step, params_from_numpy(o.m, device), params_from_numpy(o.v, device))
+
+
+def lm_params_from_numpy(tree, device: torch.device | str = "cpu"):
+    """A nested dict of numpy (or numpy-convertible) leaves as tensors on
+    ``device``, each in its own dtype (bfloat16 through float32)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    dtype = str(np.asarray(tree).dtype)
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.asarray(tree, dtype=np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def lm_params_to_numpy(tree):
+    """A nested dict of tensors as numpy arrays; bfloat16 leaves as float32."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def opt_to_numpy(o: AdamWState) -> AdamWState:

@@ -161,12 +161,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def serve(args: argparse.Namespace, verbose: bool = True) -> dict:
+def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict:
     """Run the scenario of ``args``: the service, then the batch baseline and
     the tolerance check. Returns a dict with the plan, the service, the
-    service's and the baseline's wall seconds, one row per stream
+    service's and the baseline's wall seconds, the baseline's Theta
+    (``theta_base``, normalized coordinates), one row per stream
     ``(name, mse, baseline_mse, tol, steps, reason, ok)`` and ``failures``
-    (streams never recovered or above tolerance)."""
+    (streams never recovered or above tolerance).
+
+    ``baseline``: ``theta_base`` of an earlier run whose fleet begins with
+    this run's streams (the same ``--systems``, ``--seed``, ``--noise`` and
+    stream geometry, ``--hidden``, ``--lr`` and ``--max-steps``, any
+    ``--quant``: the baseline trains in float32 either way); its first rows
+    stand in for this run's baseline, which is then not trained again."""
     from repro_torch import api
     from repro_torch.core.library import denormalize_theta
     from repro_torch.core.stream import StreamConfig
@@ -221,7 +228,7 @@ def serve(args: argparse.Namespace, verbose: bool = True) -> dict:
     stats = run_service(service, ys, us, args.max_ticks, verbose=verbose)
     results = service.results
     n_done = len(results)
-    out = dict(plan=plan, service=service, stats=stats, rows=[], baseline_s=None)
+    out = dict(plan=plan, service=service, stats=stats, rows=[], baseline_s=None, theta_base=None)
     wall = max(stats["wall_s"], 1e-9)
     log(
         f"[serve_mr] {n_done}/{args.streams} streams recovered in {stats['ticks']} ticks "
@@ -256,13 +263,20 @@ def serve(args: argparse.Namespace, verbose: bool = True) -> dict:
         if n_input:
             uw_b.append(uw if uw is not None else np.zeros(yw.shape[:2] + (n_input,), np.float32))
         norms.append(norm)
-    base_spec = dataclasses.replace(spec, mode="batch", steps=scfg.max_steps, stream=None, tick=None)
-    base_plan = api.compile_plan(base_spec, device=args.device)
-    t0 = time.time()
-    theta_base = base_plan.run_batch(np.stack(yw_b), np.stack(uw_b) if n_input else None)
-    theta_base = theta_base.cpu().numpy()
-    out["baseline_s"] = time.time() - t0
-    log(f"[serve_mr] one-shot batch-plan baseline: {out['baseline_s']:.1f}s")
+    if baseline is not None:
+        theta_base = np.asarray(baseline)[: args.streams]
+        out["baseline_s"] = 0.0
+        log("[serve_mr] one-shot batch-plan baseline: reused from an earlier run of the fleet")
+    else:
+        base_spec = dataclasses.replace(spec, mode="batch", steps=scfg.max_steps, stream=None,
+                                        tick=None)  # fmt: skip
+        base_plan = api.compile_plan(base_spec, device=args.device)
+        t0 = time.time()
+        theta_base = base_plan.run_batch(np.stack(yw_b), np.stack(uw_b) if n_input else None)
+        theta_base = theta_base.cpu().numpy()
+        out["baseline_s"] = time.time() - t0
+        log(f"[serve_mr] one-shot batch-plan baseline: {out['baseline_s']:.1f}s")
+    out["theta_base"] = theta_base
 
     n_vars = n_state + n_input
     mse_srv, mse_base = [], []

@@ -1,0 +1,38 @@
+"""Shared building blocks: RMSNorm, embedding, LM head (``repro/models/layers.py``).
+
+The JAX package's sharding hints (``parallel/rules.constraint``,
+``sp_gather``) are identities on one card, and the port drops them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.params import ParamSpec
+
+
+def rmsnorm_specs(d: int, dtype: str):
+    return {"scale": ParamSpec((d,), (None,), dtype=dtype, init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def embed_specs(vocab_padded: int, d: int, dtype: str):
+    return {"tokens": ParamSpec((vocab_padded, d), ("vocab", "embed"), dtype=dtype, scale=0.02)}
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["tokens"][tokens]
+
+
+def lm_head_specs(d: int, vocab_padded: int, dtype: str):
+    return {"w": ParamSpec((d, vocab_padded), ("embed", "vocab"), dtype=dtype, scale=0.02)}
+
+
+def lm_head(params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w"]

@@ -10,6 +10,15 @@ The banked service tick (``mr_tick``) is held to its plain version as the
 JAX tick tests hold theirs: rolled buffers bit for bit, theta and delta
 within 1e-5, and a banked service in lockstep with a composite one.
 
+The LM zoo's kernels: ``ssd_scan`` against ``ssd_chunked`` within 5e-5 in
+float32 (``tests/test_kernels_ssd.py:48``), and on bf16 inputs against
+``ssd_chunked`` on float32 copies (what the Pallas kernel computes) within one
+bf16 rounding; ``flash_attention`` against the oracle within 2e-5 in float32
+(``tests/test_kernels_flash.py``), in bf16 against the oracle on float32 copies
+within one bf16 rounding (2^-8 of the value plus 1e-4), and on rows with no
+unmasked key against the Pallas kernel's values (0, or the mean of v over
+the masked keys of the tiles it does not skip).
+
 The int8/PWL serving kernels (``gru_scan_int8``, ``mr_step_int8``,
 ``mr_step_ltc_int8``, ``mr_tick_int8``) are held to their plain versions
 within 1e-5 (the tick's buffers bit for bit), and each must differ from its
@@ -56,6 +65,11 @@ from repro_torch.kernels.mr_step.ref import (
 )
 from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda, mr_tick_int8_cuda
 from repro_torch.tree import tree_leaves, tree_stack, tree_unflatten
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_cuda
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.models import model as lm
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 COARSE_BITS = (2, 3)
@@ -455,3 +469,174 @@ def test_int8_monitor_launches_mr_tick_int8_once_a_tick(dev):
     before = mr_step_int8_cuda.launches
     svc._evict(0, "budget")
     assert mr_step_int8_cuda.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the LM zoo: ssd_scan and flash_attention
+# ---------------------------------------------------------------------------
+SSD_SWEEP = [  # B, S, H, P, N, G, chunk: the JAX tests' shapes, then SMOKE's chunk
+    (1, 64, 1, 8, 4, 1, 32),
+    (2, 128, 2, 16, 8, 1, 32),
+    (2, 96, 4, 32, 16, 2, 32),
+    (2, 96, 4, 32, 16, 2, 64),
+    (1, 48, 4, 16, 16, 1, 16),
+]
+
+
+def _ssd_inputs(B, S, H, P, N, G, dev, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
+    x = mk(B, S, H, P, scale=0.5)
+    dt = torch.nn.functional.softplus(mk(B, S, H))
+    A = -torch.exp(mk(H, scale=0.5))
+    bm, cm = mk(B, S, G, N, scale=0.5), mk(B, S, G, N, scale=0.5)
+    return x.to(dtype), dt, A, bm.to(dtype), cm.to(dtype), mk(H)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk", SSD_SWEEP)
+def test_ssd_scan_matches_plain(dev, B, S, H, P, N, G, chunk):
+    args = _ssd_inputs(B, S, H, P, N, G, dev, seed=S + chunk)
+    before = ssd_scan_cuda.launches
+    y, s = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    want_y, want_s = ssd_scan(*args, chunk=chunk, force_reference=True)
+    torch.testing.assert_close(y, want_y, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(s, want_s, atol=5e-5, rtol=5e-5)
+
+
+def test_ssd_scan_float32_at_the_model_width(dev):
+    """N = 128, P = 64, chunk 128: each output sums ~256 products, so the two
+    summation orders part by more than at the JAX tests' widths; the bound is
+    1e-5 of the largest magnitude (~80 float32 roundings of it)."""
+    args = _ssd_inputs(2, 256, 24, 64, 128, 1, dev, seed=7)
+    y, s = ssd_scan(*args, chunk=128)
+    want_y, want_s = ssd_scan(*args, chunk=128, force_reference=True)
+    assert (y - want_y).abs().max() <= 1e-5 * want_y.abs().max()
+    assert (s - want_s).abs().max() <= 1e-5 * want_s.abs().max()
+
+
+def test_ssd_scan_bf16_is_the_float32_scan_rounded_once(dev):
+    """bf16 x, B, C at the model's widths: y within one bf16 rounding (2^-8
+    relative, plus the float32 scan's own 1e-4) of ssd_chunked on float32
+    copies; the state (float32) within 1e-4 of its largest magnitude."""
+    args = _ssd_inputs(2, 512, 24, 64, 128, 1, dev, torch.bfloat16, seed=3)
+    y, s = ssd_scan(*args, chunk=128)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    want_y, want_s = ssd_chunked(*(a.float() for a in args), chunk=128)
+    assert ((y.float() - want_y).abs() <= want_y.abs() * 2.0**-8 + 1e-4).all()
+    assert (s - want_s).abs().max() <= 1e-4 * want_s.abs().max()
+
+
+def test_ssd_scan_refuses_a_carried_state_on_the_card(dev):
+    """The kernel starts from a zero state: a CUDA prefill from a carried
+    ``initial_state`` raises and launches nothing; with ``force_reference``
+    the plain scan carries it, and two halves equal the kernel's whole scan."""
+    args = _ssd_inputs(2, 128, 2, 16, 8, 1, dev, seed=5)
+    head = [a[:, :64] if a.dim() > 1 else a for a in args]
+    tail = [a[:, 64:] if a.dim() > 1 else a for a in args]
+    y1, s1 = ssd_scan(*head, chunk=32)
+    before = ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="initial_state is reference-only"):
+        ssd_scan(*tail, chunk=32, initial_state=s1)
+    assert ssd_scan_cuda.launches == before
+    y2, s2 = ssd_scan(*tail, chunk=32, initial_state=s1, force_reference=True)
+    y, s = ssd_scan(*args, chunk=32)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(s2, s, atol=5e-5, rtol=5e-5)
+
+
+def test_ssd_scan_gradient_recomputes_the_plain_scan(dev):
+    args = [a.requires_grad_(True) for a in _ssd_inputs(2, 64, 2, 8, 4, 1, dev, seed=4)]
+    y, _ = ssd_scan(*args, chunk=32)
+    grads = torch.autograd.grad((y**2).sum(), args)
+    y_r, _ = ssd_scan(*args, chunk=32, force_reference=True)
+    want = torch.autograd.grad((y_r**2).sum(), args)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+
+
+def test_mamba_prefill_launches_ssd_scan_once_a_layer(dev):
+    cfg = get_config("mamba2-130m", smoke=True)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(1, cfg.vocab_size, (2, 40), device=dev)
+    before = (ssd_scan_cuda.launches, flash_attention_cuda.launches)
+    logits, cache = lm.prefill(params, {"tokens": toks}, cfg, cache_len=64)
+    torch.cuda.synchronize()
+    assert (ssd_scan_cuda.launches, flash_attention_cuda.launches) == (before[0] + cfg.num_layers, before[1])
+    want, want_cache = lm.prefill(params, {"tokens": toks}, cfg, cache_len=64, force_reference=True)
+    torch.testing.assert_close(logits.float(), want.float(), atol=0.12, rtol=0.12)
+    torch.testing.assert_close(cache["layers"]["state"], want_cache["layers"]["state"], atol=0.12, rtol=0.12)
+
+
+FLASH_CASES = [  # B, S, QH, KH, Dh, causal, window: tests/test_kernels_flash.py:11-19
+    (1, 128, 1, 1, 32, True, None),
+    (2, 256, 4, 2, 64, True, None),
+    (2, 256, 8, 1, 64, True, None),
+    (1, 256, 4, 4, 128, False, None),
+    (2, 256, 4, 2, 64, True, 128),
+    (1, 384, 2, 2, 64, True, 64),
+]
+
+
+def _qkv(B, Sq, Sk, QH, KH, Dh, dev, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(dtype)
+    return mk(B, Sq, QH, Dh), mk(B, Sk, KH, Dh), mk(B, Sk, KH, Dh)
+
+
+@pytest.mark.parametrize("B,S,QH,KH,Dh,causal,window", FLASH_CASES)
+def test_flash_attention_matches_plain(dev, B, S, QH, KH, Dh, causal, window):
+    q, k, v = _qkv(B, S, S, QH, KH, Dh, dev, seed=S + QH)
+    before = flash_attention_cuda.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention(q, k, v, causal=causal, window=window, force_reference=True)
+    torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 256), (32, 128), (256, 32)])
+def test_flash_attention_blocks_leave_the_result(dev, block_q, block_k):
+    q, k, v = _qkv(1, 256, 256, 2, 2, 64, dev, seed=4)
+    o = flash_attention(q, k, v, block_q=block_q, block_k=block_k)
+    torch.testing.assert_close(o, flash_attention(q, k, v, force_reference=True), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_q_offset_tail_and_bf16(dev):
+    q, k, v = _qkv(1, 256, 256, 2, 2, 64, dev, seed=9)
+    full = flash_attention(q, k, v)
+    tail = flash_attention(q[:, -128:], k, v, q_offset=128)
+    torch.testing.assert_close(tail, full[:, -128:], atol=2e-5, rtol=2e-5)
+    qb, kb, vb = _qkv(1, 128, 128, 2, 2, 64, dev, torch.bfloat16, seed=3)
+    o = flash_attention(qb, kb, vb)
+    assert o.dtype == torch.bfloat16
+    want = flash_attention(qb.float(), kb.float(), vb.float(), force_reference=True)
+    assert ((o.float() - want).abs() <= want.abs() * 2.0**-8 + 1e-4).all()
+
+
+def test_flash_attention_rows_without_keys_follow_the_pallas_kernel(dev):
+    """q_offset + Sq > Sk with a window: the oracle's NaN rows come out as the
+    Pallas kernel leaves them: 0 where its block skipped every key tile,
+    else the mean of v over the masked keys of the tiles it did not skip."""
+    Sq, Sk, window, off, bq, bk = 64, 64, 16, 40, 32, 32
+    q, k, v = _qkv(1, Sq, Sk, 2, 1, 32, dev, seed=5)
+    o = flash_attention(q, k, v, window=window, q_offset=off, block_q=bq, block_k=bk)
+    want = flash_attention(q, k, v, window=window, q_offset=off, force_reference=True)
+    dead = torch.isnan(want).any(dim=-1).any(dim=-1)[0]
+    assert int(dead.sum()) == 25 and torch.isfinite(o).all()
+    torch.testing.assert_close(o[:, ~dead], want[:, ~dead], atol=2e-5, rtol=2e-5)
+    for i in torch.nonzero(dead).flatten().tolist():
+        q_start = (i // bq) * bq + off
+        tiles = [s for s in range(0, Sk, bk) if s <= q_start + bq - 1 and s + bk - 1 > q_start - window]
+        keys = [j for s in tiles for j in range(s, s + bk)]
+        expect = v[0, keys, 0].mean(0) if keys else torch.zeros_like(v[0, 0, 0])
+        torch.testing.assert_close(o[0, i], expect.expand(2, -1), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_gradient_recomputes_the_oracle(dev):
+    q, k, v = (t.requires_grad_(True) for t in _qkv(1, 128, 128, 2, 1, 32, dev, seed=8))
+    grads = torch.autograd.grad((flash_attention(q, k, v) ** 2).sum(), (q, k, v))
+    want = torch.autograd.grad((flash_attention(q, k, v, force_reference=True) ** 2).sum(), (q, k, v))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)

@@ -387,3 +387,20 @@ def test_serve_mr_runs_end_to_end_on_the_cpu():
     assert all(np.isfinite(r[1]) and np.isfinite(r[2]) for r in out["rows"])
     assert out["stats"]["ticks"] == 8  # two waves of 32 steps at K=8
     assert float(np.median(out["service"].sync_log)) <= 1
+
+
+def test_serve_mr_reuses_an_earlier_fleet_baseline():
+    """A run over the first streams of an earlier run's fleet may take that
+    run's baseline: the rows equal the ones its own baseline would train."""
+    argv = ("--device cpu --tick-kernel banked --slots 2 --hidden 8 --buf-len 48 --window 12 "
+            "--stride 6 --chunk 8 --min-steps 16 --max-steps 32").split()  # fmt: skip
+    parse = serve_mr.build_parser().parse_args
+    first = serve_mr.serve(parse([*argv, "--streams", "3"]), verbose=False)
+    own = serve_mr.serve(parse([*argv, "--streams", "2"]), verbose=False)
+    shared = serve_mr.serve(parse([*argv, "--streams", "2"]), verbose=False,
+                            baseline=first["theta_base"])  # fmt: skip
+    assert first["theta_base"].shape[0] == 3 and shared["baseline_s"] == 0.0
+    np.testing.assert_allclose(own["theta_base"], first["theta_base"][:2], atol=1e-6, rtol=1e-6)
+    np.testing.assert_array_equal(shared["theta_base"], first["theta_base"][:2])
+    for a, b in zip(shared["rows"], own["rows"]):
+        assert a[0] == b[0] and abs(a[2] - b[2]) <= 1e-6 * (1 + abs(b[2]))
