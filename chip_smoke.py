@@ -96,7 +96,9 @@ The LM zoo's slice adds, before phase 10:
   H = 24, P = 64, N = 128, chunk 128, bf16 x, B and C) against
   ``ssd_chunked`` on float32 copies (what the Pallas kernel computes): y
   within one bf16 rounding (2^-8 of its magnitude) plus 1e-4, the float32
-  state within 1e-4 of its largest magnitude; ``flash_attention`` at every
+  state within 1e-4 of its largest magnitude; from a carried
+  ``initial_state`` at the model's width, in float32 (1e-5 of the largest
+  magnitude) and bf16 (the same bf16 bounds); ``flash_attention`` at every
   case of ``tests/test_kernels_flash.py`` in float32 (2e-5) and in bf16
   against the oracle on float32 copies (one bf16 rounding plus 1e-4, as
   ``ssd_scan``'s bf16 y), the q_offset tail, two block shapes, and
@@ -110,16 +112,19 @@ The LM zoo's slice adds, before phase 10:
   prefill call (120), no other kernel, every request its 32 tokens or an
   end at eos. Then, on the same weights cast to float32 (exact) and the
   same prompts: the kernel path's prefill logits against
-  ``force_reference``'s, and a full-width prefill of 1,024 tokens plus 4
-  decode steps against prefills of the longer prompts, both within 1e-3 of
-  the largest logit. In bf16 the same two numbers, the kernel at chunk 64
+  ``force_reference``'s, and a full-width prefill of 1,024 tokens and 3
+  decode steps (4 logits) against prefills of the longer prompts, both
+  within 1e-3 of the largest logit. In bf16 the same two numbers, the kernel at chunk 64
   against chunk 128, and the share of greedy tokens on which the kernel and
   the reference serve agree are printed, not bounded: 24 random layers
   amplify a last-bit difference past ``tests/test_models.py:99``'s 0.12
   (``tests/test_torch_lm_depth.py``). Prefill, admission and decode times,
   tokens/s and peak device memory;
 - in phase 9, both kernels' times beside their plain versions and bounds,
-  and ``flash_attention``'s beside ``scaled_dot_product_attention``'s.
+  ``ssd_scan``'s bf16 time beside its three passes on float32 copies (the FMA
+  units), and ``flash_attention``'s beside ``scaled_dot_product_attention``'s;
+- in phase 10, the device time of each of the three kernels one
+  ``ssd_scan`` call launches, at the bootstrap and the admission prefill.
 
 Phase 8b takes phase 8's batch baseline (its 4 streams are the first 4 of
 phase 8's fleet) instead of training the same 400 steps again.
@@ -1224,6 +1229,27 @@ def main() -> None:
         check(e_y <= 1e-5 * want_y.abs().max().item() and e_s <= 1e-5 * want_s.abs().max().item(),
               "ssd_scan float32 parity at the model width")  # fmt: skip
         err["ssd_scan"] = max(err["ssd_scan"], e_y, e_s)
+        # a prefill that continues a sequence: the state pass starts from the carried state
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(2, 256, m["H"], m["P"], m["N"], m["G"], seed=9, device=dev, dtype=dtype)
+            head, tail = ([a[:, sl] if a.dim() > 1 else a for a in args]
+                          for sl in (slice(0, 128), slice(128, None)))  # fmt: skip
+            s0 = ssd_scan(*head, chunk=m["chunk"])[1]
+            y, st = ssd_scan(*tail, chunk=m["chunk"], initial_state=s0)
+            want_y, want_s = ssd_chunked(*(a.float() for a in tail), chunk=m["chunk"],
+                                         initial_state=s0)  # fmt: skip
+            label = f"model width B=2 T=128 from a carried state {str(dtype)[6:]}"
+            e_y, e_s = (y.float() - want_y).abs().max().item(), (st - want_s).abs().max().item()
+            scale_s = want_s.abs().max().item()
+            log(f"[lm parity] {label}: ssd_scan y {e_y:.3e} (of {want_y.abs().max().item():.3e}), "
+                f"state {e_s:.3e} (of {scale_s:.3e})")  # fmt: skip
+            if dtype == torch.bfloat16:
+                record_rounded("ssd_scan", f"{label} y", y, want_y)
+                check(e_s <= 1e-4 * scale_s, f"ssd_scan bf16 state from a carried state")
+            else:
+                check(e_y <= 1e-5 * want_y.abs().max().item() and e_s <= 1e-5 * scale_s,
+                      "ssd_scan float32 parity from a carried state")  # fmt: skip
+                err["ssd_scan"] = max(err["ssd_scan"], e_y, e_s)
         for B in (4, 1):  # the serve path's prefills: bootstrap and admission
             args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=60 + B, device=dev,
                               dtype=torch.bfloat16)  # fmt: skip
@@ -1368,9 +1394,9 @@ def main() -> None:
             f"{times['admission']:.1f} ms. bf16, printed, not bounded: prefill logits, kernel "
             f"against force_reference, max abs {e_logits:.3e} (max |logit| "
             f"{lg_r.float().abs().max().item():.3e}), the kernel at chunk 64 against chunk 128 "
-            f"{e_chunk:.3e}; teacher forcing ({S_p} + 4 tokens) max abs {e_tf:.3e} on the kernel "
-            f"path, {e_tf_plain:.3e} on the plain path; greedy tokens the kernel and the reference "
-            f"serve agree on: {agree:.4f} of {len(pairs)}"
+            f"{e_chunk:.3e}; teacher forcing ({S_p} tokens, 3 decode steps) max abs {e_tf:.3e} on "
+            f"the kernel path, {e_tf_plain:.3e} on the plain path; greedy tokens the kernel and the "
+            f"reference serve agree on: {agree:.4f} of {len(pairs)}"
         )
         log(
             f"[main lm] float32 (the same weights; bound {LM_F32_REL} of the largest logit): "
@@ -1553,6 +1579,12 @@ def main() -> None:
             log(f"[time] ssd_scan at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                 f"{b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
                 f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
+            # the same three passes on float32 copies, on the FMA units: the chunk grid
+            # without the tensor cores
+            args32 = [a.float() for a in args]
+            f_ms = time_ms(lambda: ssd_scan_cuda(*args32, chunk=m["chunk"]))
+            lm_timed["ssd_scan", B]["float32_ms"] = f_ms
+            log(f"[time] ssd_scan at {shape[:-5]} float32 (FMA units): kernel {f_ms:.4f} ms")
         Bm, Sm, QHm, KHm, Dhm = MINITRON
         q, k, v = qkv_inputs(Bm, Sm, Sm, QHm, KHm, Dhm, seed=81, device=dev, dtype=torch.bfloat16)
         fa = lambda: flash_attention_cuda(q, k, v, causal=True, window=None, q_offset=0,
@@ -1575,8 +1607,27 @@ def main() -> None:
             f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
         del q, k, v, qt, kt, vt, o_l
 
-    # -- 10. where the time of a training step and of a tick goes ----------------------
+    # -- 10. where the time of a training step, a tick and an ssd_scan call goes --------
     with Phase("profile"):
+        m = SSD_MODEL
+        for B in (4, 1):  # the bootstrap and the admission prefill
+            args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=84, device=dev,
+                              dtype=torch.bfloat16)  # fmt: skip
+            ssd_scan_cuda(*args, chunk=m["chunk"])
+            torch.cuda.synchronize()
+            n_prof = 5
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_prof):
+                    ssd_scan_cuda(*args, chunk=m["chunk"])
+                torch.cuda.synchronize()
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+            for k, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1])):
+                log(f"[profile ssd_scan B={B} bf16]   {sum(v) / n_prof:8.4f} ms/call  "
+                    f"{len(v) / n_prof:4.1f}/call  {k[:80]}")  # fmt: skip
+            del args
         for label in PROFILED_PATHS:
             plan = plans[label]
             cfg = plan.cfg
@@ -1690,6 +1741,7 @@ def main() -> None:
         }
         if kernel == "ssd_scan":
             row["admission_B1"] = {k: lm_timed[kernel, 1][k] for k in ("ms", "plain_ms", "bound_ms")}
+            row["float32_ms"] = {f"B{B}": lm_timed[kernel, B]["float32_ms"] for B in (4, 1)}
         lm_kernels.append(row)
     kernels = []
     for kernel, src, replaces, path, note in table:

@@ -9,11 +9,13 @@ model layout as it is, a CPU tensor or ``force_reference`` takes the dense
 oracle (``ref.attention_reference``, head-major). The gradient recomputes
 the oracle (``ops.py:42-54``).
 
-``block_q`` and ``block_k`` are the Pallas kernel's logical blocks: they set
-which key blocks a query block skips (``kernel.py:60-66``). The kernel's own
-tiles (64 queries by 64 keys, ``fa_shared_floats``: 116 KB at Dh = 128)
-are independent of them, so every legal block gives the same result; a
-block that does not divide its sequence raises, as the Pallas kernel asserts.
+bf16 operands run on the tensor cores (Hopper's ``wgmma``, 128 query rows by
+64-key tiles, P split into two bf16 halves against V), float32 operands on
+the FMA units (64 by 64 tiles), as ``csrc/flash_attention.cu`` describes. ``block_q`` and
+``block_k`` are the Pallas kernel's logical blocks: they set which key
+blocks a query block skips (``kernel.py:60-66``). The kernels' own tiles are
+independent of them, so every legal block gives the same result; a block
+that does not divide its sequence raises, as the Pallas kernel asserts.
 
 No model path of the port calls this op yet: the JAX package's attention
 layers run their own blockwise loop (``repro/models/attention.py``).

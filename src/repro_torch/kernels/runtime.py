@@ -76,8 +76,9 @@ LAUNCHERS = {
     # one_minus_ema, stream
     "mr_tick_int8_launch": [_P] * 27 + [_I] * 13 + [_F, _F, _P],
     # the LM zoo's kernels, float32 or bf16 operands (the last int flags bf16)
-    # x, dt, A, bm, cm, D, y, state, B, T, H, P, G, N, chunk, rows, bf16, stream
-    "ssd_scan_launch": [_P] * 8 + [_I] * 9 + [_P],
+    # x, dt, A, bm, cm, D, initial_state (or NULL), y, state, chunk_states, totals,
+    # split (bf16; NULL for float32), B, T, H, P, G, N, chunk, rows, bf16, stream
+    "ssd_scan_launch": [_P] * 12 + [_I] * 9 + [_P],
     # q, k, v, o, B, Sq, Sk, QH, KH, Dh, block_q, block_k, causal, window, q_offset,
     # scale, bf16, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 11 + [_F, _I, _P],

@@ -13,7 +13,8 @@ within 1e-5, and a banked service in lockstep with a composite one.
 The LM zoo's kernels: ``ssd_scan`` against ``ssd_chunked`` within 5e-5 in
 float32 (``tests/test_kernels_ssd.py:48``), and on bf16 inputs against
 ``ssd_chunked`` on float32 copies (what the Pallas kernel computes) within one
-bf16 rounding; ``flash_attention`` against the oracle within 2e-5 in float32
+bf16 rounding, at every chunk and from a carried state; ``flash_attention``
+against the oracle within 2e-5 in float32
 (``tests/test_kernels_flash.py``), in bf16 against the oracle on float32 copies
 within one bf16 rounding (2^-8 of the value plus 1e-4), and on rows with no
 unmasked key against the Pallas kernel's values (0, or the mean of v over
@@ -528,22 +529,65 @@ def test_ssd_scan_bf16_is_the_float32_scan_rounded_once(dev):
     assert (s - want_s).abs().max() <= 1e-4 * want_s.abs().max()
 
 
-def test_ssd_scan_refuses_a_carried_state_on_the_card(dev):
-    """The kernel starts from a zero state: a CUDA prefill from a carried
-    ``initial_state`` raises and launches nothing; with ``force_reference``
-    the plain scan carries it, and two halves equal the kernel's whole scan."""
-    args = _ssd_inputs(2, 128, 2, 16, 8, 1, dev, seed=5)
+def _assert_bf16_rounded(got, want32):
+    """bf16 ``got`` within one bf16 rounding (2^-8 of the value) plus 1e-4 of
+    the float32 result on the same values."""
+    assert got.dtype == torch.bfloat16
+    assert ((got.float() - want32).abs() <= want32.abs() * 2.0**-8 + 1e-4).all()
+
+
+def _assert_ssd_matches(y, s, want_y, want_s, dtype, N):
+    """float32: the JAX bound (5e-5) at its widths, 1e-5 of the largest
+    magnitude at wider states; bf16: y one rounding from the float32 scan,
+    the state within 1e-4 of its largest magnitude."""
+    if dtype == torch.bfloat16:
+        _assert_bf16_rounded(y, want_y)
+        assert (s - want_s).abs().max() <= 1e-4 * want_s.abs().max()
+    elif N <= 16:
+        torch.testing.assert_close(y, want_y, atol=5e-5, rtol=5e-5)
+        torch.testing.assert_close(s, want_s, atol=5e-5, rtol=5e-5)
+    else:
+        assert (y - want_y).abs().max() <= 1e-5 * want_y.abs().max()
+        assert (s - want_s).abs().max() <= 1e-5 * want_s.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_ssd_scan_carries_a_state_on_the_card(dev, dtype):
+    """A prefill from a carried ``initial_state`` launches the kernels (the
+    state pass starts from it) and matches ``ssd_chunked`` from that state on
+    float32 copies; the two halves carry the whole scan's state."""
+    args = _ssd_inputs(2, 128, 2, 16, 8, 1, dev, dtype, seed=5)
     head = [a[:, :64] if a.dim() > 1 else a for a in args]
     tail = [a[:, 64:] if a.dim() > 1 else a for a in args]
-    y1, s1 = ssd_scan(*head, chunk=32)
+    _, s1 = ssd_scan(*head, chunk=32)
     before = ssd_scan_cuda.launches
-    with pytest.raises(ValueError, match="initial_state is reference-only"):
-        ssd_scan(*tail, chunk=32, initial_state=s1)
-    assert ssd_scan_cuda.launches == before
-    y2, s2 = ssd_scan(*tail, chunk=32, initial_state=s1, force_reference=True)
-    y, s = ssd_scan(*args, chunk=32)
-    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, atol=5e-5, rtol=5e-5)
-    torch.testing.assert_close(s2, s, atol=5e-5, rtol=5e-5)
+    y2, s2 = ssd_scan(*tail, chunk=32, initial_state=s1)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    want_y, want_s = ssd_chunked(*(a.float() for a in tail), chunk=32, initial_state=s1)
+    _assert_ssd_matches(y2, s2, want_y, want_s, dtype, N=8)
+    _, s = ssd_scan(*args, chunk=32)
+    assert (s2 - s).abs().max() <= 1e-4 * s.abs().max()
+
+
+SSD_DTYPE_SWEEP = [  # B, S, H, P, N, G, chunk
+    (1, 64, 1, 8, 4, 1, 16),  # a JAX test shape (N, P < 16), B = 1, SMOKE's chunk
+    (2, 128, 2, 16, 8, 1, 32),
+    (2, 96, 4, 32, 16, 2, 64),  # G > 1, S padded to the chunk
+    (1, 256, 4, 64, 128, 2, 128),  # the model's widths, G > 1, B = 1
+    (2, 160, 3, 20, 12, 1, 32),  # N, P not multiples of 8: staged element by element
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk", SSD_DTYPE_SWEEP)
+def test_ssd_scan_both_dtypes_at_every_chunk(dev, B, S, H, P, N, G, chunk, dtype):
+    args = _ssd_inputs(B, S, H, P, N, G, dev, dtype, seed=S + chunk + N)
+    y, s = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    want_y, want_s = ssd_scan(*(a.float() for a in args), chunk=chunk, force_reference=True)
+    _assert_ssd_matches(y, s, want_y, want_s, dtype, N)
 
 
 def test_ssd_scan_gradient_recomputes_the_plain_scan(dev):
@@ -632,6 +676,51 @@ def test_flash_attention_rows_without_keys_follow_the_pallas_kernel(dev):
         keys = [j for s in tiles for j in range(s, s + bk)]
         expect = v[0, keys, 0].mean(0) if keys else torch.zeros_like(v[0, 0, 0])
         torch.testing.assert_close(o[0, i], expect.expand(2, -1), atol=2e-5, rtol=2e-5)
+
+
+FLASH_BF16_CASES = [  # B, Sq, Sk, QH, KH, Dh, causal, window, q_offset, block
+    (1, 256, 256, 2, 2, 32, True, None, 0, 128),
+    (2, 256, 256, 4, 2, 64, True, None, 0, 128),  # GQA
+    (2, 256, 256, 8, 1, 128, True, None, 0, 128),  # MQA
+    (1, 200, 200, 2, 1, 33, True, None, 0, 40),  # odd Dh, Sq not a multiple of the tiles
+    (1, 384, 384, 2, 2, 64, True, 64, 0, 64),  # a window
+    (1, 72, 200, 2, 2, 48, True, None, 128, 8),  # a q_offset tail
+    (2, 256, 256, 4, 4, 128, False, None, 0, 128),  # bidirectional
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,QH,KH,Dh,causal,window,q_offset,block", FLASH_BF16_CASES)
+def test_flash_attention_bf16_on_the_tensor_cores(dev, B, Sq, Sk, QH, KH, Dh, causal, window,
+                                                  q_offset, block):  # fmt: skip
+    """bf16 against the oracle on float32 copies within one bf16 rounding,
+    every row: the early causal rows (a few keys, outputs that cancel) too."""
+    q, k, v = _qkv(B, Sq, Sk, QH, KH, Dh, dev, torch.bfloat16, seed=Sq + Dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention_cuda.launches
+    o = flash_attention(q, k, v, block_q=block, block_k=block, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention(q.float(), k.float(), v.float(), force_reference=True, **kw)
+    _assert_bf16_rounded(o, want)
+
+
+def test_flash_attention_bf16_rows_without_keys_follow_the_pallas_kernel(dev):
+    """The float32 test's rows without an unmasked key, in bf16: 0, or the mean
+    of v over the masked keys of the tiles the Pallas kernel does not skip."""
+    Sq, Sk, window, off, bq, bk = 64, 64, 16, 40, 32, 32
+    q, k, v = _qkv(1, Sq, Sk, 2, 1, 32, dev, torch.bfloat16, seed=5)
+    o = flash_attention(q, k, v, window=window, q_offset=off, block_q=bq, block_k=bk)
+    want = flash_attention(q.float(), k.float(), v.float(), window=window, q_offset=off,
+                           force_reference=True)  # fmt: skip
+    dead = torch.isnan(want).any(dim=-1).any(dim=-1)[0]
+    assert int(dead.sum()) == 25 and torch.isfinite(o.float()).all()
+    _assert_bf16_rounded(o[:, ~dead], want[:, ~dead])
+    for i in torch.nonzero(dead).flatten().tolist():
+        q_start = (i // bq) * bq + off
+        tiles = [s for s in range(0, Sk, bk) if s <= q_start + bq - 1 and s + bk - 1 > q_start - window]
+        keys = [j for s in tiles for j in range(s, s + bk)]
+        expect = v[0, keys, 0].float().mean(0) if keys else torch.zeros(32, device=dev)
+        _assert_bf16_rounded(o[0, i], expect.expand(2, -1))
 
 
 def test_flash_attention_gradient_recomputes_the_oracle(dev):

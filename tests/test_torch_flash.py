@@ -138,3 +138,46 @@ def test_wrapper_refuses_cpu_tensors_and_ragged_blocks():
                              block_k=128)  # fmt: skip
     assert flash_attention_cuda.launches == before
     assert fa_ops._scale(128) == float(np.float32(1.0) / np.sqrt(np.float32(128)))
+
+
+def _emulate_bf16_kernel(q, k, v, causal, split, tile=64):
+    """The bf16 CUDA kernel's arithmetic in plain torch (float32 on the CPU):
+    bf16 q, k, v; QKᵀ with exact products and a float32 sum, the scale after
+    the product, the causal mask at -1e30, the online softmax over key tiles of
+    ``tile`` in float32; P against bf16 V either split into hi + lo bf16 halves
+    (``split``, what the kernel does) or rounded to bf16 once; o rounded to
+    bf16 once. Layout [B, S, H, Dh]."""
+    QH, KH, Dh = q.shape[2], k.shape[2], q.shape[3]
+    hm = lambda t, rep: t.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    qf, kf, vf = hm(q, 1), hm(k, QH // KH), hm(v, QH // KH)
+    Sq, Sk = qf.shape[2], kf.shape[2]
+    m = torch.full(qf.shape[:3], -1e30)
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, Sk, tile):
+        s = (qf @ kf[:, :, k0 : k0 + tile].transpose(-1, -2)) * fa_ops._scale(Dh)
+        if causal:
+            keys = torch.arange(k0, min(k0 + tile, Sk))
+            s = torch.where(keys[None, :] > torch.arange(Sq)[:, None], torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        vt = vf[:, :, k0 : k0 + tile]
+        pv = hi @ vt + (p - hi).to(torch.bfloat16).float() @ vt if split else hi @ vt
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "rounded_once"])
+def test_bf16_kernel_precision_design(split):
+    """Why the bf16 kernel splits P: with P as hi + lo bf16 against bf16 V,
+    every output lies within ``chip_smoke.py``'s bf16 bound (one bf16 rounding,
+    2^-8 of the value, plus 1e-4) of the float32 oracle on the same values;
+    with P rounded to bf16 once, outputs fall outside it (a causal GQA case)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(21, 1, 512, 512, 4, 2, 64))
+    o = _emulate_bf16_kernel(q, k, v, causal=True, split=split)
+    want = flash_attention(q.float(), k.float(), v.float(), causal=True)
+    outside = int(((o.float() - want).abs() > want.abs() * 2.0**-8 + 1e-4).sum())
+    assert outside == 0 if split else outside > 100

@@ -191,3 +191,53 @@ def test_wrapper_refuses_cpu_tensors_and_bad_chunks():
     assert ssd_ops.score_rows(128, 128, 64) == 64  # the model's float32 carve
     assert ssd_ops.smem_bytes(128, 128, 64, 64) <= ssd_ops.SMEM_BUDGET_BYTES
     assert all(ssd_ops.score_rows(L, 16, 16) == min(L, ssd_ops.MAX_ROWS) for L in ssd_ops.CHUNKS)
+
+
+def _emulate_bf16_kernels(x, dt, A, bm, cm, D, chunk, split):
+    """The bf16 CUDA kernels' arithmetic in plain torch (float32 on the CPU):
+    bf16 x, B and C; products with exact float32 results and float32 sums;
+    the three float32 factors (w ⊙ x in each chunk's state, the decayed
+    scores in scores · x, the entering state in C · S_enter) split into hi +
+    lo bf16 halves (``split``, what the kernels do) or rounded to bf16 once;
+    y rounded to bf16 once. Returns (y, final state)."""
+    B, T, H, P = x.shape
+    N, nc = bm.shape[-1], T // chunk
+    hi = lambda f: f.to(torch.bfloat16).float()
+    r = (lambda f: hi(f) + hi(f - hi(f))) if split else hi
+    xc = x.float().reshape(B, nc, chunk, H, P)
+    bc = R._expand_groups(bm.float(), H).reshape(B, nc, chunk, H, N)
+    cc = R._expand_groups(cm.float(), H).reshape(B, nc, chunk, H, N)
+    dtc = dt.reshape(B, nc, chunk, H)
+    cum = torch.cumsum(dtc * A, dim=2)
+    total = cum[:, :, -1:]
+    w = torch.exp(total - cum) * dtc
+    S_c = torch.einsum("bclhn,bclhp->bchnp", bc, r(w[..., None] * xc))
+    S, S_enter = torch.zeros(B, H, N, P), []
+    for c in range(nc):
+        S_enter.append(S)
+        S = torch.exp(total[:, c, 0])[..., None, None] * S + S_c[:, c]
+    S_enter = torch.stack(S_enter, dim=1)
+    y = torch.exp(cum)[..., None] * torch.einsum("bclhn,bchnp->bclhp", cc, r(S_enter))
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[None, None, :, :, None]
+    seg = torch.where(tri, cum[:, :, :, None] - cum[:, :, None], torch.tensor(-torch.inf))
+    scores = torch.einsum("bclhn,bcmhn->bclmh", cc, bc) * torch.exp(seg) * dtc[:, :, None]
+    y = y + torch.einsum("bclmh,bcmhp->bclhp", r(scores), xc)
+    y = y.reshape(B, T, H, P) + D[None, None, :, None] * x.float()
+    return y.to(torch.bfloat16), S
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "rounded_once"])
+def test_bf16_kernel_precision_design(split):
+    """Why the bf16 kernels split their float32 factors: split, y lies within
+    ``chip_smoke.py``'s bf16 bound (one bf16 rounding, 2^-8 of the value, plus
+    1e-4) of ``ssd_chunked`` on float32 copies and the state within 1e-4 of its
+    largest value; rounded to bf16 once, both bounds break."""
+    args = _t(_inputs(31, 2, 256, 2, 32, 64, 1), torch.bfloat16)
+    y, s = _emulate_bf16_kernels(*args, chunk=64, split=split)
+    want_y, want_s = R.ssd_chunked(*(a.float() for a in args), chunk=64)
+    outside = int(((y.float() - want_y).abs() > want_y.abs() * 2.0**-8 + 1e-4).sum())
+    state_err = float((s - want_s).abs().max() / want_s.abs().max())
+    if split:
+        assert outside == 0 and state_err <= 1e-4
+    else:
+        assert outside > 100 and state_err > 1e-4
