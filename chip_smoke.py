@@ -18,7 +18,10 @@ prints no result):
    The three fused kernels also run the coarse step ``act_bits=(2, 3)`` at
    every shape: it must move their output by at least 10x the tolerance, and
    the output must match the plain version's on every window whose
-   normalized summary lies clear of the grid's rounding thresholds;
+   normalized summary lies clear of the grid's rounding thresholds. The two
+   warp-cell kernels (``mr_step``, ``mr_step_node``) also run H=48 (their
+   generic instantiation) and four windows a block, each within 1e-4 of the
+   plain version and within 1e-6 of the same call at one window a block;
 3. gradient parity: one training step through each fused kernel (GRU flow,
    GRU flow with QAT, LTC, NODE) against the same step with
    ``force_reference``; loss, gradients and step metrics within 1e-4;
@@ -56,11 +59,15 @@ prints no result):
    kernel and its plain version at the quickstart shapes, of ``mr_step``
    and ``mr_step_ltc`` at the bench_cycles shape and of ``mr_tick`` at the
    serve shape, beside the least time the card could take for the same work;
-10. where the time goes: ``torch.profiler`` over one step of the GRU-flow and
-    LTC main paths (MERINDA and its primary baseline) and over two banked
-    ticks counts the device kernels a step or tick launches and their busy
-    time (the NODE, QAT and composite-tick profiles are cut for time). It runs
-    last: a process the profiler has traced launches more slowly afterwards.
+10. where the time goes: ``torch.profiler`` over 25 launches each of
+    ``mr_step`` (quickstart and bench_cycles) and ``mr_step_node``
+    (quickstart) gives each kernel's own device time, printed beside phase
+    9's event time (which, at a few tens of microseconds, may be the host's
+    enqueue rate: a gap above 20% is named so); over one step of the
+    GRU-flow, LTC, NODE and GRU-flow + QAT main paths and over two banked
+    ticks it counts the device kernels a step or tick launches and their busy
+    time (the composite-tick profile is cut for time). It runs last: a process
+    the profiler has traced launches more slowly afterwards.
 
 The int8/PWL serving slice adds, each checked the same way:
 
@@ -226,9 +233,20 @@ LM_ARGS = ["--arch", "mamba2-130m", "--full", "--requests", "8", "--slots", "4",
 # relative to the largest logit: at Mamba2-130m's depth two float32 summation orders
 # part by ~1.2e-4 of it (tests/test_torch_lm_depth.py, at the SMOKE widths)
 LM_F32_REL = 1e-3
-# phase 10 profiles MERINDA's main path and its primary baseline only: a cut for
-# time, so that the script stays well inside its limit on a slow host
-PROFILED_PATHS = ("gru_flow", "ltc")
+# phase 10 profiles one training step of these main paths
+PROFILED_PATHS = ("gru_flow", "ltc", "node", "gru_flow+qat")
+# the warp-cell kernels (csrc/warp_cell.cuh): their generic width (H=48) and a
+# tile of four windows, (B, T, D, H, Dh, K, block_b); a window's result must not
+# depend on the tile: within TILE_TOL of the same call at one window a block
+CELL_CASES = [(8, 20, 3, 48, 64, 12, 4), (64, 32, 2, 32, 64, 12, 4)]
+TILE_TOL = 1e-6
+DEVICE_TIMED = 25  # launches profiled for a kernel's own device time
+EVENT_GAP = 0.2  # event against device time: above it, the event time is the host's
+# the warp-cell kernels' chain floor: the dependent latency of one step, counted
+# from the code in cycles (FP32 op 4; a row exchange, store + __syncwarp + the
+# first LDS.128, ~40; expf-based sigmoid ~68 and tanhf ~70: MUFU ex2/rcp with
+# their range reduction and Newton steps), times the steps, at the SM clock
+LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH = 4, 40, 68, 70
 
 
 def log(msg: str) -> None:
@@ -428,6 +446,23 @@ def qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed, device, dtype=torch.float32):
     return mk(B, Sq, QH, Dh), mk(B, Sk, KH, Dh), mk(B, Sk, KH, Dh)
 
 
+def chain_cycles(family: str, H: int) -> int:
+    """Cycles of one dependent step of a warp-cell kernel (GRU step, NODE
+    substep): each matvec is a row exchange, H/4 FMAs deep (four partial sums)
+    and two adds to combine them; then what follows it on the chain."""
+    matvec = LAT_EXCHANGE + (H // 4 + 2) * LAT_OP
+    if family == "gru":  # + x.Wx + b, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
+        return 2 * matvec + LAT_OP + LAT_SIGMOID + LAT_OP + LAT_OP + LAT_TANH + 4 * LAT_OP
+    # node: + b_f1, tanh; + b_f2, * sub_dt, + h
+    return 2 * matvec + LAT_OP + LAT_TANH + 3 * LAT_OP
+
+
+def chain_floor_ms(family: str, T: int, H: int, clock_hz: float, n_sub: int = SUBSTEPS) -> float:
+    """T dependent steps (T * n_sub substeps for NODE) at ``chain_cycles``."""
+    steps = T * (n_sub if family == "node" else 1)
+    return steps * chain_cycles(family, H) / clock_hz * 1e3
+
+
 def time_ms(fn, runs: int = 25, per_run: int = 10) -> float:
     """Median over ``runs`` of the mean time of ``per_run`` back-to-back calls."""
     for _ in range(3):
@@ -618,6 +653,11 @@ def main() -> None:
             timeout=60,
         ).stdout.strip()
         log(f"[env] {name}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+        clock_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.split()[0])  # fmt: skip
+        log(f"[env] max SM clock {clock_mhz:.0f} MHz (the chain floors' clock)")
         t0 = time.perf_counter()
         lib_path = rt.build_library()
         rt.load_library()
@@ -711,6 +751,24 @@ def main() -> None:
                     torch.cuda.synchronize()
                     record_int8("mr_step_ltc_int8", shape, out, plain_int8("ltc", ops),
                                 launch_substep("ltc", ops))  # fmt: skip
+        node_kernel = substep["node"][0]
+        for B, T, D, H, Dh, K, bb in CELL_CASES:
+            shape = f"warp cell (B={B} T={T} D={D} H={H} Dh={Dh} K={K} block_b={bb})"
+            ops = operands(B, T, D, H, Dh, K, seed=40 + H, device=dev)
+            node_ops = substep_operands("node", B, T, D, H, Dh, K, seed=50 + H, device=dev)
+            node_kw = dict(sub_dt=node_sub_dt(DT, SUBSTEPS), n_substeps=SUBSTEPS)
+            calls = [("mr_step", f"flow={flow}", lambda b, f=flow: mr_step_cuda(*ops, flow=f, block_b=b),
+                      mr_step_reference(*ops, flow=flow)) for flow in (True, False)]  # fmt: skip
+            calls.append(("mr_step_node", f"substeps={SUBSTEPS}",
+                          lambda b: node_kernel(*node_ops, **node_kw, block_b=b),
+                          plain_substep("node", node_ops)))  # fmt: skip
+            for kernel, what, launch, want in calls:
+                out, one = launch(bb), launch(1)
+                torch.cuda.synchronize()
+                tile = (out - one).abs().max().item()
+                record(kernel, f"{shape} {what} (against block_b=1: {tile:.3e})",
+                       (out - want).abs().max().item())  # fmt: skip
+                check(tile <= TILE_TOL, f"{kernel} depends on the tile at {shape} {what}: {tile:.3e}")
 
     # -- 3. gradient parity ----------------------------------------------------
     system = get_system("lotka_volterra")
@@ -1608,7 +1666,41 @@ def main() -> None:
         del q, k, v, qt, kt, vt, o_l
 
     # -- 10. where the time of a training step, a tick and an ssd_scan call goes --------
+    device_timed = {}  # (kernel, shape label) -> the kernel's mean device ms
     with Phase("profile"):
+        for kernel, (label, B, T, D, H, Dh, K) in (("mr_step", KERNEL_SHAPES[0]),
+                                                    ("mr_step_node", KERNEL_SHAPES[0]),
+                                                    ("mr_step", KERNEL_SHAPES[3])):  # fmt: skip
+            if kernel == "mr_step":  # phase 9's operands (seed 0, and 21 for NODE)
+                ops = operands(B, T, D, H, Dh, K, seed=0, device=dev)
+                bb = tiling.fit_block_b("gru", B, D, H, Dh, K)
+                launch = lambda: mr_step_cuda(*ops, flow=True, block_b=bb)
+            else:
+                node_ops = substep_operands("node", B, T, D, H, Dh, K, seed=21, device=dev)
+                launch = lambda: launch_substep("node", node_ops)
+            launch()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(DEVICE_TIMED):
+                    launch()
+                torch.cuda.synchronize()
+            times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and f"{kernel}_kernel<" in e.name]  # fmt: skip
+            check(len(times) == DEVICE_TIMED, f"{kernel}: {len(times)} device activities profiled")
+            d_ms = sum(times) / len(times)
+            e_ms = timed[kernel, label][0]
+            device_timed[kernel, label] = d_ms
+            family = "node" if kernel == "mr_step_node" else "gru"
+            floor = chain_floor_ms(family, T, H, clock_mhz * 1e6)
+            gap = abs(e_ms - d_ms) / d_ms
+            host = ": the event time is the host's" if gap > EVENT_GAP else ""
+            log(
+                f"[profile {kernel}] at {label}: device {d_ms:.4f} ms a launch (mean of "
+                f"{DEVICE_TIMED}), phase 9's event time {e_ms:.4f} ms ({gap * 100:.1f}% apart"
+                f"{host}); "
+                f"chain floor {floor:.4f} ms ({chain_cycles(family, H)} cycles a step at "
+                f"{clock_mhz:.0f} MHz)"
+            )
         m = SSD_MODEL
         for B in (4, 1):  # the bootstrap and the admission prefill
             args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=84, device=dev,
@@ -1655,6 +1747,11 @@ def main() -> None:
                 f"ms/step wall, {n_dev:.0f} device activities/step, device busy {busy_ms:.3f} "
                 f"ms/step ({100 * busy_ms / wall_ms:.2f}% of the step)"
             )
+            own = {k: v for k, v in by_name.items() if "repro::" in k}
+            for k, v in own.items():
+                log(f"[profile {label}]   own kernel {sum(v) / n_prof:8.4f} ms/step  "
+                    f"{len(v) / n_prof:4.0f}/step  {k[:80]}")  # fmt: skip
+            results[label].update(busy_ms=busy_ms, activities=n_dev)
             top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
             for k, v in top:
                 log(
@@ -1763,16 +1860,21 @@ def main() -> None:
             "library_note": note,
             "shape": "serve_mr acceptance, S=4" if kernel.startswith("mr_tick") else quick,
         }
+        if (kernel, quick) in device_timed:  # the profiler's own time of the kernel
+            row["device_ms"] = device_timed[kernel, quick]
         if (kernel, cycles) in timed:
             k2, p2, b2, by2 = timed[kernel, cycles]
             row[cycles.replace(" ", "_")] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2)
+            if (kernel, cycles) in device_timed:
+                row[cycles.replace(" ", "_")]["device_ms"] = device_timed[kernel, cycles]
         kernels.append(row)
     kernels += lm_kernels
     for label in runs:
         r = results[label]
+        busy = f", device busy {r['busy_ms']:.3f} ms/step" if "busy_ms" in r else ""
         log(
             f"[summary] {label}: {r['ms_per_step']:.2f} ms/step, {r['launches']} launches, "
-            f"recon_mse {r['recon_mse']:.3e}, max |theta - true| {r['max_err']:.4f}"
+            f"recon_mse {r['recon_mse']:.3e}, max |theta - true| {r['max_err']:.4f}{busy}"
         )
     r = results["stream"]
     log(

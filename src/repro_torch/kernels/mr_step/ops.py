@@ -95,7 +95,7 @@ def mr_step_cuda(
         dts=(dts, (T,)),
         **_head_operands(H, w1, b1, w2, b2),
     )
-    _check_tile("mr_step", B, T, block_b, tiling.smem_bytes(D, H, Dh, K, block_b))
+    _check_tile("mr_step", B, T, block_b, tiling.mr_step_smem_bytes(D, H, Dh, K, block_b))
     out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
     err = rt.load_library().mr_step_launch(
         *(t.data_ptr() for t in (xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out)),

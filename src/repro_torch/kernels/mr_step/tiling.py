@@ -11,6 +11,17 @@ shared memory (``csrc/gru_step.cuh``, ``csrc/head.cuh`` and the three
 SM. The LTC kernel gives each (window, hidden unit) pair its own thread, so
 its tile also keeps ``block_b * H`` within one block's 1024 threads.
 
+``mr_step`` and ``mr_step_node`` are warp-per-window recurrences
+(``csrc/warp_cell.cuh``): a block of ``block_b`` windows runs one warp a
+window (at most ``CELL_WARPS`` warps; a larger tile takes its windows in
+turn), so their carve is the block's weights once plus one area a warp
+(``mr_step_smem_bytes``, ``node_smem_bytes``). Their tile follows the same
+rule as the other kernels': more windows a block share one staging of the
+weights, fewer spread the chains over more SMs, and on the card the two
+balance. At the quickstart (B=64) 1, 2 and 4 windows a block take the same
+time within a few percent; at bench_cycles 4 is slower than 1 and 2
+(``repro_torch.launch.kernel_phases``; the times are in ``PERF.md``).
+
 Each ``*_smem_bytes`` function counts exactly what its kernel carves. The
 callers name the kernel by its family: the encoder row's ``family`` (the
 field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
@@ -52,8 +63,47 @@ def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
 
 
 def smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """``mr_step``: the GRU(-flow) scan's operands, then the head."""
+    """``gru_step.cuh`` + ``head.cuh``: the GRU(-flow) scan's operands, then
+    the head; the base of ``mr_tick``'s carve, with its N windows as the tile."""
     return gru_scan_smem_bytes(D, H, block_b) + 4 * head_floats(H, Dh, K, block_b)
+
+
+# csrc/warp_cell.cuh: every region of a carve starts 16-byte aligned (whole
+# float4s); a warp computes the h-independent terms of CELL_CHUNK steps at once
+CELL_WARPS = 8  # kWarps
+CELL_CHUNK = 16  # kChunk
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def cell_warps(block_b: int) -> int:
+    """Warps a block of the warp-cell kernels runs: one a window, at most
+    ``CELL_WARPS``."""
+    return min(block_b, CELL_WARPS)
+
+
+def col_stride(H: int) -> int:
+    """``warp_cell.cuh`` ``col_stride``: floats between two columns of a
+    recurrent weight matrix stored column-major (a multiple of 4, 4 mod 8)."""
+    return (H + 7) // 8 * 8 + 4
+
+
+def _cell_head_floats(H: int, Dh: int, K: int) -> int:
+    """``warp_cell.cuh`` ``HeadLayout``: w1, b1, w2, b2."""
+    return sum(map(_pad4, (H * Dh, Dh, Dh * K, K)))
+
+
+def mr_step_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
+    """``mr_step`` (``warp_cell.cuh`` ``GruLayout``): wx, wh's 3H columns,
+    b, time_scale and the head's weights once; a warp: two rows, two x and dts
+    chunks, the gates' x.Wx + b and the flow gate's phi * alpha for a chunk."""
+    nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
+    block = sum(map(_pad4, (D * 3 * H, 3 * H * S, 3 * H, H))) + _cell_head_floats(H, Dh, K)
+    warp = (2 * _pad4(R) + 2 * (_pad4(C * D) + _pad4(C)) + _pad4(C * 3 * 32 * nu)
+            + _pad4(C * 32 * nu))  # fmt: skip
+    return 4 * (block + cell_warps(block_b) * warp)
 
 
 def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
@@ -63,9 +113,13 @@ def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
 
 
 def node_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """``mr_step_node``: w_f1, w_f2, w_in, three biases, h and z, the head."""
-    floats = 2 * H * H + D * H + 3 * H + 2 * block_b * H
-    return 4 * (floats + head_floats(H, Dh, K, block_b))
+    """``mr_step_node`` (``warp_cell.cuh`` ``NodeLayout``): w_f1's and
+    w_f2's columns, w_in, three biases and the head's weights once; a warp:
+    two rows, two x chunks, the injection x.W_in + b_in for a chunk."""
+    nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
+    block = sum(map(_pad4, (H * S, H * S, D * H, H, H, H))) + _cell_head_floats(H, Dh, K)
+    warp = 2 * _pad4(R) + 2 * _pad4(C * D) + _pad4(C * 32 * nu)
+    return 4 * (block + cell_warps(block_b) * warp)
 
 
 def q_floats(n: int) -> int:
@@ -123,7 +177,7 @@ def family_smem_bytes(
         return gru_scan_smem_bytes(D, H, block_b)
     if family != "gru":
         raise ValueError(f"unknown mr_step family {family!r}; known: {FAMILIES}")
-    return smem_bytes(D, H, Dh, K, block_b)
+    return mr_step_smem_bytes(D, H, Dh, K, block_b)
 
 
 def _shape(cfg) -> tuple[int, int, int, int]:

@@ -241,14 +241,29 @@ def test_tiling_follows_the_family():
     D, H, Dh, K = 2, 32, 64, 12
     head = H * Dh + Dh + Dh * K + K + Dh
     assert tiling.ltc_smem_bytes(D, H, Dh, K, 1) == 4 * (D * H + H * H + 3 * H + 2 * H + head)
-    assert tiling.node_smem_bytes(D, H, Dh, K, 1) == 4 * (2 * H * H + D * H + 3 * H + 2 * H + head)
+    # the warp cells (csrc/warp_cell.cuh): the block's weights once (every region
+    # whole float4s, as these widths already are), then a warp's two rows of
+    # max(H, Dh), two x chunks of 16 steps and 16 steps of its lanes' slots; the
+    # recurrent weights column-major, H + 4 floats a column
+    weights = H * Dh + Dh + Dh * K + K
+    warp = 2 * Dh + 2 * 16 * D
+    S = H + 4
+    assert tiling.node_smem_bytes(D, H, Dh, K, 1) == 4 * (
+        2 * H * S + D * H + 3 * H + weights + warp + 16 * 32
+    )
+    assert tiling.family_smem_bytes("gru", D, H, Dh, K, 1) == 4 * (
+        D * 3 * H + 3 * H * S + 3 * H + H + weights + warp + 2 * 16 + 16 * 3 * 32 + 16 * 32
+    )
+    # one area a warp, at most 8 warps a block: a tile of 9 carves 8 areas
+    per_warp = tiling.node_smem_bytes(D, H, Dh, K, 2) - tiling.node_smem_bytes(D, H, Dh, K, 1)
+    assert tiling.node_smem_bytes(D, H, Dh, K, 9) == tiling.node_smem_bytes(D, H, Dh, K, 1) + 7 * per_warp
     for family, encoder in (("gru", "gru_flow"), ("ltc", "ltc"), ("node", "node")):
         cfg = merinda.MRConfig(state_dim=2, hidden=H, dense_hidden=Dh, encoder=encoder)
         assert encoders.get_encoder(encoder).family == family
         smem = tiling.family_smem_bytes(family, D, H, Dh, K, 2)
         assert tiling.config_smem_bytes(cfg, family, 2) == smem
         assert tiling.auto_block_b(cfg, family, 64) == 1
-    # the bare scan stages no head
+    # the bare scan stages no head (smem_bytes: the scan and head that mr_tick carves)
     scan = tiling.family_smem_bytes("gru_scan", D, H, Dh, K, 1)
     assert tiling.smem_bytes(D, H, Dh, K, 1) - scan == 4 * head
     assert tiling.fit_block_b("gru_scan", 1024, D, H) == 4

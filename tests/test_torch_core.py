@@ -227,9 +227,10 @@ def test_tiling_fits_shared_memory_and_fills_the_card():
     assert tiling.auto_block_b(cfg, "gru", 64) == 1  # 64 blocks: fewer windows than SMs
     assert tiling.auto_block_b(cfg, "gru", 1024) == 4  # largest divisor leaving >= 132 blocks
     assert tiling.auto_block_b(cfg, "gru", None) is None
-    # MRConfig defaults (H=64, Dh=128): about 88 KB staged, above the 48 KB static limit
+    # MRConfig defaults (H=64, Dh=128): about 109 KB staged (the weights, 86 KB, and
+    # one warp's area), above the 48 KB static limit
     big = MRConfig(state_dim=2)
-    assert 80_000 < tiling.config_smem_bytes(big, "gru", 1) < 100_000
+    assert 100_000 < tiling.config_smem_bytes(big, "gru", 1) < 120_000
     with pytest.raises(ValueError, match="no batch tile fits"):
         tiling.auto_block_b(big, "gru", 64, smem_budget_bytes=50_000)
     # the readout batch of the quickstart is prime: a training tile of 2 is dropped

@@ -126,9 +126,12 @@ def _operands(B, T, D, H, Dh, K, device, seed=0):
 @pytest.mark.parametrize("flow", [True, False])
 @pytest.mark.parametrize(
     "B,T,D,H,Dh,block_b",
-    [(64, 32, 2, 32, 64, 1), (193, 32, 2, 32, 64, 1), (8, 33, 3, 64, 128, 2), (6, 5, 2, 8, 16, 3)],
-)
+    [(64, 32, 2, 32, 64, 1), (193, 32, 2, 32, 64, 1), (8, 33, 3, 64, 128, 2), (6, 5, 2, 8, 16, 3),
+     (8, 20, 3, 48, 64, 4), (16, 33, 2, 32, 64, 4)],
+)  # fmt: skip
 def test_kernels_match_plain(dev, flow, B, T, D, H, Dh, block_b):
+    """H=48 takes the warp-cell kernels' generic (runtime-H) instantiation;
+    block_b=4 puts four windows' warps in one block."""
     ops = _operands(B, T, D, H, Dh, 12, dev)
     before = (mr_step_cuda.launches, gru_scan_cuda.launches)
     out = mr_step_cuda(*ops, flow=flow, block_b=block_b)
@@ -167,9 +170,14 @@ SUBSTEP = {
 
 @pytest.mark.parametrize("act_bits", [None, COARSE_BITS], ids=["fp32", "act_bits"])
 @pytest.mark.parametrize("n_substeps", [1, 2, 6])
-@pytest.mark.parametrize("B,T,D,H,Dh,block_b", [(64, 32, 2, 32, 64, 1), (8, 9, 3, 64, 128, 2)])
+@pytest.mark.parametrize(
+    "B,T,D,H,Dh,block_b",
+    [(64, 32, 2, 32, 64, 1), (8, 9, 3, 64, 128, 2), (8, 20, 3, 48, 64, 4), (16, 33, 2, 32, 64, 4)],
+)
 @pytest.mark.parametrize("family", ["ltc", "node"])
 def test_substep_kernels_match_plain(dev, family, B, T, D, H, Dh, block_b, n_substeps, act_bits):
+    """The last two shapes: NODE's generic instantiation (H=48) and four
+    windows a block; the LTC kernel runs them unchanged."""
     kernel, reference, sub_dt = SUBSTEP[family]
     ops = _substep_operands(family, B, T, D, H, Dh, 12, dev)
     kw = dict(sub_dt=sub_dt(0.05, n_substeps), n_substeps=n_substeps, block_b=block_b)
@@ -187,11 +195,34 @@ def test_substep_kernels_match_plain(dev, family, B, T, D, H, Dh, block_b, n_sub
     _assert_act_step(out, kernel(*ops, **kw), want, h)
 
 
+@pytest.mark.parametrize("H", [8, 32, 48, 64])
+def test_warp_cells_do_not_depend_on_the_tile(dev, H):
+    """mr_step and mr_step_node give every window the same output whatever
+    its block holds: one warp a window, no data shared between windows (a
+    tile of 9 runs its windows on 8 warps, the ninth after the first)."""
+    B, T, D, Dh, K = 36, 21, 3, 40, 7
+    ops = _operands(B, T, D, H, Dh, K, dev, seed=4)
+    node = _substep_operands("node", B, T, D, H, Dh, K, dev, seed=5)
+    kw = dict(sub_dt=node_sub_dt(0.05, 6), n_substeps=6)
+    outs = {bb: (mr_step_cuda(*ops, flow=True, block_b=bb), mr_step_node_cuda(*node, **kw, block_b=bb))
+            for bb in (1, 2, 3, 4, 9)}  # fmt: skip
+    torch.cuda.synchronize()
+    for bb, (out, out_node) in outs.items():
+        torch.testing.assert_close(out, outs[1][0], atol=1e-6, rtol=0, msg=f"mr_step block_b={bb}")
+        torch.testing.assert_close(out_node, outs[1][1], atol=1e-6, rtol=0,
+                                   msg=f"mr_step_node block_b={bb}")  # fmt: skip
+    torch.testing.assert_close(outs[1][0], mr_step_reference(*ops, flow=True), **TOL)
+    want = mr_step_node_reference(*node, dt=0.05, n_substeps=6)
+    torch.testing.assert_close(outs[1][1], want, **TOL)
+
+
 def test_variable_dts_match_plain(dev):
     ops = list(_operands(4, 6, 2, 16, 32, 12, dev))
     ops[6] = torch.tensor([1.0, 0.0, 0.5, 2.0, 0.0, 1.0], device=dev)
     hs = gru_scan_cuda(*ops[:7], flow=True, block_b=1)
     torch.testing.assert_close(hs, gru_scan_reference(*ops[:7], flow=True), **TOL)
+    out = mr_step_cuda(*ops, flow=True, block_b=2)  # phi(t) computed ahead of the chain
+    torch.testing.assert_close(out, mr_step_reference(*ops, flow=True), **TOL)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -279,13 +279,17 @@ def test_int8_refusals():
 
 
 def test_int8_shared_memory_models():
-    """Every int8 carve is smaller than its fp32 twin's; the readout batch
-    of 193 windows (a prime) takes one window a block, as in fp32."""
+    """Every int8 carve is smaller than its fp32 twin's (for the GRU the
+    block-per-tile carve ``smem_bytes`` that ``mr_step_int8.cu`` was built
+    beside); the readout batch of 193 windows (a prime) takes one window a
+    block, as in fp32."""
     D, H, Dh, K = 2, 32, 64, 12
+    fp32 = dict(gru=tiling.smem_bytes, ltc=tiling.ltc_smem_bytes,
+                gru_scan=lambda D, H, Dh, K, bb: tiling.gru_scan_smem_bytes(D, H, bb))  # fmt: skip
     for family in ("gru", "ltc", "gru_scan"):
         for bb in (1, 4):
             q = tiling.family_smem_bytes(family, D, H, Dh, K, bb, int8=True)
-            assert 0 < q < tiling.family_smem_bytes(family, D, H, Dh, K, bb)
+            assert 0 < q < fp32[family](D, H, Dh, K, bb)
         assert tiling.fit_block_b(family, 193, D, H, Dh, K, int8=True) == 1
     assert tiling.fit_block_b("gru", 1024, D, H, Dh, K, int8=True) == 4
     assert tiling.fit_block_b("ltc", 4096, D, H, Dh, K, int8=True) == 16  # 512 threads, 256 blocks
