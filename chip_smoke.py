@@ -18,10 +18,11 @@ prints no result):
    The three fused kernels also run the coarse step ``act_bits=(2, 3)`` at
    every shape: it must move their output by at least 10x the tolerance, and
    the output must match the plain version's on every window whose
-   normalized summary lies clear of the grid's rounding thresholds. The two
-   warp-cell kernels (``mr_step``, ``mr_step_node``) also run H=48 (their
-   generic instantiation) and four windows a block, each within 1e-4 of the
-   plain version and within 1e-6 of the same call at one window a block;
+   normalized summary lies clear of the grid's rounding thresholds. The three
+   warp-cell fused kernels (``mr_step``, ``mr_step_ltc``, ``mr_step_node``)
+   also run H=48 (their generic instantiation) and four windows a block, each
+   within 1e-4 of the plain version and within 1e-6 of the same call at one
+   window a block (``mr_step_ltc``: bit for bit);
 3. gradient parity: one training step through each fused kernel (GRU flow,
    GRU flow with QAT, LTC, NODE) against the same step with
    ``force_reference``; loss, gradients and step metrics within 1e-4;
@@ -38,10 +39,11 @@ prints no result):
    take the same first step as the fused run (loss within 1e-4);
 6. the banked service tick: ``mr_tick`` against its plain version at the
    serve shape (S=4, m=1, H=32) and at the JAX tick tests' shape (L=16, T=8,
-   stride 4, C=4, H=8; m = 0 and 2), GRU and GRU flow, banks of 1, 2 and 4
-   slots, one slot inactive and every other one seeding its EMA: rolled
-   buffers bit for bit, theta and delta within 1e-5, delta = inf for the
-   inactive slot;
+   stride 4, C=4, H=8; m = 0 and 2), GRU and GRU flow, and at N=72 windows a
+   slot (a cluster of 8 blocks whose warps take the windows in turn), banks
+   of 1, 2 and 4 slots, one slot inactive and every other one seeding its
+   EMA: rolled buffers bit for bit, theta and delta within 1e-5, delta = inf
+   for the inactive slot;
 7. a banked and a composite service in lockstep, 3 ticks of K=2 (GRU flow):
    parameters bit for bit, theta and delta within 1e-5;
 8. the stream main path: ``serve_mr``'s banked acceptance scenario, cut to 8
@@ -60,14 +62,15 @@ prints no result):
    and ``mr_step_ltc`` at the bench_cycles shape and of ``mr_tick`` at the
    serve shape, beside the least time the card could take for the same work;
 10. where the time goes: ``torch.profiler`` over 25 launches each of
-    ``mr_step`` (quickstart and bench_cycles) and ``mr_step_node``
-    (quickstart) gives each kernel's own device time, printed beside phase
-    9's event time (which, at a few tens of microseconds, may be the host's
-    enqueue rate: a gap above 20% is named so); over one step of the
-    GRU-flow, LTC, NODE and GRU-flow + QAT main paths and over two banked
-    ticks it counts the device kernels a step or tick launches and their busy
-    time (the composite-tick profile is cut for time). It runs last: a process
-    the profiler has traced launches more slowly afterwards.
+    ``mr_step`` and ``mr_step_ltc`` (quickstart and bench_cycles),
+    ``mr_step_node`` (quickstart) and ``mr_tick`` (serve shape) gives each
+    kernel's own device time, printed beside phase 9's event time (which, at
+    a few tens of microseconds, may be the host's enqueue rate: a gap above
+    20% is named so) and its chain floor; over one step of the GRU-flow, LTC,
+    NODE and GRU-flow + QAT main paths and over two banked ticks it counts
+    the device kernels a step or tick launches and their busy time, and the
+    own kernel's share (the composite-tick profile is cut for time). It runs
+    last: a process the profiler has traced launches more slowly afterwards.
 
 The int8/PWL serving slice adds, each checked the same way:
 
@@ -239,14 +242,18 @@ PROFILED_PATHS = ("gru_flow", "ltc", "node", "gru_flow+qat")
 # tile of four windows, (B, T, D, H, Dh, K, block_b); a window's result must not
 # depend on the tile: within TILE_TOL of the same call at one window a block
 CELL_CASES = [(8, 20, 3, 48, 64, 12, 4), (64, 32, 2, 32, 64, 12, 4)]
-TILE_TOL = 1e-6
+TILE_TOL = 1e-6  # mr_step_ltc: 0, bit for bit
+# the tick past 64 windows a slot (N = 72): a cluster of 8 blocks of 8 warps
+# whose warps take the windows in turn
+TICK_WIDE = dict(buf_len=600, window=32, stride=8, chunk=8)
 DEVICE_TIMED = 25  # launches profiled for a kernel's own device time
 EVENT_GAP = 0.2  # event against device time: above it, the event time is the host's
 # the warp-cell kernels' chain floor: the dependent latency of one step, counted
 # from the code in cycles (FP32 op 4; a row exchange, store + __syncwarp + the
 # first LDS.128, ~40; expf-based sigmoid ~68 and tanhf ~70: MUFU ex2/rcp with
-# their range reduction and Newton steps), times the steps, at the SM clock
-LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH = 4, 40, 68, 70
+# their range reduction and Newton steps; the IEEE float32 division ~40: MUFU
+# rcp, its Newton steps and the rounding fix-up), times the steps, at the SM clock
+LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH, LAT_DIV = 4, 40, 68, 70, 40
 
 
 def log(msg: str) -> None:
@@ -447,19 +454,22 @@ def qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed, device, dtype=torch.float32):
 
 
 def chain_cycles(family: str, H: int) -> int:
-    """Cycles of one dependent step of a warp-cell kernel (GRU step, NODE
-    substep): each matvec is a row exchange, H/4 FMAs deep (four partial sums)
-    and two adds to combine them; then what follows it on the chain."""
+    """Cycles of one dependent step of a warp-cell kernel (GRU step, LTC or
+    NODE substep): each matvec is a row exchange, H/4 FMAs deep (four partial
+    sums) and two adds to combine them; then what follows it on the chain."""
     matvec = LAT_EXCHANGE + (H // 4 + 2) * LAT_OP
     if family == "gru":  # + x.Wx + b, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
         return 2 * matvec + LAT_OP + LAT_SIGMOID + LAT_OP + LAT_OP + LAT_TANH + 4 * LAT_OP
+    if family == "ltc":  # + drive, sigmoid; sub_dt * f and the FMA of num (den's
+        # inv_tau + f and FMA beside them); num / den
+        return matvec + LAT_OP + LAT_SIGMOID + 2 * LAT_OP + LAT_DIV
     # node: + b_f1, tanh; + b_f2, * sub_dt, + h
     return 2 * matvec + LAT_OP + LAT_TANH + 3 * LAT_OP
 
 
 def chain_floor_ms(family: str, T: int, H: int, clock_hz: float, n_sub: int = SUBSTEPS) -> float:
-    """T dependent steps (T * n_sub substeps for NODE) at ``chain_cycles``."""
-    steps = T * (n_sub if family == "node" else 1)
+    """T dependent steps (T * n_sub substeps for LTC and NODE) at ``chain_cycles``."""
+    steps = T * (n_sub if family in ("ltc", "node") else 1)
     return steps * chain_cycles(family, H) / clock_hz * 1e3
 
 
@@ -751,24 +761,25 @@ def main() -> None:
                     torch.cuda.synchronize()
                     record_int8("mr_step_ltc_int8", shape, out, plain_int8("ltc", ops),
                                 launch_substep("ltc", ops))  # fmt: skip
-        node_kernel = substep["node"][0]
         for B, T, D, H, Dh, K, bb in CELL_CASES:
             shape = f"warp cell (B={B} T={T} D={D} H={H} Dh={Dh} K={K} block_b={bb})"
             ops = operands(B, T, D, H, Dh, K, seed=40 + H, device=dev)
-            node_ops = substep_operands("node", B, T, D, H, Dh, K, seed=50 + H, device=dev)
-            node_kw = dict(sub_dt=node_sub_dt(DT, SUBSTEPS), n_substeps=SUBSTEPS)
             calls = [("mr_step", f"flow={flow}", lambda b, f=flow: mr_step_cuda(*ops, flow=f, block_b=b),
-                      mr_step_reference(*ops, flow=flow)) for flow in (True, False)]  # fmt: skip
-            calls.append(("mr_step_node", f"substeps={SUBSTEPS}",
-                          lambda b: node_kernel(*node_ops, **node_kw, block_b=b),
-                          plain_substep("node", node_ops)))  # fmt: skip
-            for kernel, what, launch, want in calls:
+                      mr_step_reference(*ops, flow=flow), TILE_TOL) for flow in (True, False)]  # fmt: skip
+            for family, seed, tile_tol in (("node", 50, TILE_TOL), ("ltc", 60, 0.0)):
+                f_ops = substep_operands(family, B, T, D, H, Dh, K, seed=seed + H, device=dev)
+                kernel, _, sub_dt = substep[family]
+                kw = dict(sub_dt=sub_dt(DT, SUBSTEPS), n_substeps=SUBSTEPS)
+                calls.append((f"mr_step_{family}", f"substeps={SUBSTEPS}",
+                              lambda b, k=kernel, o=f_ops, kw=kw: k(*o, **kw, block_b=b),
+                              plain_substep(family, f_ops), tile_tol))  # fmt: skip
+            for kernel, what, launch, want, tile_tol in calls:
                 out, one = launch(bb), launch(1)
                 torch.cuda.synchronize()
                 tile = (out - one).abs().max().item()
                 record(kernel, f"{shape} {what} (against block_b=1: {tile:.3e})",
                        (out - want).abs().max().item())  # fmt: skip
-                check(tile <= TILE_TOL, f"{kernel} depends on the tile at {shape} {what}: {tile:.3e}")
+                check(tile <= tile_tol, f"{kernel} depends on the tile at {shape} {what}: {tile:.3e}")
 
     # -- 3. gradient parity ----------------------------------------------------
     system = get_system("lotka_volterra")
@@ -990,10 +1001,12 @@ def main() -> None:
         (f"JAX test shape {enc} m={m}", enc, dict(TICK_TEST_WIDTH, input_dim=m), test_scfg)
         for enc in ("gru", "gru_flow")
         for m in (0, 2)
-    ]
+    ] + [("N=72 windows gru_flow m=1", "gru_flow", SERVE_WIDTH, stream.StreamConfig(**TICK_WIDE))]
     with Phase("tick parity"):
         for i, (label, enc, width, scfg) in enumerate(tick_cases):
             cfg = merinda.MRConfig(encoder=enc, **width)
+            N = scfg.n_windows
+            label += f" (N={N}: {tiling.tick_cluster(N)} blocks of {tiling.tick_warps(N)} warps)"
             ops = tick_operands(cfg, scfg, 4, seed=30 + i)
             want = mr_tick(ops[0], cfg, scfg, *ops[1:], force_reference=True)
             for bank in (1, 2, 4):
@@ -1668,34 +1681,48 @@ def main() -> None:
     # -- 10. where the time of a training step, a tick and an ssd_scan call goes --------
     device_timed = {}  # (kernel, shape label) -> the kernel's mean device ms
     with Phase("profile"):
-        for kernel, (label, B, T, D, H, Dh, K) in (("mr_step", KERNEL_SHAPES[0]),
-                                                    ("mr_step_node", KERNEL_SHAPES[0]),
-                                                    ("mr_step", KERNEL_SHAPES[3])):  # fmt: skip
-            if kernel == "mr_step":  # phase 9's operands (seed 0, and 21 for NODE)
+        profiled = [(k, KERNEL_SHAPES[i]) for i in (0, 3) for k in ("mr_step", "mr_step_ltc")]
+        profiled += [("mr_step_node", KERNEL_SHAPES[0]), ("mr_tick", None)]
+        for kernel, shape in profiled:
+            # phase 9's operands (seed 0; 20 for LTC, 21 for NODE; the tick's kernel_ops)
+            if kernel == "mr_tick":
+                label, T, H = quick, serve_scfg.window, 32
+                launch = lambda: mr_tick_cuda(*kernel_ops, flow=False, window=T,
+                                              stride=serve_scfg.stride, ema=serve_scfg.ema)  # fmt: skip
+            else:
+                label, B, T, D, H, Dh, K = shape
+            if kernel == "mr_step":
                 ops = operands(B, T, D, H, Dh, K, seed=0, device=dev)
                 bb = tiling.fit_block_b("gru", B, D, H, Dh, K)
                 launch = lambda: mr_step_cuda(*ops, flow=True, block_b=bb)
-            else:
-                node_ops = substep_operands("node", B, T, D, H, Dh, K, seed=21, device=dev)
-                launch = lambda: launch_substep("node", node_ops)
+            elif kernel != "mr_tick":
+                family = kernel.removeprefix("mr_step_")
+                f_ops = substep_operands(family, B, T, D, H, Dh, K,
+                                         seed=20 if family == "ltc" else 21, device=dev)  # fmt: skip
+                launch = lambda: launch_substep(family, f_ops)
             launch()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # one launch the tracer may miss while it starts, then the timed ones
+                launch()
+                torch.cuda.synchronize()
                 for _ in range(DEVICE_TIMED):
                     launch()
                 torch.cuda.synchronize()
-            times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and f"{kernel}_kernel<" in e.name]  # fmt: skip
-            check(len(times) == DEVICE_TIMED, f"{kernel}: {len(times)} device activities profiled")
+            events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                             and f"{kernel}_kernel<" in e.name), key=lambda e: e.time_range.start)  # fmt: skip
+            check(len(events) >= DEVICE_TIMED, f"{kernel}: {len(events)} device activities profiled")
+            times = [e.time_range.elapsed_us() / 1e3 for e in events[-DEVICE_TIMED:]]
             d_ms = sum(times) / len(times)
             e_ms = timed[kernel, label][0]
             device_timed[kernel, label] = d_ms
-            family = "node" if kernel == "mr_step_node" else "gru"
+            family = {"mr_step_node": "node", "mr_step_ltc": "ltc"}.get(kernel, "gru")
             floor = chain_floor_ms(family, T, H, clock_mhz * 1e6)
             gap = abs(e_ms - d_ms) / d_ms
             host = ": the event time is the host's" if gap > EVENT_GAP else ""
+            where = "the serve shape" if kernel == "mr_tick" else label
             log(
-                f"[profile {kernel}] at {label}: device {d_ms:.4f} ms a launch (mean of "
+                f"[profile {kernel}] at {where}: device {d_ms:.4f} ms a launch (mean of "
                 f"{DEVICE_TIMED}), phase 9's event time {e_ms:.4f} ms ({gap * 100:.1f}% apart"
                 f"{host}); "
                 f"chain floor {floor:.4f} ms ({chain_cycles(family, H)} cycles a step at "
@@ -1771,14 +1798,16 @@ def main() -> None:
                 wall_ms = (time.perf_counter() - t0) / n_prof * 1e3
             dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
             busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / n_prof
-            tick_kernels = sum("mr_tick" in e.name for e in dev_events) / n_prof
+            tick_events = [e for e in dev_events if "mr_tick_kernel<" in e.name]
+            tick_ms = sum(e.time_range.elapsed_us() for e in tick_events) / 1e3 / n_prof
             log(
                 f"[profile {kernel} tick] {n_prof} ticks (K=8, S=4) under the profiler: "
                 f"{wall_ms:.1f} ms/tick wall, {len(dev_events) / n_prof:.0f} device activities/"
-                f"tick ({tick_kernels:.1f} mr_tick), device busy {busy_ms:.3f} ms/tick "
-                f"({100 * busy_ms / wall_ms:.2f}% of the tick)"
+                f"tick ({len(tick_events) / n_prof:.1f} mr_tick, {tick_ms:.4f} ms/tick), device "
+                f"busy {busy_ms:.3f} ms/tick ({100 * busy_ms / wall_ms:.2f}% of the tick)"
             )
-            results[f"{kernel} tick"].update(activities=len(dev_events) / n_prof, busy_ms=busy_ms)
+            results[f"{kernel} tick"].update(activities=len(dev_events) / n_prof, busy_ms=busy_ms,
+                                             mr_tick_ms=tick_ms)  # fmt: skip
 
     gru_note = (
         "no single PyTorch call computes it: torch.nn.GRU's candidate gate is "

@@ -106,7 +106,8 @@ def head_math(
     """Dense head: RMS-norm -> optional activation fake-quant -> ReLU MLP.
 
     The one source of the head stage: ``head_from_hidden`` and every fused
-    stage's plain version call it (``csrc/head.cuh`` is its CUDA twin).
+    stage's plain version call it (``csrc/warp_cell.cuh`` ``warp_head`` is its
+    CUDA twin).
     """
     h = h * torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + RMS_EPS)
     if act_bits is not None:

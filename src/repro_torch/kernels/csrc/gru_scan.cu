@@ -3,7 +3,7 @@
 // Replaces repro/kernels/gru_scan/kernel.py:107 gru_scan_pallas (body
 // _gru_scan_kernel, :66-103). One block per tile of `bb` windows runs the
 // whole time loop with the gate weights and h in shared memory
-// (gru_step.cuh, the step shared with mr_step) and writes each step's h.
+// (gru_step.cuh) and writes each step's h.
 //
 // What bounds it on an H100: like mr_step, the chain of T dependent steps;
 // the hs write (B*T*H floats, 256 KB at the quickstart shapes) is the only

@@ -1,7 +1,10 @@
-// GRU(-flow) step shared by the mr_step and gru_scan kernels.
+// GRU(-flow) scan of the gru_scan kernel, and the flow gate's softplus and
+// alpha, which the warp-cell kernels (warp_cell.cuh) share.
 //
 // Counterpart of repro/kernels/gru_scan/kernel.py:42-63 (_gru_step_math),
-// which both TPU kernels share in the same way. One thread block owns a tile
+// which the TPU's gru_scan and mr_step share; on the H100 mr_step and the
+// tick run the warp cell's step instead (warp_cell.cuh gru_steps, the same
+// arithmetic in another summation order). One thread block owns a tile
 // of `bb` windows and runs the whole time loop for them: the gate weights,
 // the hidden state h [bb, H] and the step's intermediates live in shared
 // memory, so nothing of the scan round-trips device memory.

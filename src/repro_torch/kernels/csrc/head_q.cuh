@@ -54,7 +54,8 @@ __device__ inline float* head_q_setup(HeadQShared& s, float* p, const int8_t* __
 }
 
 // out_tile[w, :] = relu(norm(h[w]) . w1 + b1) . w2 + b2 for the tile's bb
-// windows; h, hn as in head_tile. Every thread of the block calls it, after
+// windows; h and hn are [bb, H] in shared memory, and hn may be h itself
+// (head.cuh rms_norm_tile). Every thread of the block calls it, after
 // a barrier that published h.
 __device__ inline void head_q_tile(const HeadQShared& s, const float* h, float* hn,
                                    float* __restrict__ out_tile, int H, int Dh, int K, int bb) {

@@ -77,7 +77,6 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
   // wh's column g * H + j, k = 4q .. 4q + 3: a float4 of the column-major copy
   const float4* wh4 = reinterpret_cast<const float4*>(smem + L.wh);
   auto wh_at = [&](int q, int g, int u) { return wh4[(g * H + un.col[u]) * (S / 4) + q]; };
-  auto g_col = [&](int g, int u) { return g * H + un.col[u]; };
   const float* wxs = smem + L.wx;
   float bias[3][U], sp[U];
   float4 wr[REG ? 3 : 1][U][REG ? N / 4 : 1];
@@ -87,7 +86,7 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
     for (int g = 0; g < 3; ++g) bias[g][u] = smem[L.b + g * H + un.col[u]];
     sp[u] = softplus(smem[L.ts + un.col[u]]);
     if constexpr (REG) {
-      const float* c = smem + L.wh + g_col(0, u);
+      const float* c = smem + L.wh + un.col[u];
 #pragma unroll
       for (int g = 0; g < 3; ++g)
 #pragma unroll
@@ -125,37 +124,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
       const int nc = min(kC, T - t0);
       cp_async_wait<0>();
       __syncwarp();  // this chunk's x and dts have arrived; row_h holds h
-      // the chunk's h-independent terms, each lane for its own units: x.Wx
-      // over d for all kC steps at once (kC independent sums a gate), then b
+      // the chunk's h-independent terms: x.Wx + b, and the flow gate's phi * alpha
       const float* xc = area + (slot ? L.xbuf[1] : L.xbuf[0]);
       const float* dc = area + (slot ? L.dbuf[1] : L.dbuf[0]);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (u >= nu) continue;
-        float a[kC][3];
-#pragma unroll
-        for (int c = 0; c < kC; ++c)
-#pragma unroll
-          for (int g = 0; g < 3; ++g) a[c][g] = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          float w[3];
-#pragma unroll
-          for (int g = 0; g < 3; ++g) w[g] = wxs[d * H3 + g_col(g, u)];
-#pragma unroll
-          for (int c = 0; c < kC; ++c) {  // steps past nc compute unread slots
-            const float xd = xc[c * D + d];
-#pragma unroll
-            for (int g = 0; g < 3; ++g) a[c][g] = fmaf(xd, w[g], a[c][g]);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-#pragma unroll
-          for (int g = 0; g < 3; ++g)
-            gxs[((c * 3 + g) * nu + u) * 32 + lane] = a[c][g] + bias[g][u];
-          if (FLOW) phis[(c * nu + u) * 32 + lane] = tanhf(sp[u] * dc[c]) * kInvLipschitzAlpha;
-        }
-      }
+      wc::gru_terms_ahead<U>(un, xc, wxs, D, H, bias, gxs, [&](int c, int u) {
+        if (FLOW) phis[(c * nu + u) * 32 + lane] = tanhf(sp[u] * dc[c]) * kInvLipschitzAlpha;
+      });
       // the next chunk's x (or the next window's first) while this one runs
       if (t0 + kC < T) stage_chunk(slot ^ 1, window, t0 + kC);
       else if (w + n_warps < bb) {
@@ -165,34 +139,8 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
       cp_async_commit();
       slot ^= 1;
 
-      for (int c = 0; c < nc; ++c) {
-        float a[2][U];
-        wc::matvec<N, 2, U>(row_h, H, nu, w_rz, a);
-        float z[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (u >= nu) continue;
-          const float r = sigmoid(gxs[((c * 3 + 0) * nu + u) * 32 + lane] + a[0][u]);
-          z[u] = sigmoid(gxs[((c * 3 + 1) * nu + u) * 32 + lane] + a[1][u]);
-          if (un.own[u]) row_r[un.col[u]] = r * h[u];
-        }
-        __syncwarp();
-        float ac[1][U];
-        wc::matvec<N, 1, U>(row_r, H, nu, w_c, ac);
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (u >= nu) continue;
-          const float cand = tanhf(gxs[((c * 3 + 2) * nu + u) * 32 + lane] + ac[0][u]);
-          if (FLOW) {
-            const float pa = phis[(c * nu + u) * 32 + lane];  // phi(0) = 0: the identity
-            h[u] = h[u] + pa * (1.0f - z[u]) * (cand - h[u]);
-          } else {
-            h[u] = (1.0f - z[u]) * cand + z[u] * h[u];
-          }
-          if (un.own[u]) row_h[un.col[u]] = h[u];
-        }
-        __syncwarp();
-      }
+      auto pa = [&](int c, int u) { return phis[(c * nu + u) * 32 + lane]; };
+      wc::gru_steps<N, FLOW, U>(un, h, H, nc, w_rz, w_c, gxs, pa, row_h, row_r);
     }
     wc::warp_head<N, U>(un, h, H, Dh, K, smem + L.head.w1, smem + L.head.b1, smem + L.head.w2,
                         smem + L.head.b2, row_h, row_r, out + (size_t)window * K, act_int,

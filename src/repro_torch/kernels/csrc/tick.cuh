@@ -1,6 +1,7 @@
 // The ingest and the readout of a banked service tick, shared by mr_tick.cu
-// and mr_tick_int8.cu: the two kernels differ only in the cell and head
-// between them (gru_step.cuh and head.cuh, or their int8 twins).
+// (a warp-cell kernel whose warps build their own windows: tick_roll, tick_x)
+// and mr_tick_int8.cu (one block a bank, the window set built by the block:
+// tick_ingest).
 //
 // Counterpart of the code around the cell in repro/kernels/mr_step/tick.py
 // _mr_tick_kernel (:86-142) and _mr_tick_q_kernel (:251-310).
@@ -19,10 +20,44 @@ __device__ __forceinline__ float rolled(const float* __restrict__ buf,
   return row < keep ? buf[(row + C) * w + col] : chunk[(row - keep) * w + col];
 }
 
-// Slot s's ingest: writes its rolled buffers out (y, and u when m > 0) and
-// builds its normalized window set xs [N, T, n + m] in shared memory, both
-// from the pre-roll buffers and the chunks. The caller publishes xs with a
-// barrier.
+// Slot s's rolled buffers written out (y, and u when m > 0), from the
+// pre-roll buffers and the chunks, by threads t, t + nt, ...
+__device__ inline void tick_roll(const float* __restrict__ buf_y, const float* __restrict__ new_y,
+                                 const float* __restrict__ buf_u, const float* __restrict__ new_u,
+                                 float* __restrict__ buf_y_out, float* __restrict__ buf_u_out,
+                                 int s, int L, int n, int m, int C, int t, int nt) {
+  const int keep = L - C;
+  const float* by = buf_y + (size_t)s * L * n;
+  const float* ny = new_y + (size_t)s * C * n;
+  for (int i = t; i < L * n; i += nt)
+    buf_y_out[(size_t)s * L * n + i] = rolled(by, ny, i / n, i % n, keep, C, n);
+  if (m == 0) return;
+  const float* bu = buf_u + (size_t)s * L * m;
+  const float* nu = new_u + (size_t)s * C * m;
+  for (int i = t; i < L * m; i += nt)
+    buf_u_out[(size_t)s * L * m + i] = rolled(bu, nu, i / m, i % m, keep, C, m);
+}
+
+// Element (t, d) of window w of slot s's normalized window set [N, T, n + m],
+// from the pre-roll buffers and the chunks: y normalized with the mean and
+// scale frozen at admission (an IEEE division, as the plain version), u raw.
+__device__ __forceinline__ float tick_x(const float* __restrict__ buf_y,
+                                        const float* __restrict__ new_y,
+                                        const float* __restrict__ buf_u,
+                                        const float* __restrict__ new_u,
+                                        const float* __restrict__ mean,
+                                        const float* __restrict__ scale, int s, int w, int t,
+                                        int d, int L, int n, int m, int C, int stride) {
+  const int keep = L - C, row = w * stride + t;
+  if (d < n)
+    return (rolled(buf_y + (size_t)s * L * n, new_y + (size_t)s * C * n, row, d, keep, C, n) -
+            mean[s * n + d]) / scale[s * n + d];
+  return rolled(buf_u + (size_t)s * L * m, new_u + (size_t)s * C * m, row, d - n, keep, C, m);
+}
+
+// Slot s's ingest by the whole block: writes its rolled buffers out and
+// builds its normalized window set xs [N, T, n + m] in shared memory. The
+// caller publishes xs with a barrier.
 __device__ inline void tick_ingest(const float* __restrict__ buf_y,
                                    const float* __restrict__ new_y,
                                    const float* __restrict__ buf_u,
@@ -31,20 +66,12 @@ __device__ inline void tick_ingest(const float* __restrict__ buf_y,
                                    const float* __restrict__ scale, float* __restrict__ buf_y_out,
                                    float* __restrict__ buf_u_out, float* xs, int s, int L, int n,
                                    int m, int C, int T, int stride, int N) {
-  const int D = n + m, keep = L - C;
-  const float* by = buf_y + (size_t)s * L * n;
-  const float* ny = new_y + (size_t)s * C * n;
-  const float* bu = m > 0 ? buf_u + (size_t)s * L * m : nullptr;
-  const float* nu = m > 0 ? new_u + (size_t)s * C * m : nullptr;
-  for (int i = threadIdx.x; i < L * n; i += blockDim.x)
-    buf_y_out[(size_t)s * L * n + i] = rolled(by, ny, i / n, i % n, keep, C, n);
-  for (int i = threadIdx.x; i < L * m; i += blockDim.x)
-    buf_u_out[(size_t)s * L * m + i] = rolled(bu, nu, i / m, i % m, keep, C, m);
+  const int D = n + m;
+  tick_roll(buf_y, new_y, buf_u, new_u, buf_y_out, buf_u_out, s, L, n, m, C, threadIdx.x,
+            blockDim.x);
   for (int i = threadIdx.x; i < N * T * D; i += blockDim.x) {
     const int w = i / (T * D), r = i - w * T * D, t = r / D, d = r - t * D;
-    const int row = w * stride + t;
-    xs[i] = d < n ? (rolled(by, ny, row, d, keep, C, n) - mean[s * n + d]) / scale[s * n + d]
-                  : rolled(bu, nu, row, d - n, keep, C, m);
+    xs[i] = tick_x(buf_y, new_y, buf_u, new_u, mean, scale, s, w, t, d, L, n, m, C, stride);
   }
 }
 
@@ -52,7 +79,7 @@ __device__ inline void tick_ingest(const float* __restrict__ buf_y,
 // mean over windows of the first Kc outputs, blended into the previous
 // readout (EMA) or seeding it on the slot's first tick, then
 // delta = max|theta - theta0| / (max|theta| + 1e-3), inf for an inactive
-// slot. Warp 0 calls it, after a barrier that published out.
+// slot. Warp 0 of a block calls it, after a barrier that published out.
 __device__ inline void tick_readout(const float* out, const float* __restrict__ theta0,
                                     const float* __restrict__ seed,
                                     const float* __restrict__ active,

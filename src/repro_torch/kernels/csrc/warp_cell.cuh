@@ -1,10 +1,12 @@
-// Warp-per-window recurrences shared by the two redesigned fused kernels,
-// mr_step.cu (GRU / GRU-flow) and mr_step_node.cu (NODE, Euler substeps).
+// Warp-per-window recurrences shared by the fused kernels mr_step.cu (GRU /
+// GRU-flow), mr_step_ltc.cu (LTC, semi-implicit substeps), mr_step_node.cu
+// (NODE, Euler substeps) and the banked service tick mr_tick.cu (the GRU
+// step and head of mr_step over a slot's windows).
 //
 // What bounds them on an H100: a window's scan is a chain of T dependent
-// steps (T * n_substeps for NODE) whose work is a few thousand FMAs each, far
-// below a microsecond of the card's float32 rate and memory rate alike; the
-// time is the chain's latency. The design shortens each link:
+// steps (T * n_substeps for LTC and NODE) whose work is a few thousand FMAs
+// each, far below a microsecond of the card's float32 rate and memory rate
+// alike; the time is the chain's latency. The design shortens each link:
 //
 // - One warp owns one window for the whole scan. Lane l owns hidden units
 //   j = l + 32u (u < ceil(H/32)), keeps their h in registers, and publishes
@@ -20,23 +22,25 @@
 //   from shared memory, lanes on consecutive addresses (no bank conflict).
 // - What does not depend on h leaves the chain: before every chunk of
 //   kChunk steps the warp computes its own units' x_t.W + b (GRU: all three
-//   gates; NODE: the injection x_t.W_in + b_in) and the flow gate's
-//   phi(t) * alpha into per-lane slots of its shared area, from an x chunk
-//   that cp.async staged a chunk ahead. Each lane reads back only what it
-//   wrote, so the slots need no synchronisation.
+//   gates; LTC: the drive x_t.W_in + bias; NODE: the injection
+//   x_t.W_in + b_in) and the flow gate's phi(t) * alpha into per-lane slots
+//   of its shared area, from an x chunk that cp.async staged a chunk ahead
+//   (the tick builds its windows' x itself). Each lane reads back only what
+//   it wrote, so the slots need no synchronisation.
 // - The head runs in the same warp: RMS-norm by a shuffle reduction, the
 //   optional Qm.n step (head.cuh quantize_fixed), layer 1 with the Dh outputs
 //   on the lanes, layer 2 with each of the K outputs reduced by shuffles.
 //
-// Precision: float32 throughout with the accurate expf, tanhf and log1pf (no
-// fast-math, no approximate intrinsics); the partial sums only reorder the
-// products' sums (tests/test_torch_warp_cells.py emulates the order on the
-// CPU against the JAX package).
+// Precision: float32 throughout with the accurate expf, tanhf, log1pf and
+// the IEEE division (no fast-math, no approximate intrinsics); the partial
+// sums only reorder the products' sums (tests/test_torch_warp_cells.py
+// emulates the order on the CPU against the JAX package).
 //
 // Shared memory: the block's weights (staged once, cp.async by every thread),
-// then one area a warp (two broadcast rows, two x chunks, the precomputed
+// then one area a warp (two broadcast rows, the x chunks, the precomputed
 // slots). The layouts below are the carves; kernels/mr_step/tiling.py
-// mr_step_smem_bytes and node_smem_bytes count the same regions.
+// mr_step_smem_bytes, ltc_smem_bytes, node_smem_bytes and tick_smem_bytes
+// count the same regions.
 #pragma once
 
 #include "common.cuh"
@@ -138,6 +142,76 @@ struct NodeLayout {
     xb = w.take(kChunk * 32 * nu);
     per_warp = w.n;
     total = warps + warps_for(bb) * per_warp;
+  }
+};
+
+// mr_step_ltc: w_rec's columns [H, S], w_in [D, H], bias, a, inv_tau [H], the
+// head; a warp: rows h and the head's hidden layer, two chunks of x
+// [kChunk, D], the drive x.W_in + bias [kChunk, nu, 32].
+struct LtcLayout {
+  size_t wrec, win, bias, a, itau, warps, row_h, row_r, xbuf[2], drv, per_warp, total;
+  HeadLayout head;
+  __host__ __device__ LtcLayout(int D, int H, int Dh, int K, int bb) {
+    const int nu = units_for(H), R = H > Dh ? H : Dh, S = col_stride(H);
+    Carve c;
+    wrec = c.take((size_t)H * S);
+    win = c.take((size_t)D * H);
+    bias = c.take(H);
+    a = c.take(H);
+    itau = c.take(H);
+    head.carve(c, H, Dh, K);
+    warps = c.n;
+    Carve w;
+    row_h = w.take(R);
+    row_r = w.take(R);
+    xbuf[0] = w.take(kChunk * D);
+    xbuf[1] = w.take(kChunk * D);
+    drv = w.take(kChunk * 32 * nu);
+    per_warp = w.n;
+    total = warps + warps_for(bb) * per_warp;
+  }
+};
+
+// The banked tick spreads one slot's N windows over a thread-block cluster of
+// ceil(N / kWarps) blocks, at most kMaxCluster (the portable cluster size;
+// past it the cluster's warps take the windows in turn), with the windows
+// spread evenly over the blocks: tick_warps(N) warps a block.
+constexpr int kMaxCluster = 8;
+__host__ __device__ inline int tick_cluster(int N) {
+  const int c = (N + kWarps - 1) / kWarps;
+  return c < kMaxCluster ? c : kMaxCluster;
+}
+__host__ __device__ inline int tick_warps(int N) {
+  const int cs = tick_cluster(N), w = (N + cs - 1) / cs;
+  return w < kWarps ? w : kWarps;
+}
+
+// mr_tick, one block of a slot's cluster: wx [D, 3H], wh's 3H columns [3H, S],
+// b [3H], time_scale [H], the head, the slot's head outputs [N, K] (read in
+// the cluster's leader only); a warp: rows h and r*h (or the head's hidden
+// layer), its window's normalized x [Tc, D] (T rounded up to whole chunks) and
+// the gates' x.Wx + b [kChunk, 3, nu, 32].
+struct TickLayout {
+  size_t wx, wh, b, ts, out, warps, row_h, row_r, x, gx, per_warp, total;
+  HeadLayout head;
+  __host__ __device__ TickLayout(int D, int H, int Dh, int K, int T, int N) {
+    const int nu = units_for(H), R = H > Dh ? H : Dh, S = col_stride(H);
+    const int Tc = (T + kChunk - 1) / kChunk * kChunk;
+    Carve c;
+    wx = c.take((size_t)D * 3 * H);
+    wh = c.take((size_t)3 * H * S);
+    b = c.take(3 * H);
+    ts = c.take(H);
+    head.carve(c, H, Dh, K);
+    out = c.take((size_t)N * K);
+    warps = c.n;
+    Carve w;
+    row_h = w.take(R);
+    row_r = w.take(R);
+    x = w.take((size_t)Tc * D);
+    gx = w.take(kChunk * 3 * 32 * nu);
+    per_warp = w.n;
+    total = warps + tick_warps(N) * per_warp;
   }
 };
 
@@ -264,6 +338,87 @@ __device__ __forceinline__ void load_h0(const Units<U>& un, float (&h)[U],
                                         const float* __restrict__ h0_row) {
 #pragma unroll
   for (int u = 0; u < U; ++u) h[u] = un.own[u] ? h0_row[un.col[u]] : 0.0f;
+}
+
+// The GRU step's h-independent terms for a chunk of kChunk steps, each lane
+// for its own units: x.Wx over d for all the chunk's steps at once (kChunk
+// independent sums a gate), then b, into the warp's slots
+// gxs [kChunk, 3, nu, 32]; also(c, u) runs beside each step's write (mr_step:
+// the flow gate's phi(t) * alpha). xc is the chunk's x [kChunk, D] and wxs
+// wx [D, 3H]; steps past the chunk's end compute slots that are never read.
+template <int U, class Also>
+__device__ __forceinline__ void gru_terms_ahead(const Units<U>& un, const float* xc,
+                                                const float* wxs, int D, int H,
+                                                const float (&bias)[3][U], float* gxs,
+                                                const Also& also) {
+  const int lane = threadIdx.x & 31, H3 = 3 * H, nu = un.nu;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= nu) continue;
+    float a[kChunk][3];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) a[c][g] = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      float w[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) w[g] = wxs[d * H3 + g * H + un.col[u]];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const float xd = xc[c * D + d];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) a[c][g] = fmaf(xd, w[g], a[c][g]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) gxs[((c * 3 + g) * nu + u) * 32 + lane] = a[c][g] + bias[g][u];
+      also(c, u);
+    }
+  }
+}
+
+// The GRU(-flow) chain over the first nc steps of a chunk, for one window: h
+// the lane's units (published in row_h on entry, and on return), w_rz(q, g, u)
+// the reset and update gates' recurrent columns, w_c(q, 0, u) the candidate's,
+// gxs the chunk's terms ahead, pa(c, u) the flow gate's phi * alpha at step c.
+// The candidate gate is tanh(x.Wx_c + (r*h).Wh_c + b_c), as in the JAX
+// package, not torch.nn.GRU's r*(h.Wh_c).
+template <int N, bool FLOW, int U, class Wrz, class Wc, class Pa>
+__device__ __forceinline__ void gru_steps(const Units<U>& un, float (&h)[U], int H, int nc,
+                                          const Wrz& w_rz, const Wc& w_c, const float* gxs,
+                                          const Pa& pa, float* row_h, float* row_r) {
+  const int lane = threadIdx.x & 31, nu = un.nu;
+  for (int c = 0; c < nc; ++c) {
+    float a[2][U];
+    matvec<N, 2, U>(row_h, H, nu, w_rz, a);
+    float z[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u >= nu) continue;
+      const float r = sigmoid(gxs[((c * 3 + 0) * nu + u) * 32 + lane] + a[0][u]);
+      z[u] = sigmoid(gxs[((c * 3 + 1) * nu + u) * 32 + lane] + a[1][u]);
+      if (un.own[u]) row_r[un.col[u]] = r * h[u];
+    }
+    __syncwarp();
+    float ac[1][U];
+    matvec<N, 1, U>(row_r, H, nu, w_c, ac);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u >= nu) continue;
+      const float cand = tanhf(gxs[((c * 3 + 2) * nu + u) * 32 + lane] + ac[0][u]);
+      if (FLOW) {
+        const float p = pa(c, u);  // phi(0) = 0: the identity
+        h[u] = h[u] + p * (1.0f - z[u]) * (cand - h[u]);
+      } else {  // both products rounded, as the plain version: no FMA to pick
+        h[u] = __fadd_rn(__fmul_rn(1.0f - z[u], cand), __fmul_rn(z[u], h[u]));
+      }
+      if (un.own[u]) row_h[un.col[u]] = h[u];
+    }
+    __syncwarp();
+  }
 }
 
 // The dense head of one window, run by its warp after the scan: h[u] the

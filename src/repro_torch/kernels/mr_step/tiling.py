@@ -4,42 +4,46 @@ H100 counterpart of ``repro/kernels/mr_step/tiling.py`` (``vmem_bytes``,
 ``ltc_vmem_bytes``, ``node_vmem_bytes``, ``config_vmem_bytes``,
 ``auto_block_b``). On the TPU the tile was fitted to VMEM; on Hopper a block
 stages the cell's weights, the head weights and the tile's state in its own
-shared memory (``csrc/gru_step.cuh``, ``csrc/head.cuh`` and the three
-``csrc/mr_step*.cu``), at most 227 KB a block. Blocks also run in parallel on
-132 SMs, so the tile is kept small enough that the grid has at least
+shared memory, at most 227 KB a block. Blocks also run in parallel on 132
+SMs, so the tile is kept small enough that the grid has at least
 ``min(B, 132)`` blocks: one large tile would put the whole batch's scan on one
-SM. The LTC kernel gives each (window, hidden unit) pair its own thread, so
-its tile also keeps ``block_b * H`` within one block's 1024 threads.
+SM.
 
-``mr_step`` and ``mr_step_node`` are warp-per-window recurrences
-(``csrc/warp_cell.cuh``): a block of ``block_b`` windows runs one warp a
-window (at most ``CELL_WARPS`` warps; a larger tile takes its windows in
-turn), so their carve is the block's weights once plus one area a warp
-(``mr_step_smem_bytes``, ``node_smem_bytes``). Their tile follows the same
-rule as the other kernels': more windows a block share one staging of the
-weights, fewer spread the chains over more SMs, and on the card the two
-balance. At the quickstart (B=64) 1, 2 and 4 windows a block take the same
-time within a few percent; at bench_cycles 4 is slower than 1 and 2
-(``repro_torch.launch.kernel_phases``; the times are in ``PERF.md``).
+``mr_step``, ``mr_step_ltc`` and ``mr_step_node`` are warp-per-window
+recurrences (``csrc/warp_cell.cuh``): a block of ``block_b`` windows runs one
+warp a window (at most ``CELL_WARPS`` warps; a larger tile takes its windows
+in turn), so their carve is the block's weights once plus one area a warp
+(``mr_step_smem_bytes``, ``ltc_smem_bytes``, ``node_smem_bytes``). Their tile
+follows the same rule as the other kernels': more windows a block share one
+staging of the weights, fewer spread the chains over more SMs, and on the
+card the two balance. At the quickstart (B=64) 1, 2 and 4 windows a block
+take the same time within a few percent; at bench_cycles 4 is slower than 1
+and 2 (``repro_torch.launch.kernel_phases``; the times are in ``PERF.md``).
 
 Each ``*_smem_bytes`` function counts exactly what its kernel carves. The
 callers name the kernel by its family: the encoder row's ``family`` (the
 field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
-``"gru_scan"`` for the bare scan.
+``"gru_scan"`` for the bare scan (``csrc/gru_step.cuh``, one thread a
+(window, unit) pair).
 
 The int8 serving kernels (``csrc/gru_scan_int8.cu``, ``mr_step_int8.cu``,
-``mr_step_ltc_int8.cu``, ``mr_tick_int8.cu``) carve the same buffers with the
-weights as int8 (rounded up to whole floats), one float scale per output
-channel beside them, and the packed PWL tables (``core/quant.py``
-``PWL_FLOATS`` floats each); the functions below that serve both kinds take
-``int8=True`` for them.
+``mr_step_ltc_int8.cu``, ``mr_tick_int8.cu``) keep the block-per-tile design:
+they carve the same buffers with the weights as int8 (rounded up to whole
+floats), one float scale per output channel beside them, and the packed PWL
+tables (``core/quant.py`` ``PWL_FLOATS`` floats each); the functions below
+that serve both kinds take ``int8=True`` for them. ``mr_step_ltc_int8`` gives
+each (window, hidden unit) pair its own thread, so its tile also keeps
+``block_b * H`` within one block's 1024 threads.
 
-The banked service tick (``csrc/mr_tick.cu``) runs one block per bank of
-slots and takes the bank's slots in turn, so its carve
-(``tick_smem_bytes``) holds one slot and does not grow with the bank; the
-bank size (``auto_slots_per_bank``) only decides how many blocks share the
-slots. On the TPU the whole slot set was one bank, so nothing streamed; here
-the grid keeps ``min(S, 132)`` blocks, one slot each for S <= 132.
+The banked service tick (``csrc/mr_tick.cu``) spreads one slot's N windows
+over a thread-block cluster of ``tick_cluster(N)`` blocks of
+``tick_warps(N)`` warps, one warp a window, and a cluster takes its bank's
+slots in turn; its carve (``tick_smem_bytes``) is one block's and does not
+grow with the bank. The bank size (``auto_slots_per_bank``) only decides how
+many clusters share the slots. On the TPU the whole slot set was one bank,
+so nothing streamed; here the grid keeps ``min(S, 132)`` clusters, one slot
+each for S <= 132. The int8 tick runs one block per bank, the slot's windows
+as its tile.
 """
 
 from __future__ import annotations
@@ -52,20 +56,9 @@ MAX_THREADS = 1024  # threads a block can have
 FAMILIES = ("gru", "ltc", "node", "gru_scan")
 
 
-def head_floats(H: int, Dh: int, K: int, block_b: int) -> int:
-    """``csrc/head.cuh``: w1, b1, w2, b2 and the tile's hidden layer."""
-    return H * Dh + Dh + Dh * K + K + block_b * Dh
-
-
 def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
     """``gru_scan``: the gate weights, the rates and the tile's state."""
     return 4 * ((D + H) * 3 * H + 3 * H + H + 4 * block_b * H)
-
-
-def smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """``gru_step.cuh`` + ``head.cuh``: the GRU(-flow) scan's operands, then
-    the head; the base of ``mr_tick``'s carve, with its N windows as the tile."""
-    return gru_scan_smem_bytes(D, H, block_b) + 4 * head_floats(H, Dh, K, block_b)
 
 
 # csrc/warp_cell.cuh: every region of a carve starts 16-byte aligned (whole
@@ -107,9 +100,13 @@ def mr_step_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
 
 
 def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """``mr_step_ltc``: w_in, w_rec, bias, a, inv_tau, two h buffers, the head."""
-    floats = D * H + H * H + 3 * H + 2 * block_b * H
-    return 4 * (floats + head_floats(H, Dh, K, block_b))
+    """``mr_step_ltc`` (``warp_cell.cuh`` ``LtcLayout``): w_rec's columns,
+    w_in, bias, a, inv_tau and the head's weights once; a warp: two rows, two
+    x chunks, the drive x.W_in + bias for a chunk."""
+    nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
+    block = sum(map(_pad4, (H * S, D * H, H, H, H))) + _cell_head_floats(H, Dh, K)
+    warp = 2 * _pad4(R) + 2 * _pad4(C * D) + _pad4(C * 32 * nu)
+    return 4 * (block + cell_warps(block_b) * warp)
 
 
 def node_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
@@ -207,9 +204,9 @@ def fit_block_b(
     int8: bool = False,
 ) -> int:
     """Largest tile that divides ``batch``, fits the shared-memory budget and
-    leaves at least ``min(batch, N_SMS)`` blocks in the grid (and, for the
-    LTC kernels, at most ``MAX_THREADS`` (window, unit) pairs). ``int8``
-    fits the family's int8 serving kernel.
+    leaves at least ``min(batch, N_SMS)`` blocks in the grid (and, for
+    ``mr_step_ltc_int8``, at most ``MAX_THREADS`` (window, unit) pairs).
+    ``int8`` fits the family's int8 serving kernel.
 
     Raises when not even one window fits the budget: the weights alone
     overflow a block.
@@ -221,7 +218,7 @@ def fit_block_b(
 
     min_blocks = min(batch, N_SMS)
     for bb in block_b_candidates(batch):
-        threads_ok = family != "ltc" or bb * H <= MAX_THREADS
+        threads_ok = not (int8 and family == "ltc") or bb * H <= MAX_THREADS
         if batch // bb >= min_blocks and threads_ok and nbytes(bb) <= budget:
             return bb
     raise ValueError(
@@ -256,16 +253,40 @@ def legal_block_b(block_b: int | None, batch: int) -> int | None:
 
 
 # ---------------------------------------------------------------------------
-# the banked service tick (csrc/mr_tick.cu)
+# the banked service tick (csrc/mr_tick.cu, csrc/mr_tick_int8.cu)
 # ---------------------------------------------------------------------------
+MAX_CLUSTER = 8  # warp_cell.cuh kMaxCluster: the portable cluster size
+
+
+def tick_cluster(N: int) -> int:
+    """``warp_cell.cuh`` ``tick_cluster``: blocks of a slot's cluster,
+    ceil(N / CELL_WARPS) and at most ``MAX_CLUSTER``."""
+    return min(-(-N // CELL_WARPS), MAX_CLUSTER)
+
+
+def tick_warps(N: int) -> int:
+    """``warp_cell.cuh`` ``tick_warps``: warps a block of the cluster, the N
+    windows spread evenly, at most ``CELL_WARPS`` (past that they take the
+    windows in turn)."""
+    return min(-(-N // tick_cluster(N)), CELL_WARPS)
+
+
 def tick_smem_bytes(D: int, H: int, Dh: int, Ko: int, N: int, T: int, int8: bool = False) -> int:
-    """``mr_tick``: one slot's GRU scan and head (with its N windows as the
-    tile), the normalized window set [N, T, D], the flow gate's dts [T] and
-    the head output [N, Ko]. ``int8``: ``mr_tick_int8``, the quantized scan
-    and head, no dts."""
+    """``mr_tick`` (``warp_cell.cuh`` ``TickLayout``), one block of a slot's
+    cluster: wx, wh's 3H columns, b, time_scale, the head's weights and the
+    slot's head outputs [N, Ko] once; a warp: two rows, its window's
+    normalized x [T, D] (T rounded up to whole chunks), the gates' x.Wx + b
+    for a chunk. ``int8``: ``mr_tick_int8``, one block a slot: the quantized
+    scan and head with the N windows as the tile, the normalized window set
+    [N, T, D] and the head output [N, Ko]."""
     if int8:
         return int8_smem_bytes(D, H, Dh, Ko, N) + 4 * (N * T * D + N * Ko)
-    return smem_bytes(D, H, Dh, Ko, N) + 4 * (N * T * D + T + N * Ko)
+    nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
+    Tc = -(-T // C) * C
+    block = (sum(map(_pad4, (D * 3 * H, 3 * H * S, 3 * H, H))) + _cell_head_floats(H, Dh, Ko)
+             + _pad4(N * Ko))  # fmt: skip
+    warp = 2 * _pad4(R) + _pad4(Tc * D) + _pad4(C * 3 * 32 * nu)
+    return 4 * (block + tick_warps(N) * warp)
 
 
 def config_tick_smem_bytes(cfg, scfg, int8: bool = False) -> int:
@@ -284,9 +305,10 @@ def auto_slots_per_bank(
     cfg, scfg, n_slots: int, smem_budget_bytes: int | None = None, int8: bool = False
 ) -> int:
     """Largest divisor of ``n_slots`` that leaves at least ``min(n_slots,
-    N_SMS)`` blocks, when one slot's carve fits the budget; 0 when it does
-    not (``compile_plan`` then keeps ``tick_kernel="auto"`` on the composite
-    tick)."""
+    N_SMS)`` banks (a cluster each; for the int8 tick a block each), when one
+    slot fits: a block of its cluster (int8: the slot's block) within the
+    budget; 0 when it does not (``compile_plan`` then keeps
+    ``tick_kernel="auto"`` on the composite tick)."""
     budget = SMEM_BUDGET_BYTES if smem_budget_bytes is None else smem_budget_bytes
     if n_slots < 1 or config_tick_smem_bytes(cfg, scfg, int8=int8) > budget:
         return 0

@@ -2,22 +2,27 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_phases [--baseline CSRC_DIR]
 
-Builds ``csrc/mr_step.cu`` and ``csrc/mr_step_node.cu`` (``csrc/warp_cell.cuh``)
+Builds the four warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
+``mr_step_ltc.cu``, ``mr_step_node.cu`` and the banked tick ``mr_tick.cu``,
 as they are and in copies with one phase switched off -- the chain of steps,
-the h-independent terms computed ahead of it, the head -- each with ``nvcc``
-into a shared library of its own, and times every build's two kernels with
-``torch.profiler`` (the mean device time of 25 launches) at the quickstart
-shape (B=64, T=32, D=2, H=32, Dh=64, K=12; 6 NODE substeps) and at
-bench_cycles' (B=64, T=200, D=8, H=64, Dh=128). The time a variant saves is
-its phase's cost (a variant computes on values its switched-off phase left
-unset, so it checks nothing). The unmodified build is also held against the
-plain versions, timed at 1, 2 and 4 windows a block (the tiles
-``kernels/mr_step/tiling.py`` chooses between) and, with ``--baseline`` (the
-``csrc`` directory of another tree, such as the parent commit unpacked with
-``git archive``), timed in turns with the same kernels built from there:
-baseline, current, current, baseline. ``ptxas`` registers and spills of every
-build go to ``--out``. It needs a card and ``nvcc``, and prints the card's
-name and power limit first.
+the h-independent terms computed ahead of it, the head, and for the tick the
+ingest (the ring roll and each warp's window build) and the readout -- each
+with ``nvcc`` into a shared library of its own (the builds run in parallel),
+and times every build's kernels with ``torch.profiler`` (the mean device
+time of 25 launches). The fused kernels run at the quickstart shape (B=64,
+T=32, D=2, H=32, Dh=64, K=12; 6 LTC and NODE substeps) and at bench_cycles'
+(B=64, T=200, D=8, H=64, Dh=128); the tick at the serve shape (S=4 slots of
+N=17 windows, T=32, D=4, H=32, Dh=64, Ko=45, the standard GRU). The time a
+variant saves is its phase's cost (a variant computes on values its
+switched-off phase left unset, so it checks nothing). The unmodified build
+is also held against the plain versions, timed at 1, 2 and 4 windows a
+block (the tiles ``kernels/mr_step/tiling.py`` chooses between; for the tick
+1, 2 and 4 slots a bank) and, with ``--baseline`` (the ``csrc`` directory of
+another tree, such as the parent commit unpacked with ``git archive``),
+timed in turns with the same kernels built from there: baseline, current,
+current, baseline. ``ptxas`` registers and spills of every build go to
+``--out``. It needs a card and ``nvcc``, and prints the card's name and power
+limit first.
 """
 
 from __future__ import annotations
@@ -28,46 +33,70 @@ import re
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.node_mr import node_sub_dt
 from repro_torch.kernels import runtime as rt
 
-SOURCES = ("mr_step.cu", "mr_step_node.cu")
+SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "mr_tick.cu")
+KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node")  # the fused kernels, then the tick
 # (label, B, T, D, H, Dh, K)
 SHAPES = [("quickstart", 64, 32, 2, 32, 64, 12), ("bench_cycles", 64, 200, 8, 64, 128, 12)]
+# the tick's serve shape: S slots, buffer L, n + m inputs, chunk C, windows of T at stride
+TICK = dict(S=4, L=160, n=3, m=1, C=16, T=32, stride=8, H=32, Dh=64, Ko=45, Kc=45, ema=0.9)
 SUBSTEPS, DT = 6, 0.05
 LAUNCHES = 25
 TILES = (1, 2, 4)
-# a phase switched off: (source text, its replacement), each found exactly once
+# a phase switched off: (source, its text, the replacement), each found exactly once
 VARIANTS = {
     "no steps": [
-        ("for (int c = 0; c < nc; ++c) {\n        float a[2][U];",
-         "for (int c = 0; c < 0; ++c) {\n        float a[2][U];"),
-        ("for (int c = 0; c < nc; ++c) {\n        for (int s = 0;",
+        ("warp_cell.cuh", "for (int c = 0; c < nc; ++c) {\n    float a[2][U];",
+         "for (int c = 0; c < 0; ++c) {\n    float a[2][U];"),
+        ("mr_step_ltc.cu", "for (int c = 0; c < nc; ++c) {\n        float drive[U];",
+         "for (int c = 0; c < 0; ++c) {\n        float drive[U];"),
+        ("mr_step_node.cu", "for (int c = 0; c < nc; ++c) {\n        for (int s = 0;",
          "for (int c = 0; c < 0; ++c) {\n        for (int s = 0;"),
     ],
     "no terms ahead": [
-        ("if (u >= nu) continue;\n        float a[kC][3];",
-         "if (u >= nu || T > 0) continue;\n        float a[kC][3];"),
-        ("if (u >= nu) continue;\n        float a[kC];",
+        ("warp_cell.cuh", "if (u >= nu) continue;\n    float a[kChunk][3];",
+         "if (u >= nu || D > 0) continue;\n    float a[kChunk][3];"),
+        ("mr_step_ltc.cu", "if (u >= nu) continue;\n        float acc[kC];",
+         "if (u >= nu || T > 0) continue;\n        float acc[kC];"),
+        ("mr_step_node.cu", "if (u >= nu) continue;\n        float a[kC];",
          "if (u >= nu || T > 0) continue;\n        float a[kC];"),
     ],
-    "no head": [("    wc::warp_head<N, U>(", "    if (T < 0) wc::warp_head<N, U>(")] * 2,
+    "no head": [
+        (src, "    wc::warp_head<N, U>(", "    if (T < 0) wc::warp_head<N, U>(")
+        for src in ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "mr_tick.cu")
+    ],
+    "no ingest": [
+        ("mr_tick.cu", "if (rank == 0)\n      tick_roll(", "if (rank < 0)\n      tick_roll("),
+        ("mr_tick.cu", "for (int i = lane; i < T * D; i += 32) {",
+         "for (int i = lane; i < 0; i += 32) {"),
+    ],
+    "no readout": [
+        ("mr_tick.cu", "if (rank == 0 && threadIdx.x < 32)", "if (rank < 0 && threadIdx.x < 32)"),
+    ],
 }  # fmt: skip
+# the phases each kernel has
+PHASES = {k: ("no steps", "no terms ahead", "no head") for k in KERNELS}
+PHASES["mr_tick"] = ("no steps", "no terms ahead", "no head", "no ingest", "no readout")
+LAUNCHERS = ("mr_step_launch", "mr_step_ltc_launch", "mr_step_node_launch", "mr_tick_launch")
 
 
 def build(csrc: Path, work: Path, tag: str, patches=()) -> tuple[ctypes.CDLL, str]:
-    """The two sources of ``csrc`` (patched) as one library; (library, ptxas log)."""
+    """The sources of ``csrc`` (patched) as one library; (library, ptxas log)."""
     src = work / tag
     shutil.copytree(csrc, src)
-    for (old, new), name in zip(patches, SOURCES):
+    for name, old, new in patches:
         text = (src / name).read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"variant {tag!r}: the phase is not where {name} was")
+            raise RuntimeError(f"variant {tag!r}: the phase is not where {name} had it")
         (src / name).write_text(text.replace(old, new))
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = [subprocess.Popen([nvcc, *rt.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src / n), "-o",
@@ -80,49 +109,83 @@ def build(csrc: Path, work: Path, tag: str, patches=()) -> tuple[ctypes.CDLL, st
     subprocess.run([nvcc, *rt.NVCC_FLAGS, "-shared", *(str(src / f"{n}.o") for n in SOURCES),
                     "-o", str(so)], check=True, capture_output=True)  # fmt: skip
     lib = ctypes.CDLL(str(so))
-    for name in ("mr_step_launch", "mr_step_node_launch"):
+    for name in LAUNCHERS:
         getattr(lib, name).argtypes = rt.LAUNCHERS[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib, "\n".join(logs)
 
 
-def operands(B, T, D, H, Dh, K, node: bool, device, seed=0) -> list[torch.Tensor]:
-    """mr_step (or, ``node``, mr_step_node) operands at initialization scale."""
+def _maker(device, seed):
     rng = np.random.default_rng(seed)
-    mk = lambda *s, scale=1.0: torch.from_numpy(
-        (rng.standard_normal(s) * scale).astype(np.float32)).to(device)  # fmt: skip
+    return lambda *s, scale=1.0, shift=0.0: torch.from_numpy(
+        (rng.standard_normal(s) * scale + shift).astype(np.float32)).to(device)  # fmt: skip
+
+
+def operands(kernel, B, T, D, H, Dh, K, device, seed=0) -> list[torch.Tensor]:
+    """``kernel``'s operands at initialization scale, made with numpy from a seed."""
+    mk = _maker(device, seed)
     head = [mk(H, Dh, scale=H**-0.5), mk(Dh, scale=0.1), mk(Dh, K, scale=0.1 * Dh**-0.5),
             mk(K, scale=0.1)]  # fmt: skip
-    if node:  # w_f1, b_f1, w_f2, b_f2, w_in, b_in
+    if kernel == "mr_step_node":  # w_f1, b_f1, w_f2, b_f2, w_in, b_in
         cell = [mk(H, H, scale=H**-0.5), mk(H, scale=0.1), mk(H, H, scale=0.1 * H**-0.5),
                 mk(H, scale=0.1), mk(D, H, scale=D**-0.5), mk(H, scale=0.1)]  # fmt: skip
+    elif kernel == "mr_step_ltc":  # w_in, w_rec, bias, a, inv_tau
+        cell = [mk(D, H, scale=D**-0.5), mk(H, H, scale=H**-0.5), mk(H, scale=0.1),
+                mk(H, scale=0.5), mk(H, scale=0.05, shift=0.5)]  # fmt: skip
     else:  # wx, wh, b, time_scale, dts
         cell = [mk(D, 3 * H, scale=(D + H) ** -0.5), mk(H, 3 * H, scale=(D + H) ** -0.5),
                 mk(3 * H, scale=0.1), mk(H, scale=0.5), torch.ones(T, device=device)]  # fmt: skip
     return [mk(B, T, D), mk(B, H, scale=0.1), *cell, *head]
 
 
-def launcher(lib, ops, node: bool, block_b: int):
-    """A launch of ``lib``'s kernel on ``ops`` into a fresh output, as a closure."""
-    B, T, D = ops[0].shape
-    H, (Dh, K) = ops[1].shape[1], ops[-2].shape
-    out = torch.empty(B, K, device=ops[0].device)
-    ptrs = [t.data_ptr() for t in (*ops, out)]
+def tick_operands(device, seed=0) -> list[torch.Tensor]:
+    """The tick's operands at the serve shape: buffers, chunks, statistics,
+    the previous readout, the flags (slot S-1 inactive, every other slot
+    seeding), each slot's weights, h0, then u's buffer and chunk."""
+    mk = _maker(device, seed)
+    S, L, n, m, C, T, H, Dh, Ko, Kc = (TICK[k] for k in "S L n m C T H Dh Ko Kc".split())
+    D, N = n + m, (L - T) // TICK["stride"] + 1
+    flags = lambda xs: torch.tensor(xs, dtype=torch.float32, device=device)
+    return [mk(S, L, n), mk(S, C, n), mk(S, n, scale=0.1), mk(S, n, scale=0.25, shift=1.0).abs(),
+            mk(S, Kc, scale=0.3), flags([1.0, 0.0] * (S // 2)), flags([1.0] * (S - 1) + [0.0]),
+            mk(S, D, 3 * H, scale=(D + H) ** -0.5), mk(S, H, 3 * H, scale=(D + H) ** -0.5),
+            mk(S, 3 * H, scale=0.1), mk(S, H, scale=0.5), mk(S, H, Dh, scale=H**-0.5),
+            mk(S, Dh, scale=0.1), mk(S, Dh, Ko, scale=0.1 * Dh**-0.5), mk(S, Ko, scale=0.1),
+            torch.zeros(N, H, device=device), mk(S, L, m), mk(S, C, m)]  # fmt: skip
+
+
+def launcher(lib, kernel, ops, tile: int):
+    """A launch of ``lib``'s ``kernel`` on ``ops`` into fresh outputs, as a
+    closure; ``tile`` is the fused kernels' block_b or the tick's bank."""
+    if kernel == "mr_tick":
+        S, L, n, m, C, T, H, Dh, Ko, Kc = (TICK[k] for k in "S L n m C T H Dh Ko Kc".split())
+        outs = [torch.empty_like(ops[0]), torch.empty(S, Kc, device=ops[0].device),
+                torch.empty(S, device=ops[0].device), torch.empty_like(ops[16])]  # fmt: skip
+        ptrs = [t.data_ptr() for t in (*ops, *outs)]
+        args = (S, L, n, m, C, T, TICK["stride"], H, Dh, Ko, Kc, tile, 0, TICK["ema"],
+                1.0 - TICK["ema"])  # fmt: skip
+    else:
+        B, T, D = ops[0].shape
+        H, (Dh, K) = ops[1].shape[1], ops[-2].shape
+        outs = [torch.empty(B, K, device=ops[0].device)]
+        ptrs = [t.data_ptr() for t in (*ops, *outs)]
+        args = (B, T, D, H, Dh, K, tile)
+        if kernel == "mr_step":
+            args += (1, 0, -1)
+        else:
+            sub_dt = (ltc_sub_dt if kernel == "mr_step_ltc" else node_sub_dt)(DT, SUBSTEPS)
+            args += (SUBSTEPS, 0, -1, sub_dt)
+    fn = getattr(lib, f"{kernel}_launch")
 
     def launch():
-        stream = torch.cuda.current_stream().cuda_stream
-        if node:
-            err = lib.mr_step_node_launch(*ptrs, B, T, D, H, Dh, K, block_b, SUBSTEPS, 0, -1,
-                                          node_sub_dt(DT, SUBSTEPS), stream)  # fmt: skip
-        else:
-            err = lib.mr_step_launch(*ptrs, B, T, D, H, Dh, K, block_b, 1, 0, -1, stream)
-        rt.check_launch("mr_step_node" if node else "mr_step", err)
-        return out
+        err = fn(*ptrs, *args, torch.cuda.current_stream().cuda_stream)
+        rt.check_launch(kernel, err)
+        return outs
 
     return launch
 
 
-def device_ms(launch) -> float:
+def device_ms(launch, kernel: str) -> float:
     """Mean device time of LAUNCHES launches, from the profiler's kernel records."""
     launch()
     torch.cuda.synchronize()
@@ -131,9 +194,9 @@ def device_ms(launch) -> float:
             launch()
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "mr_step" in e.name]  # fmt: skip
+             if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in e.name]  # fmt: skip
     if not times:
-        raise RuntimeError("the profiler recorded no kernel")
+        raise RuntimeError(f"the profiler recorded no {kernel} kernel")
     return sum(times) / len(times)
 
 
@@ -142,12 +205,51 @@ def ptxas_summary(log: str) -> list[str]:
     lines, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(mr_step\w*?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
+            m = re.search(r"(mr_\w*?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
             width = "any" if m and m[2] == "0" else m and m[2]  # 0: the generic instantiation
             name = f"{m[1]}<H={width}{', flow' if m[3] == '1' else ''}>" if m else line
         elif name and ("spill" in line or "registers" in line):
             lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return lines
+
+
+def plain(kernel, ops):
+    """The plain version's output on ``ops`` (the tick: theta)."""
+    from repro_torch.kernels.mr_step import ref
+
+    if kernel == "mr_step":
+        return ref.mr_step_reference(*ops, flow=True)
+    if kernel == "mr_step_ltc":
+        return ref.mr_step_ltc_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
+    if kernel == "mr_step_node":
+        return ref.mr_step_node_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
+    return ref.mr_tick_reference(
+        *ops[:5], ops[5] > 0, ops[6] > 0, *ops[7:15], ops[16], ops[17], flow=False,
+        window=TICK["T"], stride=TICK["stride"], ema=TICK["ema"],
+    )[1]  # fmt: skip
+
+
+def report(libs, kernel, label, ops) -> None:
+    """Parity, the phases, the tiles and the baseline of one kernel at one shape."""
+    out = launcher(libs["current"], kernel, ops, 1)()
+    got = out[1] if kernel == "mr_tick" else out[0]
+    err = (got - plain(kernel, ops)).abs().max().item()
+    print(f"[parity] {kernel} at {label}: {err:.3e}", flush=True)
+    tags = ("current", *PHASES[kernel])
+    times = {tag: device_ms(launcher(libs[tag], kernel, ops, 1), kernel) for tag in tags}
+    whole = times["current"]
+    for tag, ms in times.items():
+        saved = "" if tag == "current" else f", {whole - ms:+.4f} ms saved"
+        print(f"[phase] {kernel} at {label}, {tag}: {ms:.4f} ms{saved}", flush=True)
+    tiles = {t: device_ms(launcher(libs["current"], kernel, ops, t), kernel) for t in TILES}
+    what = "slots a bank" if kernel == "mr_tick" else "block_b"
+    print(f"[tile] {kernel} at {label}: "
+          + ", ".join(f"{what}={t} {ms:.4f} ms" for t, ms in tiles.items()), flush=True)
+    if "baseline" in libs:
+        turns = ("baseline", "current", "current", "baseline")
+        ms = [(tag, device_ms(launcher(libs[tag], kernel, ops, 1), kernel)) for tag in turns]
+        print(f"[baseline] {kernel} at {label}: "
+              + ", ".join(f"{tag} {t:.4f} ms" for tag, t in ms), flush=True)
 
 
 def main() -> None:
@@ -158,8 +260,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: no CUDA device is visible")
-    from repro_torch.kernels.mr_step.ref import mr_step_node_reference, mr_step_reference
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()  # fmt: skip
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -169,11 +269,14 @@ def main() -> None:
     rt.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=rt.BUILD_DIR) as tmp:
         work = Path(tmp)
-        builds = {"current": build(rt.CSRC, work, "current")}
-        for tag, patches in VARIANTS.items():
-            builds[tag] = build(rt.CSRC, work, tag.replace(" ", "_"), patches)
+        jobs = {"current": (rt.CSRC, ())}
+        jobs.update({tag: (rt.CSRC, patches) for tag, patches in VARIANTS.items()})
         if args.baseline is not None:
-            builds["baseline"] = build(args.baseline, work, "baseline")
+            jobs["baseline"] = (args.baseline, ())
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futures = {tag: pool.submit(build, csrc, work, tag.replace(" ", "_"), patches)
+                       for tag, (csrc, patches) in jobs.items()}  # fmt: skip
+            builds = {tag: f.result() for tag, f in futures.items()}
         for tag, (_, log) in builds.items():
             (args.out / f"ptxas_{tag.replace(' ', '_')}.log").write_text(log)
             for line in ptxas_summary(log):
@@ -181,30 +284,10 @@ def main() -> None:
         libs = {tag: lib for tag, (lib, _) in builds.items()}
         for label, B, T, D, H, Dh, K in SHAPES:
             shape = f"{label} (B={B} T={T} D={D} H={H} Dh={Dh} K={K})"
-            for node in (False, True):
-                kernel = "mr_step_node" if node else "mr_step"
-                ops = operands(B, T, D, H, Dh, K, node, dev)
-                out = launcher(libs["current"], ops, node, 1)()
-                if node:
-                    want = mr_step_node_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
-                else:
-                    want = mr_step_reference(*ops, flow=True)
-                print(f"[parity] {kernel} at {shape}: {(out - want).abs().max().item():.3e}")
-                times = {tag: device_ms(launcher(lib, ops, node, 1))
-                         for tag, lib in libs.items() if tag != "baseline"}  # fmt: skip
-                whole = times["current"]
-                for tag, ms in times.items():
-                    saved = "" if tag == "current" else f", {whole - ms:+.4f} ms saved"
-                    print(f"[phase] {kernel} at {label}, {tag}: {ms:.4f} ms{saved}", flush=True)
-                tiles = {bb: device_ms(launcher(libs["current"], ops, node, bb)) for bb in TILES}
-                print(f"[tile] {kernel} at {label}: "
-                      + ", ".join(f"block_b={bb} {ms:.4f} ms" for bb, ms in tiles.items()))
-                if "baseline" in libs:
-                    turns = [("baseline", libs["baseline"]), ("current", libs["current"]),
-                             ("current", libs["current"]), ("baseline", libs["baseline"])]  # fmt: skip
-                    ms = [(tag, device_ms(launcher(lib, ops, node, 1))) for tag, lib in turns]
-                    print(f"[baseline] {kernel} at {label}: "
-                          + ", ".join(f"{tag} {t:.4f} ms" for tag, t in ms), flush=True)
+            for kernel in KERNELS:
+                report(libs, kernel, shape, operands(kernel, B, T, D, H, Dh, K, dev))
+        shape = "the serve shape (S={S} N=17 T={T} D=4 H={H} Dh={Dh} Ko={Ko})".format(**TICK)
+        report(libs, "mr_tick", shape, tick_operands(dev))
 
 
 if __name__ == "__main__":

@@ -239,8 +239,6 @@ def test_mr_step_with_act_bits_matches_jax_kernel(encoder, qat):
 # ---------------------------------------------------------------------------
 def test_tiling_follows_the_family():
     D, H, Dh, K = 2, 32, 64, 12
-    head = H * Dh + Dh + Dh * K + K + Dh
-    assert tiling.ltc_smem_bytes(D, H, Dh, K, 1) == 4 * (D * H + H * H + 3 * H + 2 * H + head)
     # the warp cells (csrc/warp_cell.cuh): the block's weights once (every region
     # whole float4s, as these widths already are), then a warp's two rows of
     # max(H, Dh), two x chunks of 16 steps and 16 steps of its lanes' slots; the
@@ -248,6 +246,9 @@ def test_tiling_follows_the_family():
     weights = H * Dh + Dh + Dh * K + K
     warp = 2 * Dh + 2 * 16 * D
     S = H + 4
+    assert tiling.ltc_smem_bytes(D, H, Dh, K, 1) == 4 * (
+        H * S + D * H + 3 * H + weights + warp + 16 * 32
+    )
     assert tiling.node_smem_bytes(D, H, Dh, K, 1) == 4 * (
         2 * H * S + D * H + 3 * H + weights + warp + 16 * 32
     )
@@ -263,13 +264,16 @@ def test_tiling_follows_the_family():
         smem = tiling.family_smem_bytes(family, D, H, Dh, K, 2)
         assert tiling.config_smem_bytes(cfg, family, 2) == smem
         assert tiling.auto_block_b(cfg, family, 64) == 1
-    # the bare scan stages no head (smem_bytes: the scan and head that mr_tick carves)
+    # the bare scan (csrc/gru_step.cuh) stages no head: the gate weights, the
+    # rates and the tile's four [bb, H] buffers
     scan = tiling.family_smem_bytes("gru_scan", D, H, Dh, K, 1)
-    assert tiling.smem_bytes(D, H, Dh, K, 1) - scan == 4 * head
+    assert scan == 4 * ((D + H) * 3 * H + 3 * H + H + 4 * H)
     assert tiling.fit_block_b("gru_scan", 1024, D, H) == 4
-    # at H = 64 the LTC tile stops where one thread a (window, unit) pair runs out
+    # at H = 64 the LTC tile is the warp cells' (at least 132 blocks); the int8
+    # twin's stops where one thread a (window, unit) pair runs out
     ltc = merinda.MRConfig(state_dim=2, hidden=64, dense_hidden=128, encoder="ltc")
-    assert tiling.auto_block_b(ltc, "ltc", 132 * 32) == 16
+    assert tiling.auto_block_b(ltc, "ltc", 132 * 32) == 32
+    assert tiling.auto_block_b(ltc, "ltc", 132 * 32, int8=True) == 16
     with pytest.raises(ValueError, match="unknown mr_step family"):
         tiling.family_smem_bytes("lstm", D, H, Dh, K, 1)
 

@@ -176,8 +176,8 @@ SUBSTEP = {
 )
 @pytest.mark.parametrize("family", ["ltc", "node"])
 def test_substep_kernels_match_plain(dev, family, B, T, D, H, Dh, block_b, n_substeps, act_bits):
-    """The last two shapes: NODE's generic instantiation (H=48) and four
-    windows a block; the LTC kernel runs them unchanged."""
+    """The last two shapes: the generic instantiation (H=48) and four windows
+    a block, of both warp-cell kernels."""
     kernel, reference, sub_dt = SUBSTEP[family]
     ops = _substep_operands(family, B, T, D, H, Dh, 12, dev)
     kw = dict(sub_dt=sub_dt(0.05, n_substeps), n_substeps=n_substeps, block_b=block_b)
@@ -197,23 +197,46 @@ def test_substep_kernels_match_plain(dev, family, B, T, D, H, Dh, block_b, n_sub
 
 @pytest.mark.parametrize("H", [8, 32, 48, 64])
 def test_warp_cells_do_not_depend_on_the_tile(dev, H):
-    """mr_step and mr_step_node give every window the same output whatever
-    its block holds: one warp a window, no data shared between windows (a
-    tile of 9 runs its windows on 8 warps, the ninth after the first)."""
+    """mr_step, mr_step_ltc and mr_step_node give every window the same output
+    whatever its block holds: one warp a window, no data shared between
+    windows (a tile of 9 runs its windows on 8 warps, the ninth after the
+    first). The LTC is held bit for bit."""
     B, T, D, Dh, K = 36, 21, 3, 40, 7
     ops = _operands(B, T, D, H, Dh, K, dev, seed=4)
     node = _substep_operands("node", B, T, D, H, Dh, K, dev, seed=5)
+    ltc = _substep_operands("ltc", B, T, D, H, Dh, K, dev, seed=6)
     kw = dict(sub_dt=node_sub_dt(0.05, 6), n_substeps=6)
-    outs = {bb: (mr_step_cuda(*ops, flow=True, block_b=bb), mr_step_node_cuda(*node, **kw, block_b=bb))
+    ltc_kw = dict(sub_dt=ltc_sub_dt(0.05, 6), n_substeps=6)
+    outs = {bb: (mr_step_cuda(*ops, flow=True, block_b=bb), mr_step_node_cuda(*node, **kw, block_b=bb),
+                 mr_step_ltc_cuda(*ltc, **ltc_kw, block_b=bb))
             for bb in (1, 2, 3, 4, 9)}  # fmt: skip
     torch.cuda.synchronize()
-    for bb, (out, out_node) in outs.items():
+    for bb, (out, out_node, out_ltc) in outs.items():
         torch.testing.assert_close(out, outs[1][0], atol=1e-6, rtol=0, msg=f"mr_step block_b={bb}")
         torch.testing.assert_close(out_node, outs[1][1], atol=1e-6, rtol=0,
                                    msg=f"mr_step_node block_b={bb}")  # fmt: skip
+        torch.testing.assert_close(out_ltc, outs[1][2], atol=0, rtol=0,
+                                   msg=f"mr_step_ltc block_b={bb}")  # fmt: skip
     torch.testing.assert_close(outs[1][0], mr_step_reference(*ops, flow=True), **TOL)
     want = mr_step_node_reference(*node, dt=0.05, n_substeps=6)
     torch.testing.assert_close(outs[1][1], want, **TOL)
+    want = mr_step_ltc_reference(*ltc, dt=0.05, n_substeps=6)
+    torch.testing.assert_close(outs[1][2], want, **TOL)
+
+
+def test_ltc_takes_a_tile_past_a_thousand_threads(dev):
+    """The warp cell gives a window a warp, not a thread a unit: 32 windows of
+    H = 64 (2,048 (window, unit) pairs) in one block of 8 warps, each equal bit
+    for bit to its one-window block and within 1e-4 of the plain version."""
+    B, T, D, H, Dh, K = 64, 12, 2, 64, 128, 12
+    ops = _substep_operands("ltc", B, T, D, H, Dh, K, dev, seed=7)
+    kw = dict(sub_dt=ltc_sub_dt(0.05, 6), n_substeps=6)
+    out = mr_step_ltc_cuda(*ops, **kw, block_b=32)
+    one = mr_step_ltc_cuda(*ops, **kw, block_b=1)
+    torch.cuda.synchronize()
+    assert 32 * H > 1024
+    torch.testing.assert_close(out, one, atol=0, rtol=0)
+    torch.testing.assert_close(out, mr_step_ltc_reference(*ops, dt=0.05, n_substeps=6), **TOL)
 
 
 def test_variable_dts_match_plain(dev):
@@ -320,19 +343,28 @@ def _tick_operands(cfg, scfg, S, device, seed=0):
     )  # fmt: skip
 
 
+# past 64 windows a slot (here N = 72) the cluster's 64 warps take the windows in turn
+WIDE = StreamConfig(buf_len=600, window=32, stride=8, chunk=8)
 TICK_SWEEP = [  # (encoder, m, slots_per_bank, geometry)
     ("gru", 0, 1, "test"), ("gru", 2, 2, "test"), ("gru", 0, 4, "test"),
     ("gru_flow", 0, 2, "test"), ("gru_flow", 2, 1, "test"),
     ("gru", 1, 1, "serve"), ("gru_flow", 1, 2, "serve"), ("gru_flow", 1, 4, "serve"),
+    ("gru", 1, 1, "wide"), ("gru_flow", 1, 2, "wide"), ("gru_flow", 1, 4, "wide"),
 ]  # fmt: skip
+
+
+def _tick_geometry(geometry, encoder, m):
+    if geometry == "test":
+        return merinda.MRConfig(input_dim=m, encoder=encoder, **TICK_BASE), TCFG
+    cfg = merinda.MRConfig(encoder=encoder, **SERVE)
+    return cfg, StreamConfig() if geometry == "serve" else WIDE
 
 
 @pytest.mark.parametrize("encoder,m,spb,geometry", TICK_SWEEP)
 def test_mr_tick_matches_plain(dev, encoder, m, spb, geometry):
-    if geometry == "serve":
-        cfg, scfg = merinda.MRConfig(encoder=encoder, **SERVE), StreamConfig()
-    else:
-        cfg, scfg = merinda.MRConfig(input_dim=m, encoder=encoder, **TICK_BASE), TCFG
+    """The serve geometry spreads a slot's 17 windows over a cluster of 3
+    blocks; the wide one's 72 over 8 blocks of 8 warps, in turn."""
+    cfg, scfg = _tick_geometry(geometry, encoder, m)
     ops = _tick_operands(cfg, scfg, 4, dev)
     before = mr_tick_cuda.launches
     out = mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=spb)
@@ -349,11 +381,47 @@ def test_mr_tick_matches_plain(dev, encoder, m, spb, geometry):
 
 def test_mr_tick_does_not_depend_on_the_bank(dev):
     cfg = merinda.MRConfig(encoder="gru_flow", **SERVE)
-    ops = _tick_operands(cfg, StreamConfig(), 4, dev, seed=3)
-    outs = [mr_tick(ops[0], cfg, StreamConfig(), *ops[1:], slots_per_bank=b) for b in (1, 2, 4)]
-    for other in outs[1:]:
-        for a, b in zip(outs[0], other):
-            torch.testing.assert_close(a, b, atol=0, rtol=0)
+    for scfg in (StreamConfig(), WIDE):
+        ops = _tick_operands(cfg, scfg, 4, dev, seed=3)
+        outs = [mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=b) for b in (1, 2, 4)]
+        for other in outs[1:]:
+            for a, b in zip(outs[0], other):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("geometry", ["test", "serve", "wide"])
+@pytest.mark.parametrize("encoder", ["gru", "gru_flow"])
+def test_mr_tick_windows_are_mr_step_windows(dev, encoder, geometry):
+    """A window's result does not depend on where it runs: a seeding slot's
+    theta is, bit for bit, mr_step's outputs on the same normalized windows
+    (one window a block) summed in window order and divided by N, whatever
+    cluster the tick spreads them over."""
+    from repro_torch.data.windows import roll_buffer, window_views
+    from repro_torch.kernels.mr_step.tick import tick_weights
+
+    cfg, scfg = _tick_geometry(geometry, encoder, 1)
+    params, buf_y, buf_u, new_y, new_u, mean, scale, theta_prev, seed, active = _tick_operands(
+        cfg, scfg, 4, dev, seed=8
+    )
+    theta = mr_tick(params, cfg, scfg, buf_y, buf_u, new_y, new_u, mean, scale, theta_prev, seed,
+                    active)[2].reshape(4, -1)  # fmt: skip
+    wx, wh, b, ts, w1, b1, w2, b2 = (t.contiguous() for t in tick_weights(params, cfg))
+    ys, us = roll_buffer(buf_y, new_y), roll_buffer(buf_u, new_u)
+    T, Kc = scfg.window, cfg.n_coef
+    for s in torch.nonzero(seed).flatten().tolist():
+        xs = window_views((ys[s] - mean[s]) / scale[s], T, scfg.stride)
+        if cfg.input_dim:
+            xs = torch.cat([xs, window_views(us[s], T, scfg.stride)], dim=-1)
+        N, H = xs.shape[0], wh.shape[1]
+        out = mr_step_cuda(xs.contiguous(), torch.zeros(N, H, device=dev), wx[s], wh[s], b[s],
+                           ts[s], torch.ones(T, device=dev), w1[s], b1[s], w2[s], b2[s],
+                           flow=encoder == "gru_flow", block_b=1)  # fmt: skip
+        acc = out[0, :Kc]
+        for w in range(1, N):
+            acc = acc + out[w, :Kc]
+        # a tensor divisor: PyTorch divides by a Python scalar as a product with its reciprocal
+        torch.testing.assert_close(theta[s], acc / torch.full_like(acc, N), atol=0, rtol=0,
+                                   msg=lambda m, s=s: f"slot {s}: {m}")  # fmt: skip
 
 
 LOCKSTEP = StreamConfig(

@@ -279,12 +279,10 @@ def test_int8_refusals():
 
 
 def test_int8_shared_memory_models():
-    """Every int8 carve is smaller than its fp32 twin's (for the GRU the
-    block-per-tile carve ``smem_bytes`` that ``mr_step_int8.cu`` was built
-    beside); the readout batch of 193 windows (a prime) takes one window a
-    block, as in fp32."""
+    """Every int8 carve is smaller than its fp32 twin's; the readout batch of
+    193 windows (a prime) takes one window a block, as in fp32."""
     D, H, Dh, K = 2, 32, 64, 12
-    fp32 = dict(gru=tiling.smem_bytes, ltc=tiling.ltc_smem_bytes,
+    fp32 = dict(gru=tiling.mr_step_smem_bytes, ltc=tiling.ltc_smem_bytes,
                 gru_scan=lambda D, H, Dh, K, bb: tiling.gru_scan_smem_bytes(D, H, bb))  # fmt: skip
     for family in ("gru", "ltc", "gru_scan"):
         for bb in (1, 4):

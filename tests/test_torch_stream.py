@@ -367,9 +367,11 @@ def test_stream_mode_refuses_what_is_not_ported():
 def test_tick_shared_memory_model():
     cfg = merinda.MRConfig(input_dim=1, encoder="gru", **dict(BASE, hidden=32, dense_hidden=64))
     scfg = StreamConfig()
-    # the serve shape: N=17 windows, D=4, H=32, Dh=64, Ko=45 (about 62 KB)
+    # the serve shape: N=17 windows, D=4, H=32, Dh=64, Ko=45; one block of the
+    # slot's cluster of 3, 6 warps a block (about 82 KB)
     assert tiling.config_tick_smem_bytes(cfg, scfg) == tiling.tick_smem_bytes(4, 32, 64, 45, 17, 32)
-    assert 50_000 < tiling.config_tick_smem_bytes(cfg, scfg) < 70_000
+    assert (tiling.tick_cluster(17), tiling.tick_warps(17)) == (3, 6)
+    assert 75_000 < tiling.config_tick_smem_bytes(cfg, scfg) < 90_000
     assert tiling.auto_slots_per_bank(cfg, scfg, 4) == 1
     assert tiling.auto_slots_per_bank(cfg, scfg, 264) == 2  # 132 blocks of two slots
     assert tiling.auto_slots_per_bank(cfg, scfg, 4, smem_budget_bytes=1024) == 0

@@ -1,18 +1,22 @@
 """The warp-cell kernels' arithmetic (``csrc/warp_cell.cuh``), emulated on the CPU.
 
-``csrc/mr_step.cu`` and ``csrc/mr_step_node.cu`` run one warp a window and
-sum in another order than the plain versions: each matvec output in four
-partial sums over k mod 4, combined as (p0 + p1) + (p2 + p3); x_t . Wx + b
-(GRU) and x_t . W_in + b_in (NODE) computed ahead of the chain, x.W summed
-over d first and the bias added after; the flow gate's phi(t) * alpha
-computed ahead as well; the head's RMS sum and layer 2 summed per lane
-(units j = lane + 32u) and reduced over the lanes by a shuffle butterfly.
-The emulation below follows that order in float32, an FMA being a float64
-product and sum rounded once to float32, and is held against the JAX
-package's fused stage run as its own tests run it on the CPU
-(``repro.kernels.mr_step.ops.mr_step(..., interpret=True)``,
-``tests/test_kernels_mr_step.py:49``), within 1e-4: the bound the card tests
-hold the kernels to. Inputs are made with numpy from a seed.
+``csrc/mr_step.cu``, ``mr_step_ltc.cu``, ``mr_step_node.cu`` and the banked
+tick ``mr_tick.cu`` run one warp a window and sum in another order than the
+plain versions: each matvec output in four partial sums over k mod 4,
+combined as (p0 + p1) + (p2 + p3); x_t . Wx + b (GRU), the drive
+x_t . W_in + bias (LTC) and x_t . W_in + b_in (NODE) computed ahead of the
+chain, x.W summed over d first and the bias added after; the flow gate's
+phi(t) * alpha computed ahead as well; the LTC update's numerator and
+denominator each one FMA, then the division; the head's RMS sum and layer 2
+summed per lane (units j = lane + 32u) and reduced over the lanes by a
+shuffle butterfly; the tick's readout summing the windows' outputs in
+window order. The emulation below follows that order in float32, an FMA
+being a float64 product and sum rounded once to float32, and is held against
+the JAX package's fused stage and tick run as its own tests run them on the
+CPU (``repro.kernels.mr_step.ops.mr_step(..., interpret=True)``,
+``tests/test_kernels_mr_step.py:49``; ``repro.kernels.mr_step.tick.mr_tick(...,
+interpret=True)``, ``tests/test_tick.py:79``), within 1e-4: the bound the
+card tests hold the fused kernels to. Inputs are made with numpy from a seed.
 
 The carve functions of ``kernels/mr_step/tiling.py`` are held against the
 regions the header's layouts take, read from the header itself.
@@ -33,12 +37,17 @@ import torch
 from repro.core.merinda import MRConfig as JMRConfig
 from repro.core.merinda import init_mr as jinit_mr
 from repro.kernels.mr_step.ops import mr_step as jmr_step
+from repro.kernels.mr_step.tick import mr_tick as jmr_tick
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.merinda import RMS_EPS, MRConfig
 from repro_torch.core.neural_flow import INV_LIPSCHITZ_ALPHA, softplus
 from repro_torch.core.node_mr import node_sub_dt
+from repro_torch.core.stream import StreamConfig
+from repro_torch.data.windows import window_views
 from repro_torch.kernels.mr_step import tiling
 from repro_torch.kernels.mr_step.ops import head_weights, split_out
+from repro_torch.kernels.mr_step.tick import tick_weights
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 HEADER = Path(tiling.__file__).resolve().parents[1] / "csrc" / "warp_cell.cuh"
@@ -112,6 +121,20 @@ def _gru_cell_emulation(xs, wx, wh, b, time_scale, dts, w1, b1, w2, b2, flow):
     return _head(h, w1, b1, w2, b2)
 
 
+def _ltc_cell_emulation(xs, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, sub_dt, n_sub):
+    B, T, _ = xs.shape
+    h = torch.zeros(B, w_rec.shape[0])
+    sdt, one = torch.tensor(sub_dt), torch.tensor(1.0)
+    for t in range(T):
+        drive = _xw(xs[:, t], w_in) + bias  # ahead of the chain
+        for _ in range(n_sub):
+            f = torch.sigmoid(drive + _matvec4(h, w_rec))
+            num = _fma(sdt * f, a, h)  # h + (sub_dt * f) * a, one FMA
+            den = _fma(sdt, inv_tau + f, one)  # 1 + sub_dt * (inv_tau + f), one FMA
+            h = num / den
+    return _head(h, w1, b1, w2, b2)
+
+
 def _node_cell_emulation(xs, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, sub_dt, n_sub):
     B, T, _ = xs.shape
     h = torch.zeros(B, w_f1.shape[0])
@@ -136,6 +159,8 @@ def _setup(B, T, n, m, H, Dh, encoder, seed, **kw):
     if hasattr(enc, "time_scale"):
         enc = enc._replace(time_scale=(0.5 * rng.standard_normal(H)).astype(np.float32),
                            b=(0.1 * rng.standard_normal(3 * H)).astype(np.float32))  # fmt: skip
+    elif hasattr(enc, "w_rec"):  # LTC
+        enc = enc._replace(bias=(0.1 * rng.standard_normal(H)).astype(np.float32))
     else:
         enc = enc._replace(b_in=(0.1 * rng.standard_normal(H)).astype(np.float32))
     jparams = jparams._replace(encoder=enc)
@@ -177,9 +202,95 @@ def test_node_cell_order_matches_jax_kernel(label, B, T, n, m, H, Dh, n_sub):
     _check(jcfg, cfg, jparams, out, xs)
 
 
-def _header_carve(layout: str, D, H, Dh, K, bb) -> int:
+@pytest.mark.parametrize("n_sub", [1, 2, 6])
+@pytest.mark.parametrize("label,B,T,n,m,H,Dh", SHAPES, ids=[s[0] for s in SHAPES])
+def test_ltc_cell_order_matches_jax_kernel(label, B, T, n, m, H, Dh, n_sub):
+    jcfg, cfg, jparams, params, xs = _setup(B, T, n, m, H, Dh, "ltc", seed=9, ltc_substeps=n_sub)
+    with torch.no_grad():
+        out = _ltc_cell_emulation(
+            torch.from_numpy(xs), *params.encoder, *head_weights(params, cfg),
+            sub_dt=ltc_sub_dt(cfg.dt, n_sub), n_sub=n_sub,
+        )  # fmt: skip
+    _check(jcfg, cfg, jparams, out, xs)
+
+
+# the JAX tick tests' geometry and width (tests/test_tick.py TCFG, BASE), and
+# serve_mr's (StreamConfig defaults: N=17 windows of T=32; H=32, m=1)
+TICK_TEST = dict(buf_len=16, window=8, stride=4, chunk=4, steps_per_tick=0, min_steps=10**9,
+                 max_steps=10**9)  # fmt: skip
+TICK_CASES = [  # (encoder, m, geometry, hidden, dense_hidden)
+    ("gru", 0, TICK_TEST, 8, 16), ("gru", 2, TICK_TEST, 8, 16), ("gru_flow", 0, TICK_TEST, 8, 16),
+    ("gru_flow", 2, TICK_TEST, 8, 16), ("gru_flow", 1, {}, 32, 64),
+]  # fmt: skip
+
+
+def _tick_emulation(params, cfg, scfg, buf_y, buf_u, new_y, new_u, mean, scale, theta_prev, seed,
+                    active, flow):  # fmt: skip
+    """mr_tick.cu: the rolled buffers, each window's GRU scan and head in its
+    own warp, then the leader's readout (tick.cuh tick_readout): the windows'
+    first Kc outputs summed in window order and divided by N, the EMA's two
+    products rounded apart, the delta."""
+    S, C = buf_y.shape[0], new_y.shape[1]
+    roll = lambda buf, new: torch.cat([buf[:, C:], new], dim=1)
+    buf_y, buf_u = roll(buf_y, new_y), roll(buf_u, new_u)
+    wx, wh, b, ts, w1, b1, w2, b2 = tick_weights(params, cfg)
+    Kc, T = cfg.n_coef, scfg.window
+    one_minus_ema = torch.tensor(1.0 - scfg.ema)
+    thetas, deltas = [], []
+    for s in range(S):
+        xs = window_views((buf_y[s] - mean[s]) / scale[s], T, scfg.stride)
+        if cfg.input_dim:
+            xs = torch.cat([xs, window_views(buf_u[s], T, scfg.stride)], dim=-1)
+        out = _gru_cell_emulation(xs, wx[s], wh[s], b[s], ts[s], torch.ones(T), w1[s], b1[s],
+                                  w2[s], b2[s], flow=flow)  # fmt: skip
+        acc = torch.zeros(Kc)
+        for w in range(out.shape[0]):
+            acc = acc + out[w, :Kc]
+        raw = acc / out.shape[0]
+        prev = theta_prev[s].reshape(-1)
+        th = raw if seed[s] else scfg.ema * prev + one_minus_ema * raw
+        delta = (th - prev).abs().max() / (th.abs().max() + 1e-3)
+        thetas.append(th)
+        deltas.append(delta if active[s] else torch.tensor(float("inf")))
+    theta = torch.stack(thetas).reshape(S, cfg.n_terms, cfg.state_dim)
+    return buf_y, buf_u, theta, torch.stack(deltas)
+
+
+@pytest.mark.parametrize("encoder,m,geometry,H,Dh", TICK_CASES,
+                         ids=[f"{c[0]}-m{c[1]}-H{c[3]}" for c in TICK_CASES])  # fmt: skip
+def test_tick_order_matches_jax_kernel(encoder, m, geometry, H, Dh):
+    common = dict(state_dim=3, input_dim=m, order=2, hidden=H, dense_hidden=Dh, dt=0.01,
+                  encoder=encoder)  # fmt: skip
+    jcfg, cfg = JMRConfig(**common), MRConfig(**common)
+    scfg = StreamConfig(**geometry)
+    S, n, L, C = 4, 3, scfg.buf_len, scfg.chunk
+    rng = np.random.default_rng(11 + m)
+    jparams = jax.vmap(lambda k: jinit_mr(k, jcfg))(jax.random.split(jax.random.key(5), S))
+    jparams = jax.tree.map(np.asarray, jparams)
+    if encoder == "gru_flow":  # a non-zero flow-gate rate, so phi matters
+        enc = jparams.encoder._replace(
+            time_scale=(0.5 * rng.standard_normal((S, H))).astype(np.float32))
+        jparams = jparams._replace(encoder=enc)
+    mk = lambda *shape, scale=1.0: (rng.standard_normal(shape) * scale).astype(np.float32)
+    ops = [mk(S, L, n), mk(S, L, m), mk(S, C, n), mk(S, C, m), mk(S, n, scale=0.1),
+           rng.uniform(0.5, 1.5, (S, n)).astype(np.float32), mk(S, cfg.n_terms, n, scale=0.3),
+           np.array([True, False] * (S // 2)), np.array([True] * (S - 1) + [False])]  # fmt: skip
+    want = jmr_tick(jax.tree.map(jnp.asarray, jparams), jcfg, scfg, *map(jnp.asarray, ops),
+                    interpret=True)  # fmt: skip
+    with torch.no_grad():
+        got = _tick_emulation(params_from_numpy(jparams), cfg, scfg,
+                              *map(torch.from_numpy, ops), flow=encoder == "gru_flow")  # fmt: skip
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # rolled buffers
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), **TOL)  # theta
+    assert np.isinf(got[3][-1].item()) and np.isinf(np.asarray(want[3])[-1])
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), **TOL)  # delta
+
+
+def _header_carve(layout: str, D, H, Dh, K, bb, T=0, N=0) -> int:
     """Bytes that ``warp_cell.cuh``'s ``layout`` carves, evaluating each of
-    its ``take(...)`` regions (and the head's) as the header writes them."""
+    its ``take(...)`` regions (and the head's) as the header writes them, for
+    ``bb`` windows a block (the tick: ``tiling.tick_warps(N)`` warps)."""
     text = HEADER.read_text()
     chunk = int(re.search(r"constexpr int kChunk = (\d+);", text).group(1))
     warps_max = int(re.search(r"constexpr int kWarps = (\d+);", text).group(1))
@@ -189,7 +300,7 @@ def _header_carve(layout: str, D, H, Dh, K, bb) -> int:
         return re.findall(r"(\w+(?:\[\d\])?) = (\w)\.take\((.*?)\);", body), body
 
     env = dict(D=D, H=H, Dh=Dh, K=K, kChunk=chunk, nu=-(-H // 32), R=max(H, Dh),
-               S=tiling.col_stride(H))  # fmt: skip
+               S=tiling.col_stride(H), T=T, N=N, Tc=-(-T // chunk) * chunk)  # fmt: skip
     pad4 = lambda n: (n + 3) // 4 * 4
 
     def size(expr):
@@ -200,7 +311,8 @@ def _header_carve(layout: str, D, H, Dh, K, bb) -> int:
     assert "head.carve(c, H, Dh, K);" in body
     block = sum(size(e) for _, c, e in takes if c == "c") + sum(size(e) for _, _, e in head)
     warp = sum(size(e) for _, c, e in takes if c == "w")
-    return 4 * (block + min(bb, warps_max) * warp)
+    warps = tiling.tick_warps(N) if layout == "TickLayout" else min(bb, warps_max)
+    return 4 * (block + warps * warp)
 
 
 @pytest.mark.parametrize("bb", [1, 2, 4, 9])
@@ -210,6 +322,10 @@ def _header_carve(layout: str, D, H, Dh, K, bb) -> int:
 def test_cell_carves_match_the_header(D, H, Dh, K, bb):
     assert tiling.mr_step_smem_bytes(D, H, Dh, K, bb) == _header_carve("GruLayout", D, H, Dh, K, bb)
     assert tiling.node_smem_bytes(D, H, Dh, K, bb) == _header_carve("NodeLayout", D, H, Dh, K, bb)
+    assert tiling.ltc_smem_bytes(D, H, Dh, K, bb) == _header_carve("LtcLayout", D, H, Dh, K, bb)
+    assert tiling.family_smem_bytes("ltc", D, H, Dh, K, bb) == tiling.ltc_smem_bytes(
+        D, H, Dh, K, bb
+    )
     assert tiling.family_smem_bytes("gru", D, H, Dh, K, bb) == tiling.mr_step_smem_bytes(
         D, H, Dh, K, bb
     )
@@ -217,3 +333,21 @@ def test_cell_carves_match_the_header(D, H, Dh, K, bb):
     S = tiling.col_stride(H)  # whole float4s, 4 mod 8: conflict-free float4 reads
     assert S % 4 == 0 and S % 8 == 4 and S >= H
     assert math.gcd(tiling.mr_step_smem_bytes(D, H, Dh, K, bb), 16) == 16  # whole float4s
+
+
+@pytest.mark.parametrize("N", [1, 3, 8, 9, 17, 64, 65, 72])
+@pytest.mark.parametrize("D,H,Dh,Ko,T", [(4, 32, 64, 45, 32), (3, 8, 16, 27, 8), (5, 48, 40, 7, 20),
+                                         (8, 64, 128, 45, 33)])  # fmt: skip
+def test_tick_carve_matches_the_header(D, H, Dh, Ko, T, N):
+    """tick_smem_bytes is one block of a slot's cluster: ceil(N / 8) blocks, at
+    most the portable 8, the windows spread evenly over them (past 64 the
+    warps take the windows in turn)."""
+    assert tiling.tick_smem_bytes(D, H, Dh, Ko, N, T) == _header_carve(
+        "TickLayout", D, H, Dh, Ko, 0, T=T, N=N
+    )
+    text = HEADER.read_text()
+    assert int(re.search(r"constexpr int kMaxCluster = (\d+);", text).group(1)) == tiling.MAX_CLUSTER
+    cs, wpb = tiling.tick_cluster(N), tiling.tick_warps(N)
+    assert cs == min(-(-N // 8), 8) and wpb <= 8
+    assert cs * wpb >= min(N, 64) and (cs - 1) * wpb < N  # every block holds a window
+    assert math.gcd(tiling.tick_smem_bytes(D, H, Dh, Ko, N, T), 16) == 16
