@@ -39,8 +39,8 @@ prints no result):
    take the same first step as the fused run (loss within 1e-4);
 6. the banked service tick: ``mr_tick`` against its plain version at the
    serve shape (S=4, m=1, H=32) and at the JAX tick tests' shape (L=16, T=8,
-   stride 4, C=4, H=8; m = 0 and 2), GRU and GRU flow, and at N=72 windows a
-   slot (a cluster of 8 blocks whose warps take the windows in turn), banks
+   stride 4, C=4, H=8; m = 0 and 2) and at N=72 windows a slot (a cluster of
+   8 blocks whose warps take the windows in turn), GRU and GRU flow, banks
    of 1, 2 and 4 slots, one slot inactive and every other one seeding its
    EMA: rolled buffers bit for bit, theta and delta within 1e-5, delta = inf
    for the inactive slot;
@@ -63,7 +63,8 @@ prints no result):
    serve shape, beside the least time the card could take for the same work;
 10. where the time goes: ``torch.profiler`` over 25 launches each of
     ``mr_step`` and ``mr_step_ltc`` (quickstart and bench_cycles),
-    ``mr_step_node`` (quickstart) and ``mr_tick`` (serve shape) gives each
+    ``mr_step_node`` and ``gru_scan`` (quickstart; the scan with and without
+    the flow gate), ``mr_tick`` and ``mr_tick_int8`` (serve shape) gives each
     kernel's own device time, printed beside phase 9's event time (which, at
     a few tens of microseconds, may be the host's enqueue rate: a gap above
     20% is named so) and its chain floor; over one step of the GRU-flow, LTC,
@@ -76,9 +77,10 @@ The int8/PWL serving slice adds, each checked the same way:
 
 - in phase 2, ``gru_scan_int8``, ``mr_step_int8`` and ``mr_step_ltc_int8`` at
   every shape above on the int8 quantization of the same operands, and in
-  phase 6 ``mr_tick_int8`` at the serve and JAX test shapes, banks 1, 2 and
-  4: max abs error <= 1e-5 against the plain version (the tick's buffers bit
-  for bit), and each output at least 1e-4 from its fp32 twin's;
+  phase 6 ``mr_tick_int8`` at the serve and JAX test shapes and at N=72,
+  banks 1, 2 and 4: max abs error <= 1e-5 against the plain version (the
+  tick's buffers bit for bit), and each output at least 1e-4 from its fp32
+  twin's;
 - 4b. the standard GRU trained at ``precision="int8_pwl"`` (300 steps,
   ``mr_step``) and read out once through ``mr_step_int8``; phase 4's LTC read
   out once through an ``int8_pwl`` plan (``mr_step_ltc_int8``); the same
@@ -252,8 +254,11 @@ EVENT_GAP = 0.2  # event against device time: above it, the event time is the ho
 # from the code in cycles (FP32 op 4; a row exchange, store + __syncwarp + the
 # first LDS.128, ~40; expf-based sigmoid ~68 and tanhf ~70: MUFU ex2/rcp with
 # their range reduction and Newton steps; the IEEE float32 division ~40: MUFU
-# rcp, its Newton steps and the rounding fix-up), times the steps, at the SM clock
-LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH, LAT_DIV = 4, 40, 68, 70, 40
+# rcp, its Newton steps and the rounding fix-up), times the steps, at the SM clock;
+# a PWL evaluation (pwl.cuh) ~110: the subtract, the IEEE division, the truncating
+# conversion (~6), the clamp and the address (~12), the slope and intercept loaded
+# from shared memory side by side (~30), the multiply and add, the end-value selects
+LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH, LAT_DIV, LAT_PWL = 4, 40, 68, 70, 40, 110
 
 
 def log(msg: str) -> None:
@@ -454,12 +459,15 @@ def qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed, device, dtype=torch.float32):
 
 
 def chain_cycles(family: str, H: int) -> int:
-    """Cycles of one dependent step of a warp-cell kernel (GRU step, LTC or
-    NODE substep): each matvec is a row exchange, H/4 FMAs deep (four partial
+    """Cycles of one dependent step of a warp-cell kernel (GRU step, the int8/PWL
+    GRU step ``gru_q``, LTC or NODE substep): each matvec is a row exchange, H/4 FMAs deep (four partial
     sums) and two adds to combine them; then what follows it on the chain."""
     matvec = LAT_EXCHANGE + (H // 4 + 2) * LAT_OP
     if family == "gru":  # + x.Wx + b, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
         return 2 * matvec + LAT_OP + LAT_SIGMOID + LAT_OP + LAT_OP + LAT_TANH + 4 * LAT_OP
+    if family == "gru_q":  # the int8/PWL step: + x.Wx, + b, PWL sigmoid, r*h; + x.Wx_c,
+        # + b_c, PWL tanh, the update's (1 - z) * c and its add (z * h beside them)
+        return 2 * matvec + 2 * LAT_OP + LAT_PWL + LAT_OP + 2 * LAT_OP + LAT_PWL + 2 * LAT_OP
     if family == "ltc":  # + drive, sigmoid; sub_dt * f and the FMA of num (den's
         # inv_tau + f and FMA beside them); num / den
         return matvec + LAT_OP + LAT_SIGMOID + 2 * LAT_OP + LAT_DIV
@@ -1001,7 +1009,8 @@ def main() -> None:
         (f"JAX test shape {enc} m={m}", enc, dict(TICK_TEST_WIDTH, input_dim=m), test_scfg)
         for enc in ("gru", "gru_flow")
         for m in (0, 2)
-    ] + [("N=72 windows gru_flow m=1", "gru_flow", SERVE_WIDTH, stream.StreamConfig(**TICK_WIDE))]
+    ] + [(f"N=72 windows {enc} m=1", enc, SERVE_WIDTH, stream.StreamConfig(**TICK_WIDE))
+         for enc in ("gru", "gru_flow")]  # fmt: skip
     with Phase("tick parity"):
         for i, (label, enc, width, scfg) in enumerate(tick_cases):
             cfg = merinda.MRConfig(encoder=enc, **width)
@@ -1548,6 +1557,11 @@ def main() -> None:
                     lambda: gru_scan_reference(*ops[:7], flow=True),
                     work("gru", B, T, D, H, Dh, K, head=False),
                 )
+                calls["gru_scan (flow=False)"] = (
+                    lambda: gru_scan_cuda(*ops[:7], flow=False, block_b=bb_gru),
+                    lambda: gru_scan_reference(*ops[:7], flow=False),
+                    work("gru", B, T, D, H, Dh, K, head=False),
+                )
                 calls["gru_scan_int8"] = (
                     int8_kernel("gru", ops, head=False),
                     lambda: plain_int8("gru", ops, head=False),
@@ -1682,20 +1696,32 @@ def main() -> None:
     device_timed = {}  # (kernel, shape label) -> the kernel's mean device ms
     with Phase("profile"):
         profiled = [(k, KERNEL_SHAPES[i]) for i in (0, 3) for k in ("mr_step", "mr_step_ltc")]
-        profiled += [("mr_step_node", KERNEL_SHAPES[0]), ("mr_tick", None)]
-        for kernel, shape in profiled:
-            # phase 9's operands (seed 0; 20 for LTC, 21 for NODE; the tick's kernel_ops)
+        profiled += [("mr_step_node", KERNEL_SHAPES[0]), ("gru_scan", KERNEL_SHAPES[0]),
+                     ("gru_scan (flow=False)", KERNEL_SHAPES[0]), ("mr_tick", None),
+                     ("mr_tick_int8", None)]  # fmt: skip
+        for key, shape in profiled:
+            kernel = key.split()[0]
+            # phase 9's operands (seed 0; 20 for LTC, 21 for NODE; the ticks' kernel_ops
+            # and q_ops)
             if kernel == "mr_tick":
                 label, T, H = quick, serve_scfg.window, 32
                 launch = lambda: mr_tick_cuda(*kernel_ops, flow=False, window=T,
                                               stride=serve_scfg.stride, ema=serve_scfg.ema)  # fmt: skip
+            elif kernel == "mr_tick_int8":
+                label, T, H = quick, serve_scfg.window, 32
+                launch = lambda: mr_tick_int8_cuda(*q_ops, window=T, stride=serve_scfg.stride,
+                                                   ema=serve_scfg.ema)  # fmt: skip
             else:
                 label, B, T, D, H, Dh, K = shape
-            if kernel == "mr_step":
                 ops = operands(B, T, D, H, Dh, K, seed=0, device=dev)
+            if kernel == "mr_step":
                 bb = tiling.fit_block_b("gru", B, D, H, Dh, K)
                 launch = lambda: mr_step_cuda(*ops, flow=True, block_b=bb)
-            elif kernel != "mr_tick":
+            elif kernel == "gru_scan":
+                bb = tiling.fit_block_b("gru_scan", B, D, H)
+                flow = key == "gru_scan"
+                launch = lambda: gru_scan_cuda(*ops[:7], flow=flow, block_b=bb)
+            elif not kernel.startswith("mr_tick"):
                 family = kernel.removeprefix("mr_step_")
                 f_ops = substep_operands(family, B, T, D, H, Dh, K,
                                          seed=20 if family == "ltc" else 21, device=dev)  # fmt: skip
@@ -1711,18 +1737,20 @@ def main() -> None:
                 torch.cuda.synchronize()
             events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                              and f"{kernel}_kernel<" in e.name), key=lambda e: e.time_range.start)  # fmt: skip
-            check(len(events) >= DEVICE_TIMED, f"{kernel}: {len(events)} device activities profiled")
+            check(len(events) >= DEVICE_TIMED, f"{key}: {len(events)} device activities profiled")
             times = [e.time_range.elapsed_us() / 1e3 for e in events[-DEVICE_TIMED:]]
             d_ms = sum(times) / len(times)
-            e_ms = timed[kernel, label][0]
-            device_timed[kernel, label] = d_ms
-            family = {"mr_step_node": "node", "mr_step_ltc": "ltc"}.get(kernel, "gru")
+            e_ms = timed[key, label][0]
+            device_timed[key, label] = d_ms
+            family = {"mr_step_node": "node", "mr_step_ltc": "ltc", "mr_tick_int8": "gru_q"}.get(
+                kernel, "gru"
+            )
             floor = chain_floor_ms(family, T, H, clock_mhz * 1e6)
             gap = abs(e_ms - d_ms) / d_ms
             host = ": the event time is the host's" if gap > EVENT_GAP else ""
-            where = "the serve shape" if kernel == "mr_tick" else label
+            where = "the serve shape" if kernel.startswith("mr_tick") else label
             log(
-                f"[profile {kernel}] at {where}: device {d_ms:.4f} ms a launch (mean of "
+                f"[profile {key}] at {where}: device {d_ms:.4f} ms a launch (mean of "
                 f"{DEVICE_TIMED}), phase 9's event time {e_ms:.4f} ms ({gap * 100:.1f}% apart"
                 f"{host}); "
                 f"chain floor {floor:.4f} ms ({chain_cycles(family, H)} cycles a step at "
@@ -1891,6 +1919,10 @@ def main() -> None:
         }
         if (kernel, quick) in device_timed:  # the profiler's own time of the kernel
             row["device_ms"] = device_timed[kernel, quick]
+        if (f"{kernel} (flow=False)", quick) in device_timed:  # gru_scan's standard cell
+            k2, p2, b2, by2 = timed[f"{kernel} (flow=False)", quick]
+            row["flow_false"] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2,
+                                     device_ms=device_timed[f"{kernel} (flow=False)", quick])  # fmt: skip
         if (kernel, cycles) in timed:
             k2, p2, b2, by2 = timed[kernel, cycles]
             row[cycles.replace(" ", "_")] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2)

@@ -204,8 +204,7 @@ def _resolve_tick_kernel(
     ``"banked"`` on a row the kernel does not implement (ltc, node; for the
     int8 tick every row but the standard GRU) raises; ``"auto"`` takes banked
     when the row is supported and one slot fits (``tiling.tick_smem_bytes``:
-    a block of the slot's cluster; the int8 tick's one block a slot), else
-    composite. The bank size is ``tiling.auto_slots_per_bank``
+    a block of the slot's cluster, for both ticks), else composite. The bank size is ``tiling.auto_slots_per_bank``
     (1 when an explicit request does not fit: the launch then raises, as the
     JAX package runs an explicit request at bank 1)."""
     from repro_torch.kernels.mr_step.tick import tick_supported

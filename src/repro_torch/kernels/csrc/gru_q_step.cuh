@@ -1,10 +1,9 @@
-// Quantized standard-GRU step shared by the gru_scan_int8, mr_step_int8 and
-// mr_tick_int8 kernels: int8 gate weights with one float scale per output
+// Quantized standard-GRU step shared by the block-per-tile gru_scan_int8 and
+// mr_step_int8 kernels (mr_tick_int8 runs warp_cell.cuh's Int8Cell): int8 gate weights with one float scale per output
 // channel, PWL sigmoid and tanh (pwl.cuh), float32 sums.
 //
 // Counterpart of repro/kernels/gru_scan/kernel.py:174 (_gru_q_step_math),
-// which the three TPU kernels share in the same way, and the int8 twin of
-// gru_step.cuh. One thread block owns a tile of `bb` windows and runs the
+// which the TPU kernels share in the same way. One thread block owns a tile of `bb` windows and runs the
 // whole time loop for them, one thread per (window, hidden unit). The gate
 // weights stay int8 in shared memory, a quarter of the fp32 carve, beside
 // their scales; each is dequantized on use as float(q) * scale[column], the
@@ -12,8 +11,8 @@
 // thread reads the same three columns every step, so its scales sit in
 // registers.
 //
-// What bounds it on an H100: as gru_step.cuh, the chain of T dependent steps
-// (two block barriers each); the dequantizing multiply adds one operation to
+// What bounds it on an H100: the chain of T dependent steps (two block
+// barriers each); the dequantizing multiply adds one operation to
 // each multiply-add of the chain and no device-memory traffic.
 //
 // Rounding: the plain version forms gx = x.Wx and gh = h.Wh separately and

@@ -1,29 +1,69 @@
 // GRU(-flow) sequence scan: xs [B, T, D] -> hs [B, T, H].
 //
 // Replaces repro/kernels/gru_scan/kernel.py:107 gru_scan_pallas (body
-// _gru_scan_kernel, :66-103). One block per tile of `bb` windows runs the
-// whole time loop with the gate weights and h in shared memory
-// (gru_step.cuh) and writes each step's h.
+// _gru_scan_kernel, :66-103; step :42-63 _gru_step_math). A warp-per-window
+// recurrence, mr_step's body without the head (warp_cell.cuh gru_windows,
+// HS): a block of `bb` windows stages the gate weights once (GruLayout with
+// Dh = K = 0), then each warp runs its window's T steps with no block
+// barrier. Per step the chain is h.Wh_{r,z} (four partial sums an output,
+// from registers at H <= 32), the two sigmoids, (r*h).Wh_c, the candidate's
+// tanh and the (flow) update; x.Wx + b and the flow gate's phi(t) * alpha at
+// the step's dt were computed before the chunk of steps, from an x and dts
+// chunk that cp.async staged a chunk ahead. h0 is the caller's (it may be
+// non-zero).
 //
-// What bounds it on an H100: like mr_step, the chain of T dependent steps;
-// the hs write (B*T*H floats, 256 KB at the quickstart shapes) is the only
-// sizeable traffic and goes out one coalesced row of H per window and step.
-#include "gru_step.cuh"
+// What bounds it on an H100: the chain of T dependent steps, as in mr_step;
+// at the quickstart (B=64, T=32, D=2, H=32) the call is ~14 MFLOP and
+// ~0.3 MB, under a microsecond of the card's float32 and memory rates. The
+// hs write (B*T*H floats, 256 KB there) is the only sizeable traffic: each
+// step the lanes store their own units of h, one coalesced 128-byte row a
+// unit, and the store does not hold up the chain.
+#include "warp_cell.cuh"
 
 namespace repro {
 
+template <int N, bool FLOW>
+// minBlocksPerSM = 1, as mr_step: the cell's registers decide the schedule
+__global__ void __launch_bounds__(wc::kWarps * 32, 1)
+    gru_scan_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
+                    const float* __restrict__ wx, const float* __restrict__ wh,
+                    const float* __restrict__ b, const float* __restrict__ time_scale,
+                    const float* __restrict__ dts, float* __restrict__ hs, int T, int D, int H_rt,
+                    int bb) {
+  wc::gru_windows<N, FLOW, true>(xs, h0, wx, wh, b, time_scale, dts, nullptr, nullptr, nullptr,
+                                 nullptr, hs, T, D, H_rt, 0, 0, bb, 0, -1);
+}
+
+// static: internal linkage, so each library keeps its own `allowed` record
+template <int N, bool FLOW>
+static cudaError_t launch_gru_scan(const float* xs, const float* h0, const float* wx,
+                                   const float* wh, const float* b, const float* time_scale,
+                                   const float* dts, float* hs, int B, int T, int D, int H, int bb,
+                                   cudaStream_t stream) {
+  static size_t allowed[wc::kMaxDevices] = {};
+  const size_t smem = wc::GruLayout(D, H, 0, 0, bb).total * sizeof(float);
+  auto kernel = &gru_scan_kernel<N, FLOW>;
+  cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / bb, 32 * wc::warps_for(bb), smem, stream>>>(xs, h0, wx, wh, b, time_scale, dts, hs,
+                                                           T, D, H, bb);
+  return cudaGetLastError();
+}
+
 template <bool FLOW>
-__global__ void gru_scan_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
-                                const float* __restrict__ wx, const float* __restrict__ wh,
-                                const float* __restrict__ b, const float* __restrict__ time_scale,
-                                const float* __restrict__ dts, float* __restrict__ hs, int T,
-                                int D, int H, int bb) {
-  extern __shared__ float smem[];
-  const int b0 = blockIdx.x * bb;
-  GruShared s;
-  gru_setup(s, smem, wx, wh, b, time_scale, h0 + (size_t)b0 * H, D, H, bb);
-  gru_scan_tile<FLOW, true>(s, xs + (size_t)b0 * T * D, dts, hs + (size_t)b0 * T * H, T, D, H,
-                            bb);
+static cudaError_t launch_gru_scan_width(const float* xs, const float* h0, const float* wx,
+                                         const float* wh, const float* b,
+                                         const float* time_scale, const float* dts, float* hs,
+                                         int B, int T, int D, int H, int bb, cudaStream_t stream) {
+#define REPRO_GRU_SCAN(N) \
+  launch_gru_scan<N, FLOW>(xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, bb, stream)
+  switch (H) {
+    case 8: return REPRO_GRU_SCAN(8);
+    case 32: return REPRO_GRU_SCAN(32);
+    case 64: return REPRO_GRU_SCAN(64);
+    default: return REPRO_GRU_SCAN(0);
+  }
+#undef REPRO_GRU_SCAN
 }
 
 }  // namespace repro
@@ -32,12 +72,8 @@ extern "C" int gru_scan_launch(const float* xs, const float* h0, const float* wx
                                const float* wh, const float* b, const float* time_scale,
                                const float* dts, float* hs, int B, int T, int D, int H, int bb,
                                int flow, void* stream) {
-  if (bb < 1 || B % bb != 0 || T < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = repro::gru_shared_floats(D, H, bb) * sizeof(float);
-  auto kernel = flow ? &repro::gru_scan_kernel<true> : &repro::gru_scan_kernel<false>;
-  cudaError_t err = repro::allow_shared(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B / bb, repro::tile_threads(bb, H), smem, (cudaStream_t)stream>>>(
-      xs, h0, wx, wh, b, time_scale, dts, hs, T, D, H, bb);
-  return (int)cudaGetLastError();
+  if (bb < 1 || B % bb != 0 || T < 1 || H < 1 || H > 32 * repro::wc::kMaxUnits)
+    return (int)cudaErrorInvalidValue;
+  auto launch = flow ? &repro::launch_gru_scan_width<true> : &repro::launch_gru_scan_width<false>;
+  return (int)launch(xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, bb, (cudaStream_t)stream);
 }

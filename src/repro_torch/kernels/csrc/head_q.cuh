@@ -1,5 +1,5 @@
-// Int8 dense head shared by the int8 serving kernels (mr_step_int8,
-// mr_step_ltc_int8, mr_tick_int8): RMS-norm -> ReLU MLP with int8 w1 [H, Dh]
+// Int8 dense head of the block-per-tile int8 serving kernels (mr_step_int8,
+// mr_step_ltc_int8; mr_tick_int8 runs warp_cell.cuh's Int8Head): RMS-norm -> ReLU MLP with int8 w1 [H, Dh]
 // and w2 [Dh, K], one float scale per output channel, float biases. No
 // activation step: the int8 TPU kernels call _head_math with act_bits=None.
 //

@@ -179,9 +179,9 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
         }
       }
     }
-    wc::warp_head<N, U>(un, h, H, Dh, K, smem + L.head.w1, smem + L.head.b1, smem + L.head.w2,
-                        smem + L.head.b2, row_h, row_z, out + (size_t)window * K, act_int,
-                        act_frac);
+    const wc::F32Head hd{smem + L.head.w1, smem + L.head.b1, smem + L.head.w2, smem + L.head.b2,
+                         Dh, K};
+    wc::warp_head<N, U>(un, h, H, hd, row_h, row_z, out + (size_t)window * K, act_int, act_frac);
   }
 }
 

@@ -109,12 +109,15 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
 
     // the lane's constants: biases, the flow gate's phi * alpha at dt = 1,
     // and at H <= 32 its recurrent columns
-    float bias[3][U], pa_u[U];
+    wc::F32Cell<U> cell;
+    cell.wx = smem + lay.wx;
+    cell.H = H;
+    float pa_u[U];
     float4 wr[REG ? 3 : 1][U][REG ? N / 4 : 1];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int g = 0; g < 3; ++g) bias[g][u] = smem[lay.b + g * H + un.col[u]];
+      for (int g = 0; g < 3; ++g) cell.bias[g][u] = smem[lay.b + g * H + un.col[u]];
       pa_u[u] = tanhf(softplus(smem[lay.ts + un.col[u]])) * kInvLipschitzAlpha;
       if constexpr (REG) {
 #pragma unroll
@@ -135,6 +138,8 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
       else return wh4[(2 * H + un.col[u]) * (S / 4) + q];
     };
     auto pa = [&](int, int u) { return pa_u[u]; };
+    const wc::F32Head hd{smem + lay.head.w1, smem + lay.head.b1, smem + lay.head.w2,
+                         smem + lay.head.b2, Dh, Ko};
 
     for (int w = rank * n_warps + warp; w < Nw; w += cs * n_warps) {
       float h[U];
@@ -150,12 +155,11 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
       __syncwarp();  // the window's x and h are published
       for (int t0 = 0; t0 < T; t0 += kC) {
         // x of steps past T lies in the chunk's padding: their slots are never read
-        wc::gru_terms_ahead<U>(un, xw + t0 * D, smem + lay.wx, D, H, bias, gxs, [](int, int) {});
-        wc::gru_steps<N, FLOW, U>(un, h, H, min(kC, T - t0), w_rz, w_c, gxs, pa, row_h, row_r);
+        wc::gru_terms_ahead<U>(un, cell, xw + t0 * D, D, gxs, [](int, int) {});
+        wc::gru_steps<N, FLOW, U>(un, cell, h, H, min(kC, T - t0), w_rz, w_c, gxs, pa, row_h,
+                                  row_r, [](int, int, float) {});
       }
-      wc::warp_head<N, U>(un, h, H, Dh, Ko, smem + lay.head.w1, smem + lay.head.b1,
-                          smem + lay.head.w2, smem + lay.head.b2, row_h, row_r,
-                          out_tile + (size_t)w * Ko, 0, -1);
+      wc::warp_head<N, U>(un, h, H, hd, row_h, row_r, out_tile + (size_t)w * Ko, 0, -1);
     }
     cluster.sync();  // every window's outputs are in the leader's tile
 
@@ -164,32 +168,6 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
       tick_readout(smem + lay.out, theta0, seed, active, theta_out, delta_out, s, Nw, Ko, Kc, ema,
                    one_minus_ema);
   }
-}
-
-// The cluster shape a launcher last found to fit on a device.
-struct ClusterFit {
-  int dev = -1;
-  unsigned blocks = 0, threads = 0;
-  size_t smem = 0;
-};
-
-// cudaErrorInvalidConfiguration unless at least one cluster of cfg's shape
-// can be resident on the current device; asked once a shape.
-template <typename Kernel>
-static cudaError_t cluster_fits_once(Kernel kernel, const cudaLaunchConfig_t& cfg,
-                                     unsigned blocks, ClusterFit& fit) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (fit.dev == dev && fit.blocks == blocks && fit.threads == cfg.blockDim.x &&
-      fit.smem == cfg.dynamicSmemBytes)
-    return cudaSuccess;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  fit = {dev, blocks, cfg.blockDim.x, cfg.dynamicSmemBytes};
-  return cudaSuccess;
 }
 
 // static: internal linkage, so each library keeps its own records
@@ -212,26 +190,11 @@ static cudaError_t launch_tick(const float* buf_y, const float* new_y, const flo
   auto kernel = &mr_tick_kernel<N, FLOW>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute cluster_dim;
-  cluster_dim.id = cudaLaunchAttributeClusterDimension;
-  cluster_dim.val.clusterDim.x = cs;
-  cluster_dim.val.clusterDim.y = 1;
-  cluster_dim.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * (unsigned)(S / bank));
-  cfg.blockDim = dim3(32 * wc::tick_warps(Nw));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &cluster_dim;
-  cfg.numAttrs = 1;
-  err = cluster_fits_once(kernel, cfg, cs, fit);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, kernel, buf_y, new_y, mean, scale, theta0, seed, active, wx, wh,
-                           b, time_scale, w1, b1, w2, b2, h0, buf_u, new_u, buf_y_out, theta_out,
-                           delta_out, buf_u_out, L, n, m, C, T, stride, Nw, H, Dh, Ko, Kc, bank,
-                           ema, one_minus_ema);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_clusters(kernel, cs, (unsigned)(S / bank), 32 * wc::tick_warps(Nw), smem, stream,
+                         fit, buf_y, new_y, mean, scale, theta0, seed, active, wx, wh, b,
+                         time_scale, w1, b1, w2, b2, h0, buf_u, new_u, buf_y_out, theta_out,
+                         delta_out, buf_u_out, L, n, m, C, T, stride, Nw, H, Dh, Ko, Kc, bank, ema,
+                         one_minus_ema);
 }
 
 template <bool FLOW>

@@ -1,7 +1,8 @@
-// The ingest and the readout of a banked service tick, shared by mr_tick.cu
-// (a warp-cell kernel whose warps build their own windows: tick_roll, tick_x)
-// and mr_tick_int8.cu (one block a bank, the window set built by the block:
-// tick_ingest).
+// The ingest, the readout and the cluster launch of a banked service tick,
+// shared by mr_tick.cu and mr_tick_int8.cu: warp-cell kernels that spread a
+// slot's windows over a thread-block cluster, whose leader rolls the buffers
+// (tick_roll) and reads the slot out (tick_readout), and whose warps build
+// their own windows (tick_x).
 //
 // Counterpart of the code around the cell in repro/kernels/mr_step/tick.py
 // _mr_tick_kernel (:86-142) and _mr_tick_q_kernel (:251-310).
@@ -55,26 +56,6 @@ __device__ __forceinline__ float tick_x(const float* __restrict__ buf_y,
   return rolled(buf_u + (size_t)s * L * m, new_u + (size_t)s * C * m, row, d - n, keep, C, m);
 }
 
-// Slot s's ingest by the whole block: writes its rolled buffers out and
-// builds its normalized window set xs [N, T, n + m] in shared memory. The
-// caller publishes xs with a barrier.
-__device__ inline void tick_ingest(const float* __restrict__ buf_y,
-                                   const float* __restrict__ new_y,
-                                   const float* __restrict__ buf_u,
-                                   const float* __restrict__ new_u,
-                                   const float* __restrict__ mean,
-                                   const float* __restrict__ scale, float* __restrict__ buf_y_out,
-                                   float* __restrict__ buf_u_out, float* xs, int s, int L, int n,
-                                   int m, int C, int T, int stride, int N) {
-  const int D = n + m;
-  tick_roll(buf_y, new_y, buf_u, new_u, buf_y_out, buf_u_out, s, L, n, m, C, threadIdx.x,
-            blockDim.x);
-  for (int i = threadIdx.x; i < N * T * D; i += blockDim.x) {
-    const int w = i / (T * D), r = i - w * T * D, t = r / D, d = r - t * D;
-    xs[i] = tick_x(buf_y, new_y, buf_u, new_u, mean, scale, s, w, t, d, L, n, m, C, stride);
-  }
-}
-
 // Slot s's readout from the head output out [N, Ko] in shared memory: the
 // mean over windows of the first Kc outputs, blended into the previous
 // readout (EMA) or seeding it on the slot's first tick, then
@@ -113,6 +94,58 @@ inline bool tick_geometry_bad(int S, int L, int n, int m, int C, int T, int stri
                               const float* buf_u_out) {
   return bank < 1 || S % bank != 0 || T < 1 || T > L || C < 1 || C > L || stride < 1 || Kc > Ko ||
          n < 1 || m < 0 || (m > 0 && (!buf_u || !new_u || !buf_u_out));
+}
+
+// The cluster shape a launcher last found to fit on a device.
+struct ClusterFit {
+  int dev = -1;
+  unsigned blocks = 0, threads = 0;
+  size_t smem = 0;
+};
+
+// cudaErrorInvalidConfiguration unless at least one cluster of cfg's shape
+// can be resident on the current device; asked once a shape.
+template <typename Kernel>
+static cudaError_t cluster_fits_once(Kernel kernel, const cudaLaunchConfig_t& cfg,
+                                     unsigned blocks, ClusterFit& fit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (fit.dev == dev && fit.blocks == blocks && fit.threads == cfg.blockDim.x &&
+      fit.smem == cfg.dynamicSmemBytes)
+    return cudaSuccess;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  fit = {dev, blocks, cfg.blockDim.x, cfg.dynamicSmemBytes};
+  return cudaSuccess;
+}
+
+// Launches `kernel` with cudaLaunchKernelEx on `clusters` clusters of `cs`
+// blocks of `threads` threads and `smem` bytes of dynamic shared memory each,
+// once cluster_fits_once has found the shape to fit.
+template <typename Kernel, typename... Args>
+static cudaError_t launch_clusters(Kernel kernel, unsigned cs, unsigned clusters, unsigned threads,
+                                   size_t smem, cudaStream_t stream, ClusterFit& fit,
+                                   Args... args) {
+  cudaLaunchAttribute cluster_dim;
+  cluster_dim.id = cudaLaunchAttributeClusterDimension;
+  cluster_dim.val.clusterDim.x = cs;
+  cluster_dim.val.clusterDim.y = 1;
+  cluster_dim.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs * clusters);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster_dim;
+  cfg.numAttrs = 1;
+  cudaError_t err = cluster_fits_once(kernel, cfg, cs, fit);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace repro

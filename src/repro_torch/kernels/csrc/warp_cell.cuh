@@ -1,7 +1,9 @@
 // Warp-per-window recurrences shared by the fused kernels mr_step.cu (GRU /
 // GRU-flow), mr_step_ltc.cu (LTC, semi-implicit substeps), mr_step_node.cu
-// (NODE, Euler substeps) and the banked service tick mr_tick.cu (the GRU
-// step and head of mr_step over a slot's windows).
+// (NODE, Euler substeps), the bare scan gru_scan.cu (mr_step's step without
+// the head, writing each step's h) and the banked service ticks mr_tick.cu
+// (mr_step's step and head over a slot's windows) and mr_tick_int8.cu (the
+// same with the int8/PWL standard GRU cell and int8 head).
 //
 // What bounds them on an H100: a window's scan is a chain of T dependent
 // steps (T * n_substeps for LTC and NODE) whose work is a few thousand FMAs
@@ -25,11 +27,22 @@
 //   gates; LTC: the drive x_t.W_in + bias; NODE: the injection
 //   x_t.W_in + b_in) and the flow gate's phi(t) * alpha into per-lane slots
 //   of its shared area, from an x chunk that cp.async staged a chunk ahead
-//   (the tick builds its windows' x itself). Each lane reads back only what
-//   it wrote, so the slots need no synchronisation.
+//   (the ticks build their windows' x themselves). Each lane reads back only
+//   what it wrote, so the slots need no synchronisation.
 // - The head runs in the same warp: RMS-norm by a shuffle reduction, the
 //   optional Qm.n step (head.cuh quantize_fixed), layer 1 with the Dh outputs
 //   on the lanes, layer 2 with each of the K outputs reduced by shuffles.
+//
+// The GRU's gate arithmetic is a policy of one set of loops (gru_terms_ahead,
+// gru_steps, warp_head), not a second copy of them: F32Cell and F32Head
+// (float weights, x.Wx + b ahead of the chain, the accurate sigmoid and
+// tanh) and Int8Cell and Int8Head, the int8/PWL serving cell of
+// repro/kernels/gru_scan/kernel.py:174 (_gru_q_step_math): each int8 weight
+// dequantized as __fmul_rn(float(q), scale[column]), the value the plain
+// version's dequantized weight holds; the slots ahead hold x.Wx alone and the
+// bias is added on the chain after the matvec, (x.Wx + h.Wh) + b with both
+// adds rounded; PWL sigmoid and tanh (pwl.cuh) on tables in shared memory;
+// each head layer's bias added after its sum and no activation step.
 //
 // Precision: float32 throughout with the accurate expf, tanhf, log1pf and
 // the IEEE division (no fast-math, no approximate intrinsics); the partial
@@ -39,16 +52,24 @@
 // Shared memory: the block's weights (staged once, cp.async by every thread),
 // then one area a warp (two broadcast rows, the x chunks, the precomputed
 // slots). The layouts below are the carves; kernels/mr_step/tiling.py
-// mr_step_smem_bytes, ltc_smem_bytes, node_smem_bytes and tick_smem_bytes
-// count the same regions.
+// mr_step_smem_bytes, gru_scan_smem_bytes, ltc_smem_bytes, node_smem_bytes
+// and tick_smem_bytes count the same regions.
 #pragma once
 
 #include "common.cuh"
-#include "gru_step.cuh"  // softplus, kInvLipschitzAlpha
-#include "head.cuh"      // quantize_fixed, kRmsEps
-#include "mma.cuh"       // smem_u32, cp_async16, cp_async_commit, cp_async_wait, aligned16
+#include "head.cuh"  // quantize_fixed, kRmsEps
+#include "mma.cuh"   // smem_u32, cp_async16, cp_async_commit, cp_async_wait, aligned16
+#include "pwl.cuh"   // pwl_eval
 
 namespace repro {
+
+constexpr float kInvLipschitzAlpha = 0.4f;  // core/neural_flow.py INV_LIPSCHITZ_ALPHA
+
+// jax.nn.softplus: log1p(exp(-|x|)) + max(x, 0); the flow gate's rate
+__device__ __forceinline__ float softplus(float x) {
+  return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.0f);
+}
+
 namespace wc {
 
 constexpr int kWarps = 8;      // warps a block at most: a larger tile takes its windows in turn
@@ -87,10 +108,24 @@ struct HeadLayout {
   }
 };
 
+// The int8 head's weights (mr_tick_int8): int8 w1 [H, Dh] and w2 [Dh, K] in
+// whole floats (q_floats), each beside its scales and bias.
+struct HeadQLayout {
+  size_t w1, s1, b1, w2, s2, b2;
+  __host__ __device__ void carve(Carve& c, int H, int Dh, int K) {
+    w1 = c.take(q_floats((size_t)H * Dh));
+    s1 = c.take(Dh);
+    b1 = c.take(Dh);
+    w2 = c.take(q_floats((size_t)Dh * K));
+    s2 = c.take(K);
+    b2 = c.take(K);
+  }
+};
+
 // mr_step: wx [D, 3H], wh's 3H columns [3H, S], b [3H], time_scale [H], the head; a warp:
 // rows h and r*h (or the head's hidden layer), two chunks of x [kChunk, D] and
 // dts [kChunk], the gates' x.Wx + b [kChunk, 3, nu, 32] and phi*alpha
-// [kChunk, nu, 32].
+// [kChunk, nu, 32]. gru_scan carves the same with no head (Dh = K = 0).
 struct GruLayout {
   size_t wx, wh, b, ts, warps, row_h, row_r, xbuf[2], dbuf[2], gx, phi, per_warp, total;
   HeadLayout head;
@@ -215,6 +250,38 @@ struct TickLayout {
   }
 };
 
+// mr_tick_int8, one block of a slot's cluster: int8 wx [D, 3H], int8 wh's 3H
+// columns [3H, S] (bytes; row-major [H, 3H] at H <= 32, read once into
+// registers), the scales of wx and wh and b [3H], the PWL sigmoid and tanh
+// tables (P floats each), the int8 head, the slot's head outputs [N, K]; a
+// warp: as TickLayout (the slots hold x.Wx alone).
+struct TickQLayout {
+  size_t wx, wh, sx, sh, b, sig, tnh, out, warps, row_h, row_r, x, gx, per_warp, total;
+  HeadQLayout head;
+  __host__ __device__ TickQLayout(int D, int H, int Dh, int K, int T, int N, int P) {
+    const int nu = units_for(H), R = H > Dh ? H : Dh, S = col_stride(H);
+    const int Tc = (T + kChunk - 1) / kChunk * kChunk;
+    Carve c;
+    wx = c.take(q_floats((size_t)D * 3 * H));
+    wh = c.take(q_floats((size_t)3 * H * S));
+    sx = c.take(3 * H);
+    sh = c.take(3 * H);
+    b = c.take(3 * H);
+    sig = c.take(P);
+    tnh = c.take(P);
+    head.carve(c, H, Dh, K);
+    out = c.take((size_t)N * K);
+    warps = c.n;
+    Carve w;
+    row_h = w.take(R);
+    row_r = w.take(R);
+    x = w.take((size_t)Tc * D);
+    gx = w.take(kChunk * 3 * 32 * nu);
+    per_warp = w.n;
+    total = warps + tick_warps(N) * per_warp;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // staging
 // ---------------------------------------------------------------------------
@@ -244,6 +311,31 @@ __device__ inline void copy_columns_async(float* dst, const float* __restrict__ 
   for (int k = 0; k < rows; ++k)
     for (int c = t; c < cols; c += nt)
       cp_async4(dst + (size_t)c * S + k, src + (size_t)k * cols + c);
+}
+
+// n int8 values from device memory into shared memory by threads t, t + nt,
+// ...: 16-byte cp.async where both ends are 16-byte aligned, plain byte
+// copies for the rest. The caller commits, waits and publishes with a barrier.
+__device__ inline void copy_bytes_async(int8_t* dst, const int8_t* __restrict__ src, int n, int t,
+                                        int nt) {
+  int done = 0;
+  if (aligned16(src) && aligned16(dst)) {
+    const int n16 = n / 16;
+    for (int i = t; i < n16; i += nt) cp_async16(dst + 16 * i, src + 16 * i, true);
+    done = 16 * n16;
+  }
+  for (int i = done + t; i < n; i += nt) dst[i] = src[i];
+}
+
+// The [rows, cols] row-major int8 matrix src into shared memory column-major
+// with a column stride of S bytes (dst[c * S + k] = src[k * cols + c]), by
+// threads t, t + nt, ...: plain byte copies, consecutive threads on
+// consecutive columns. The caller publishes with a barrier.
+__device__ inline void copy_columns_q(int8_t* dst, const int8_t* __restrict__ src, int rows,
+                                      int cols, int S, int t, int nt) {
+  for (int k = 0; k < rows; ++k)
+#pragma unroll 4
+    for (int c = t; c < cols; c += nt) dst[(size_t)c * S + k] = src[(size_t)k * cols + c];
 }
 
 // ---------------------------------------------------------------------------
@@ -340,18 +432,86 @@ __device__ __forceinline__ void load_h0(const Units<U>& un, float (&h)[U],
   for (int u = 0; u < U; ++u) h[u] = un.own[u] ? h0_row[un.col[u]] : 0.0f;
 }
 
+// The GRU cell's gate arithmetic, a policy of gru_terms_ahead and gru_steps:
+// wx_at the input weight of (d, gate g, the lane's unit u in column col),
+// ahead what a slot ahead of the chain holds of x.Wx, pre a gate's
+// pre-activation from its slot and its recurrent sum, sig and tanh_ the
+// activations. F32Cell: float wx [D, 3H] in shared memory, x.Wx + b ahead, the
+// accurate sigmoid and tanh (mr_step, gru_scan, mr_tick).
+template <int U>
+struct F32Cell {
+  const float* wx;
+  int H;
+  float bias[3][U];  // the lane's units' b
+  __device__ __forceinline__ float wx_at(int d, int g, int, int col) const {
+    return wx[d * 3 * H + g * H + col];
+  }
+  __device__ __forceinline__ float ahead(float xw, int g, int u) const { return xw + bias[g][u]; }
+  __device__ __forceinline__ float pre(float gx, float hw, int, int) const { return gx + hw; }
+  __device__ __forceinline__ float sig(float v) const { return sigmoid(v); }
+  __device__ __forceinline__ float tanh_(float v) const { return tanhf(v); }
+};
+
+// The int8/PWL standard GRU cell (mr_tick_int8): int8 wx [D, 3H] in shared
+// memory, dequantized on use with the lane's column scales (one rounding);
+// the slots ahead hold x.Wx alone and the bias comes last, (x.Wx + h.Wh) + b,
+// both adds rounded; the PWL tables in shared memory.
+template <int U>
+struct Int8Cell {
+  const int8_t* wx;
+  const float* sig_tab;
+  const float* tanh_tab;
+  int H, n_seg;
+  float sx[3][U];    // the lane's units' scales of wx
+  float bias[3][U];  // the lane's units' b
+  __device__ __forceinline__ float wx_at(int d, int g, int u, int col) const {
+    return __fmul_rn((float)wx[d * 3 * H + g * H + col], sx[g][u]);
+  }
+  __device__ __forceinline__ float ahead(float xw, int, int) const { return xw; }
+  __device__ __forceinline__ float pre(float gx, float hw, int g, int u) const {
+    return __fadd_rn(__fadd_rn(gx, hw), bias[g][u]);
+  }
+  __device__ __forceinline__ float sig(float v) const { return pwl_eval(sig_tab, n_seg, v); }
+  __device__ __forceinline__ float tanh_(float v) const { return pwl_eval(tanh_tab, n_seg, v); }
+};
+
+// The head's weights, a policy of warp_head: w1_at(k, i) of w1 [H, Dh],
+// w2_at(i, o) of w2 [Dh, K], the biases b1 [Dh] and b2 [K], each added after
+// its layer's sum. F32Head: float weights; Int8Head: int8 weights dequantized
+// on use with their column's scale.
+struct F32Head {
+  const float *w1, *b1, *w2, *b2;
+  int Dh, K;
+  __device__ __forceinline__ float w1_at(int k, int i) const { return w1[k * Dh + i]; }
+  __device__ __forceinline__ float w2_at(int i, int o) const { return w2[i * K + o]; }
+};
+
+struct Int8Head {
+  const int8_t* w1;
+  const float *s1, *b1;
+  const int8_t* w2;
+  const float *s2, *b2;
+  int Dh, K;
+  __device__ __forceinline__ float w1_at(int k, int i) const {
+    return __fmul_rn((float)w1[k * Dh + i], s1[i]);
+  }
+  __device__ __forceinline__ float w2_at(int i, int o) const {
+    return __fmul_rn((float)w2[i * K + o], s2[o]);
+  }
+};
+
 // The GRU step's h-independent terms for a chunk of kChunk steps, each lane
 // for its own units: x.Wx over d for all the chunk's steps at once (kChunk
-// independent sums a gate), then b, into the warp's slots
-// gxs [kChunk, 3, nu, 32]; also(c, u) runs beside each step's write (mr_step:
-// the flow gate's phi(t) * alpha). xc is the chunk's x [kChunk, D] and wxs
-// wx [D, 3H]; steps past the chunk's end compute slots that are never read.
-template <int U, class Also>
-__device__ __forceinline__ void gru_terms_ahead(const Units<U>& un, const float* xc,
-                                                const float* wxs, int D, int H,
-                                                const float (&bias)[3][U], float* gxs,
+// independent sums a gate), then the cell's ahead (b, for F32Cell), into the
+// warp's slots gxs [kChunk, 3, nu, 32]; also(c, u) runs beside each step's
+// write (mr_step, gru_scan: the flow gate's phi(t) * alpha). xc is the
+// chunk's x [kChunk, D]; steps past the chunk's end compute slots that are
+// never read.
+template <int U, class Cell, class Also>
+__device__ __forceinline__ void gru_terms_ahead(const Units<U>& un, const Cell& cell,
+                                                const float* xc, int D, float* gxs,
                                                 const Also& also) {
-  const int lane = threadIdx.x & 31, H3 = 3 * H, nu = un.nu;
+  const int lane = threadIdx.x & 31, nu = un.nu;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     if (u >= nu) continue;
@@ -363,7 +523,7 @@ __device__ __forceinline__ void gru_terms_ahead(const Units<U>& un, const float*
     for (int d = 0; d < D; ++d) {
       float w[3];
 #pragma unroll
-      for (int g = 0; g < 3; ++g) w[g] = wxs[d * H3 + g * H + un.col[u]];
+      for (int g = 0; g < 3; ++g) w[g] = cell.wx_at(d, g, u, un.col[u]);
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         const float xd = xc[c * D + d];
@@ -374,7 +534,7 @@ __device__ __forceinline__ void gru_terms_ahead(const Units<U>& un, const float*
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
 #pragma unroll
-      for (int g = 0; g < 3; ++g) gxs[((c * 3 + g) * nu + u) * 32 + lane] = a[c][g] + bias[g][u];
+      for (int g = 0; g < 3; ++g) gxs[((c * 3 + g) * nu + u) * 32 + lane] = cell.ahead(a[c][g], g, u);
       also(c, u);
     }
   }
@@ -383,13 +543,15 @@ __device__ __forceinline__ void gru_terms_ahead(const Units<U>& un, const float*
 // The GRU(-flow) chain over the first nc steps of a chunk, for one window: h
 // the lane's units (published in row_h on entry, and on return), w_rz(q, g, u)
 // the reset and update gates' recurrent columns, w_c(q, 0, u) the candidate's,
-// gxs the chunk's terms ahead, pa(c, u) the flow gate's phi * alpha at step c.
-// The candidate gate is tanh(x.Wx_c + (r*h).Wh_c + b_c), as in the JAX
-// package, not torch.nn.GRU's r*(h.Wh_c).
-template <int N, bool FLOW, int U, class Wrz, class Wc, class Pa>
-__device__ __forceinline__ void gru_steps(const Units<U>& un, float (&h)[U], int H, int nc,
-                                          const Wrz& w_rz, const Wc& w_c, const float* gxs,
-                                          const Pa& pa, float* row_h, float* row_r) {
+// gxs the chunk's terms ahead, pa(c, u) the flow gate's phi * alpha at step c,
+// put(c, u, h) called with each of the lane's own units' new h (gru_scan
+// writes it out). The candidate gate is tanh(x.Wx_c + (r*h).Wh_c + b_c), as in
+// the JAX package, not torch.nn.GRU's r*(h.Wh_c).
+template <int N, bool FLOW, int U, class Cell, class Wrz, class Wc, class Pa, class Put>
+__device__ __forceinline__ void gru_steps(const Units<U>& un, const Cell& cell, float (&h)[U],
+                                          int H, int nc, const Wrz& w_rz, const Wc& w_c,
+                                          const float* gxs, const Pa& pa, float* row_h,
+                                          float* row_r, const Put& put) {
   const int lane = threadIdx.x & 31, nu = un.nu;
   for (int c = 0; c < nc; ++c) {
     float a[2][U];
@@ -398,8 +560,8 @@ __device__ __forceinline__ void gru_steps(const Units<U>& un, float (&h)[U], int
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (u >= nu) continue;
-      const float r = sigmoid(gxs[((c * 3 + 0) * nu + u) * 32 + lane] + a[0][u]);
-      z[u] = sigmoid(gxs[((c * 3 + 1) * nu + u) * 32 + lane] + a[1][u]);
+      const float r = cell.sig(cell.pre(gxs[((c * 3 + 0) * nu + u) * 32 + lane], a[0][u], 0, u));
+      z[u] = cell.sig(cell.pre(gxs[((c * 3 + 1) * nu + u) * 32 + lane], a[1][u], 1, u));
       if (un.own[u]) row_r[un.col[u]] = r * h[u];
     }
     __syncwarp();
@@ -408,30 +570,31 @@ __device__ __forceinline__ void gru_steps(const Units<U>& un, float (&h)[U], int
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (u >= nu) continue;
-      const float cand = tanhf(gxs[((c * 3 + 2) * nu + u) * 32 + lane] + ac[0][u]);
+      const float cand = cell.tanh_(cell.pre(gxs[((c * 3 + 2) * nu + u) * 32 + lane], ac[0][u], 2, u));
       if (FLOW) {
         const float p = pa(c, u);  // phi(0) = 0: the identity
         h[u] = h[u] + p * (1.0f - z[u]) * (cand - h[u]);
       } else {  // both products rounded, as the plain version: no FMA to pick
         h[u] = __fadd_rn(__fmul_rn(1.0f - z[u], cand), __fmul_rn(z[u], h[u]));
       }
-      if (un.own[u]) row_h[un.col[u]] = h[u];
+      if (un.own[u]) {
+        row_h[un.col[u]] = h[u];
+        put(c, u, h[u]);
+      }
     }
     __syncwarp();
   }
 }
 
 // The dense head of one window, run by its warp after the scan: h[u] the
-// lane's units of h_T; row_h and row_r the warp's two rows (row_h is free, as
-// every lane has passed the last step's __syncwarp); out_w the window's [K]
-// outputs.
-template <int N, int U>
-__device__ __forceinline__ void warp_head(const Units<U>& un, const float (&h)[U], int H, int Dh,
-                                          int K, const float* w1, const float* b1,
-                                          const float* w2, const float* b2, float* row_h,
-                                          float* row_r, float* __restrict__ out_w, int act_int,
-                                          int act_frac) {
-  const int lane = threadIdx.x & 31;
+// lane's units of h_T; hd the head's weights (F32Head, Int8Head); row_h and
+// row_r the warp's two rows (row_h is free, as every lane has passed the last
+// step's __syncwarp); out_w the window's [K] outputs.
+template <int N, int U, class Head>
+__device__ __forceinline__ void warp_head(const Units<U>& un, const float (&h)[U], int H,
+                                          const Head& hd, float* row_h, float* row_r,
+                                          float* __restrict__ out_w, int act_int, int act_frac) {
+  const int lane = threadIdx.x & 31, Dh = hd.Dh, K = hd.K;
   float ss = 0.0f;
 #pragma unroll
   for (int u = 0; u < U; ++u)
@@ -447,23 +610,160 @@ __device__ __forceinline__ void warp_head(const Units<U>& un, const float (&h)[U
   // layer 1: relu(hn . w1 + b1), output i on lane i % 32, into row_r
   for (int i = lane; i < Dh; i += 32) {
     auto w1q = [&](int q, int, int) {
-      const float* c = w1 + 4 * q * Dh + i;  // k = 4q .. 4q + 3 of column i
-      const int last = H - 1 - 4 * q;        // a tail block reads no row past H
-      return make_float4(c[0], c[last < 1 ? 0 : Dh], c[last < 2 ? 0 : 2 * Dh],
-                         c[last < 3 ? 0 : 3 * Dh]);
+      const int k = 4 * q, last = H - 1 - k;  // a tail block reads no row past H
+      return make_float4(hd.w1_at(k, i), hd.w1_at(last < 1 ? k : k + 1, i),
+                         hd.w1_at(last < 2 ? k : k + 2, i), hd.w1_at(last < 3 ? k : k + 3, i));
     };
     float a[1][1];
     matvec<N, 1, 1>(row_h, H, 1, w1q, a);
-    row_r[i] = fmaxf(a[0][0] + b1[i], 0.0f);
+    row_r[i] = fmaxf(a[0][0] + hd.b1[i], 0.0f);
   }
   // layer 2: hid . w2 + b2, each output's lanes' partial sums reduced by
   // shuffles; a lane reads back only the hidden units it wrote
 #pragma unroll 4
   for (int o = 0; o < K; ++o) {
     float s = 0.0f;
-    for (int i = lane; i < Dh; i += 32) s = fmaf(row_r[i], w2[i * K + o], s);
+    for (int i = lane; i < Dh; i += 32) s = fmaf(row_r[i], hd.w2_at(i, o), s);
     s = warp_sum(s);
-    if (lane == 0) out_w[o] = s + b2[o];
+    if (lane == 0) out_w[o] = s + hd.b2[o];
+  }
+}
+
+// The body of the GRU kernels that read their windows from device memory,
+// mr_step.cu and gru_scan.cu: a block of `bb` windows (GruLayout) stages the
+// gate weights and, for mr_step, the head's once, meets its one barrier, and
+// each warp runs its windows' T steps, the x chunk and dts staged by cp.async
+// a chunk ahead and x.Wx + b and the flow gate's phi(t) * alpha computed
+// ahead of each chunk. HS (gru_scan): each step's h goes to out = hs
+// [B, T, H], the lanes on consecutive columns, and there is no head (Dh = K =
+// 0); else the head's K outputs go to out [B, K].
+template <int N, bool FLOW, bool HS>
+__device__ __forceinline__ void gru_windows(
+    const float* __restrict__ xs, const float* __restrict__ h0, const float* __restrict__ wx,
+    const float* __restrict__ wh, const float* __restrict__ b,
+    const float* __restrict__ time_scale, const float* __restrict__ dts,
+    const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
+    const float* __restrict__ b2, float* __restrict__ out, int T, int D, int H_rt, int Dh, int K,
+    int bb, int act_int, int act_frac) {
+  constexpr int U = N > 0 ? (N + 31) / 32 : kMaxUnits;
+  constexpr bool REG = N > 0 && N <= 32;  // the recurrent columns fit in registers
+  const int H = width<N>(H_rt), H3 = 3 * H, S = col_stride(H);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const GruLayout L(D, H, Dh, K, bb);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  const int b0 = blockIdx.x * bb;
+  float* area = smem + L.warps + warp * L.per_warp;
+
+  // a window's x chunk [t0, t0 + kChunk) and its dts into slot s of the warp's area
+  auto stage_chunk = [&](int s, int window, int t0) {
+    const int nc = min(kChunk, T - t0);
+    float* dst = area + (s ? L.xbuf[1] : L.xbuf[0]);
+    copy_async(dst, xs + ((size_t)window * T + t0) * D, nc * D, lane, 32);
+    copy_async(area + (s ? L.dbuf[1] : L.dbuf[0]), dts + t0, nc, lane, 32);
+  };
+
+  // staging: the weights by every thread, each warp's first x chunk by the warp
+  copy_async(smem + L.wx, wx, D * H3, threadIdx.x, blockDim.x);
+  if constexpr (REG)  // read once into registers: row-major, 16-byte copies
+    copy_async(smem + L.wh, wh, H * H3, threadIdx.x, blockDim.x);
+  else  // read every step: column-major, a float4 of a column per load
+    copy_columns_async(smem + L.wh, wh, H, H3, S, threadIdx.x, blockDim.x);
+  copy_async(smem + L.b, b, H3, threadIdx.x, blockDim.x);
+  copy_async(smem + L.ts, time_scale, H, threadIdx.x, blockDim.x);
+  if constexpr (!HS) {
+    copy_async(smem + L.head.w1, w1, H * Dh, threadIdx.x, blockDim.x);
+    copy_async(smem + L.head.b1, b1, Dh, threadIdx.x, blockDim.x);
+    copy_async(smem + L.head.w2, w2, Dh * K, threadIdx.x, blockDim.x);
+    copy_async(smem + L.head.b2, b2, K, threadIdx.x, blockDim.x);
+  }
+  stage_chunk(0, b0 + warp, 0);
+  cp_async_commit();
+  const Units<U> un(H);
+  float h_next[U];  // the warp's next window's h0, loaded ahead of its use
+  load_h0(un, h_next, h0 + (size_t)(b0 + warp) * H);
+  cp_async_wait<0>();
+  __syncthreads();  // the block's only barrier
+
+  // wh's column g * H + j, k = 4q .. 4q + 3: a float4 of the column-major copy
+  const float4* wh4 = reinterpret_cast<const float4*>(smem + L.wh);
+  auto wh_at = [&](int q, int g, int u) { return wh4[(g * H + un.col[u]) * (S / 4) + q]; };
+  F32Cell<U> cell;
+  cell.wx = smem + L.wx;
+  cell.H = H;
+  float sp[U];
+  float4 wr[REG ? 3 : 1][U][REG ? N / 4 : 1];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) cell.bias[g][u] = smem[L.b + g * H + un.col[u]];
+    sp[u] = softplus(smem[L.ts + un.col[u]]);
+    if constexpr (REG) {
+      const float* c = smem + L.wh + un.col[u];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+          const float* w = c + g * H + 4 * q * H3;  // row-major: k = 4q .. 4q + 3
+          wr[g][u][q] = make_float4(w[0], w[H3], w[2 * H3], w[3 * H3]);
+        }
+    }
+  }
+  auto w_rz = [&](int q, int g, int u) {
+    if constexpr (REG) return wr[g][u][q];
+    else return wh_at(q, g, u);
+  };
+  auto w_c = [&](int q, int, int u) {
+    if constexpr (REG) return wr[2][u][q];
+    else return wh_at(q, 2, u);
+  };
+
+  float* row_h = area + L.row_h;
+  float* row_r = area + L.row_r;
+  float* gxs = area + L.gx;
+  float* phis = area + L.phi;
+  const int nu = un.nu;
+  int slot = 0;
+  for (int w = warp; w < bb; w += n_warps) {
+    const int window = b0 + w;
+    __syncwarp();  // the previous window's head (or last step) has read row_h
+    float h[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      h[u] = h_next[u];
+      if (un.own[u]) row_h[un.col[u]] = h[u];
+    }
+    for (int t0 = 0; t0 < T; t0 += kChunk) {
+      const int nc = min(kChunk, T - t0);
+      cp_async_wait<0>();
+      __syncwarp();  // this chunk's x and dts have arrived; row_h holds h
+      // the chunk's h-independent terms: x.Wx + b, and the flow gate's phi * alpha
+      const float* xc = area + (slot ? L.xbuf[1] : L.xbuf[0]);
+      const float* dc = area + (slot ? L.dbuf[1] : L.dbuf[0]);
+      gru_terms_ahead<U>(un, cell, xc, D, gxs, [&](int c, int u) {
+        if (FLOW) phis[(c * nu + u) * 32 + lane] = tanhf(sp[u] * dc[c]) * kInvLipschitzAlpha;
+      });
+      // the next chunk's x (or the next window's first) while this one runs
+      if (t0 + kChunk < T) stage_chunk(slot ^ 1, window, t0 + kChunk);
+      else if (w + n_warps < bb) {
+        stage_chunk(slot ^ 1, window + n_warps, 0);
+        load_h0(un, h_next, h0 + (size_t)(window + n_warps) * H);
+      }
+      cp_async_commit();
+      slot ^= 1;
+
+      auto pa = [&](int c, int u) { return phis[(c * nu + u) * 32 + lane]; };
+      float* hs_c = out + ((size_t)window * T + t0) * H;  // HS: this chunk's rows of hs
+      gru_steps<N, FLOW, U>(un, cell, h, H, nc, w_rz, w_c, gxs, pa, row_h, row_r,
+                            [&](int c, int u, float v) {
+                              if constexpr (HS) hs_c[c * H + un.col[u]] = v;
+                            });
+    }
+    if constexpr (!HS) {
+      const F32Head hd{smem + L.head.w1, smem + L.head.b1, smem + L.head.w2, smem + L.head.b2,
+                       Dh, K};
+      warp_head<N, U>(un, h, H, hd, row_h, row_r, out + (size_t)window * K, act_int, act_frac);
+    }
   }
 }
 

@@ -12,7 +12,9 @@ head, EMA readout and delta) for every slot in one launch of
 (``csrc/mr_tick_int8.cu``, which replaces ``tick.py:313 mr_tick_pallas_int8``):
 the standard GRU cell with int8 gate and head weights, quantized per slot
 and per output channel from the RAW weights (no QAT treatment first, as
-``tick.py:450-453``), and the PWL sigmoid and tanh.
+``tick.py:450-453``), and the PWL sigmoid and tanh. Both kernels run a
+slot's windows a warp each over a thread-block cluster (``csrc/warp_cell.cuh``,
+the fp32 and the int8 policy of one cell).
 
 ``mr_tick`` takes the kernel for CUDA tensors and the plain version
 (``ref.mr_tick_reference``, ``ref.mr_tick_int8_reference``) for CPU tensors;

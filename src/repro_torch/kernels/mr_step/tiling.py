@@ -9,11 +9,12 @@ SMs, so the tile is kept small enough that the grid has at least
 ``min(B, 132)`` blocks: one large tile would put the whole batch's scan on one
 SM.
 
-``mr_step``, ``mr_step_ltc`` and ``mr_step_node`` are warp-per-window
-recurrences (``csrc/warp_cell.cuh``): a block of ``block_b`` windows runs one
-warp a window (at most ``CELL_WARPS`` warps; a larger tile takes its windows
-in turn), so their carve is the block's weights once plus one area a warp
-(``mr_step_smem_bytes``, ``ltc_smem_bytes``, ``node_smem_bytes``). Their tile
+``mr_step``, ``mr_step_ltc``, ``mr_step_node`` and the bare scan
+``gru_scan`` are warp-per-window recurrences (``csrc/warp_cell.cuh``): a block
+of ``block_b`` windows runs one warp a window (at most ``CELL_WARPS`` warps; a
+larger tile takes its windows in turn), so their carve is the block's weights
+once plus one area a warp (``mr_step_smem_bytes``, ``gru_scan_smem_bytes``,
+``ltc_smem_bytes``, ``node_smem_bytes``). Their tile
 follows the same rule as the other kernels': more windows a block share one
 staging of the weights, fewer spread the chains over more SMs, and on the
 card the two balance. At the quickstart (B=64) 1, 2 and 4 windows a block
@@ -23,27 +24,27 @@ and 2 (``repro_torch.launch.kernel_phases``; the times are in ``PERF.md``).
 Each ``*_smem_bytes`` function counts exactly what its kernel carves. The
 callers name the kernel by its family: the encoder row's ``family`` (the
 field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
-``"gru_scan"`` for the bare scan (``csrc/gru_step.cuh``, one thread a
-(window, unit) pair).
+``"gru_scan"`` for the bare scan (``csrc/gru_scan.cu``: ``mr_step``'s carve
+with no head).
 
-The int8 serving kernels (``csrc/gru_scan_int8.cu``, ``mr_step_int8.cu``,
-``mr_step_ltc_int8.cu``, ``mr_tick_int8.cu``) keep the block-per-tile design:
-they carve the same buffers with the weights as int8 (rounded up to whole
-floats), one float scale per output channel beside them, and the packed PWL
-tables (``core/quant.py`` ``PWL_FLOATS`` floats each); the functions below
-that serve both kinds take ``int8=True`` for them. ``mr_step_ltc_int8`` gives
+The int8 serving kernels ``csrc/gru_scan_int8.cu``, ``mr_step_int8.cu`` and
+``mr_step_ltc_int8.cu`` keep the block-per-tile design (one thread a (window,
+unit) pair): they carve the same buffers with the weights as int8 (rounded up
+to whole floats), one float scale per output channel beside them, and the
+packed PWL tables (``core/quant.py`` ``PWL_FLOATS`` floats each); the
+functions below that serve both kinds take ``int8=True`` for them. ``mr_step_ltc_int8`` gives
 each (window, hidden unit) pair its own thread, so its tile also keeps
 ``block_b * H`` within one block's 1024 threads.
 
-The banked service tick (``csrc/mr_tick.cu``) spreads one slot's N windows
-over a thread-block cluster of ``tick_cluster(N)`` blocks of
+The banked service ticks (``csrc/mr_tick.cu``, and its int8/PWL twin
+``mr_tick_int8.cu`` on the warp cell's int8 policy) spread one slot's N
+windows over a thread-block cluster of ``tick_cluster(N)`` blocks of
 ``tick_warps(N)`` warps, one warp a window, and a cluster takes its bank's
-slots in turn; its carve (``tick_smem_bytes``) is one block's and does not
+slots in turn; their carve (``tick_smem_bytes``) is one block's and does not
 grow with the bank. The bank size (``auto_slots_per_bank``) only decides how
 many clusters share the slots. On the TPU the whole slot set was one bank,
 so nothing streamed; here the grid keeps ``min(S, 132)`` clusters, one slot
-each for S <= 132. The int8 tick runs one block per bank, the slot's windows
-as its tile.
+each for S <= 132.
 """
 
 from __future__ import annotations
@@ -54,11 +55,6 @@ SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most dynamic shared memory a block ca
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_THREADS = 1024  # threads a block can have
 FAMILIES = ("gru", "ltc", "node", "gru_scan")
-
-
-def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
-    """``gru_scan``: the gate weights, the rates and the tile's state."""
-    return 4 * ((D + H) * 3 * H + 3 * H + H + 4 * block_b * H)
 
 
 # csrc/warp_cell.cuh: every region of a carve starts 16-byte aligned (whole
@@ -97,6 +93,12 @@ def mr_step_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
     warp = (2 * _pad4(R) + 2 * (_pad4(C * D) + _pad4(C)) + _pad4(C * 3 * 32 * nu)
             + _pad4(C * 32 * nu))  # fmt: skip
     return 4 * (block + cell_warps(block_b) * warp)
+
+
+def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
+    """``gru_scan`` (``GruLayout`` with no head): ``mr_step``'s carve at
+    Dh = K = 0."""
+    return mr_step_smem_bytes(D, H, 0, 0, block_b)
 
 
 def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
@@ -276,15 +278,19 @@ def tick_smem_bytes(D: int, H: int, Dh: int, Ko: int, N: int, T: int, int8: bool
     cluster: wx, wh's 3H columns, b, time_scale, the head's weights and the
     slot's head outputs [N, Ko] once; a warp: two rows, its window's
     normalized x [T, D] (T rounded up to whole chunks), the gates' x.Wx + b
-    for a chunk. ``int8``: ``mr_tick_int8``, one block a slot: the quantized
-    scan and head with the N windows as the tile, the normalized window set
-    [N, T, D] and the head output [N, Ko]."""
-    if int8:
-        return int8_smem_bytes(D, H, Dh, Ko, N) + 4 * (N * T * D + N * Ko)
+    for a chunk. ``int8``: ``mr_tick_int8`` (``TickQLayout``): int8 wx and
+    wh's 3H columns in whole floats, the scales of both and b, the two PWL
+    tables, the int8 head (``HeadQLayout``) and the head outputs once; a warp
+    as ``mr_tick``'s."""
     nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
     Tc = -(-T // C) * C
-    block = (sum(map(_pad4, (D * 3 * H, 3 * H * S, 3 * H, H))) + _cell_head_floats(H, Dh, Ko)
-             + _pad4(N * Ko))  # fmt: skip
+    if int8:
+        head = sum(map(_pad4, (q_floats(H * Dh), Dh, Dh, q_floats(Dh * Ko), Ko, Ko)))
+        block = (sum(map(_pad4, (q_floats(D * 3 * H), q_floats(3 * H * S), 3 * H, 3 * H, 3 * H,
+                                 PWL_FLOATS, PWL_FLOATS))) + head + _pad4(N * Ko))  # fmt: skip
+    else:
+        block = (sum(map(_pad4, (D * 3 * H, 3 * H * S, 3 * H, H))) + _cell_head_floats(H, Dh, Ko)
+                 + _pad4(N * Ko))  # fmt: skip
     warp = 2 * _pad4(R) + _pad4(Tc * D) + _pad4(C * 3 * 32 * nu)
     return 4 * (block + tick_warps(N) * warp)
 
@@ -305,9 +311,8 @@ def auto_slots_per_bank(
     cfg, scfg, n_slots: int, smem_budget_bytes: int | None = None, int8: bool = False
 ) -> int:
     """Largest divisor of ``n_slots`` that leaves at least ``min(n_slots,
-    N_SMS)`` banks (a cluster each; for the int8 tick a block each), when one
-    slot fits: a block of its cluster (int8: the slot's block) within the
-    budget; 0 when it does not (``compile_plan`` then keeps
+    N_SMS)`` banks (a cluster each, for both ticks), when one slot fits: a
+    block of its cluster within the budget; 0 when it does not (``compile_plan`` then keeps
     ``tick_kernel="auto"`` on the composite tick)."""
     budget = SMEM_BUDGET_BYTES if smem_budget_bytes is None else smem_budget_bytes
     if n_slots < 1 or config_tick_smem_bytes(cfg, scfg, int8=int8) > budget:

@@ -2,17 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_phases [--baseline CSRC_DIR]
 
-Builds the four warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
-``mr_step_ltc.cu``, ``mr_step_node.cu`` and the banked tick ``mr_tick.cu``,
-as they are and in copies with one phase switched off -- the chain of steps,
-the h-independent terms computed ahead of it, the head, and for the tick the
-ingest (the ring roll and each warp's window build) and the readout -- each
-with ``nvcc`` into a shared library of its own (the builds run in parallel),
-and times every build's kernels with ``torch.profiler`` (the mean device
-time of 25 launches). The fused kernels run at the quickstart shape (B=64,
-T=32, D=2, H=32, Dh=64, K=12; 6 LTC and NODE substeps) and at bench_cycles'
-(B=64, T=200, D=8, H=64, Dh=128); the tick at the serve shape (S=4 slots of
-N=17 windows, T=32, D=4, H=32, Dh=64, Ko=45, the standard GRU). The time a
+Builds the six warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
+``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan ``gru_scan.cu`` and
+the banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu``, as they are and in
+copies with one phase switched off -- the chain of steps, the h-independent
+terms computed ahead of it, the head (the scan: its hs write), and for the
+ticks the ingest (the ring roll and each warp's window build) and the
+readout -- each with ``nvcc`` into a shared library of its own (the builds
+run in parallel), and times every build's kernels with ``torch.profiler``
+(the mean device time of 25 launches). The fused kernels and the scan run at
+the quickstart shape (B=64, T=32, D=2, H=32, Dh=64, K=12; 6 LTC and NODE
+substeps; the GRU flow gate on) and at bench_cycles' (B=64, T=200, D=8, H=64,
+Dh=128); the ticks at the serve shape (S=4 slots of N=17 windows, T=32, D=4,
+H=32, Dh=64, Ko=45, the standard GRU; the int8 tick on the same weights
+quantized per slot and per column, with the serving PWL tables). The time a
 variant saves is its phase's cost (a variant computes on values its
 switched-off phase left unset, so it checks nothing). The unmodified build
 is also held against the plain versions, timed at 1, 2 and 4 windows a
@@ -41,10 +44,14 @@ import torch
 
 from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.node_mr import node_sub_dt
+from repro_torch.core.quant import N_SEG, quantize_int8, serving_packs, serving_tables
 from repro_torch.kernels import runtime as rt
+from repro_torch.kernels.gru_scan.ref import gru_scan_reference
 
-SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "mr_tick.cu")
-KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node")  # the fused kernels, then the tick
+SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "gru_scan.cu", "mr_tick.cu",
+           "mr_tick_int8.cu")
+KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node", "gru_scan")  # then the ticks
+TICKS = ("mr_tick", "mr_tick_int8")
 # (label, B, T, D, H, Dh, K)
 SHAPES = [("quickstart", 64, 32, 2, 32, 64, 12), ("bench_cycles", 64, 200, 8, 64, 128, 12)]
 # the tick's serve shape: S slots, buffer L, n + m inputs, chunk C, windows of T at stride
@@ -52,6 +59,7 @@ TICK = dict(S=4, L=160, n=3, m=1, C=16, T=32, stride=8, H=32, Dh=64, Ko=45, Kc=4
 SUBSTEPS, DT = 6, 0.05
 LAUNCHES = 25
 TILES = (1, 2, 4)
+TICK_SOURCES = ("mr_tick.cu", "mr_tick_int8.cu")
 # a phase switched off: (source, its text, the replacement), each found exactly once
 VARIANTS = {
     "no steps": [
@@ -72,21 +80,28 @@ VARIANTS = {
     ],
     "no head": [
         (src, "    wc::warp_head<N, U>(", "    if (T < 0) wc::warp_head<N, U>(")
-        for src in ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "mr_tick.cu")
+        for src in ("mr_step_ltc.cu", "mr_step_node.cu", "mr_tick.cu", "mr_tick_int8.cu")
+    ] + [("warp_cell.cuh", "      warp_head<N, U>(", "      if (T < 0) warp_head<N, U>(")],
+    "no hs write": [
+        ("warp_cell.cuh", "if constexpr (HS) hs_c[", "if constexpr (HS) if (T < 0) hs_c["),
     ],
     "no ingest": [
-        ("mr_tick.cu", "if (rank == 0)\n      tick_roll(", "if (rank < 0)\n      tick_roll("),
-        ("mr_tick.cu", "for (int i = lane; i < T * D; i += 32) {",
-         "for (int i = lane; i < 0; i += 32) {"),
+        patch for src in TICK_SOURCES for patch in (
+            (src, "if (rank == 0)\n      tick_roll(", "if (rank < 0)\n      tick_roll("),
+            (src, "for (int i = lane; i < T * D; i += 32) {", "for (int i = lane; i < 0; i += 32) {"),
+        )
     ],
     "no readout": [
-        ("mr_tick.cu", "if (rank == 0 && threadIdx.x < 32)", "if (rank < 0 && threadIdx.x < 32)"),
+        (src, "if (rank == 0 && threadIdx.x < 32)", "if (rank < 0 && threadIdx.x < 32)")
+        for src in TICK_SOURCES
     ],
 }  # fmt: skip
 # the phases each kernel has
 PHASES = {k: ("no steps", "no terms ahead", "no head") for k in KERNELS}
-PHASES["mr_tick"] = ("no steps", "no terms ahead", "no head", "no ingest", "no readout")
-LAUNCHERS = ("mr_step_launch", "mr_step_ltc_launch", "mr_step_node_launch", "mr_tick_launch")
+PHASES["gru_scan"] = ("no steps", "no terms ahead", "no hs write")
+for _tick in TICKS:
+    PHASES[_tick] = ("no steps", "no terms ahead", "no head", "no ingest", "no readout")
+LAUNCHERS = tuple(f"{k}_launch" for k in (*KERNELS, *TICKS))
 
 
 def build(csrc: Path, work: Path, tag: str, patches=()) -> tuple[ctypes.CDLL, str]:
@@ -138,32 +153,46 @@ def operands(kernel, B, T, D, H, Dh, K, device, seed=0) -> list[torch.Tensor]:
     return [mk(B, T, D), mk(B, H, scale=0.1), *cell, *head]
 
 
-def tick_operands(device, seed=0) -> list[torch.Tensor]:
+def tick_operands(device, seed=0, int8=False) -> list[torch.Tensor]:
     """The tick's operands at the serve shape: buffers, chunks, statistics,
     the previous readout, the flags (slot S-1 inactive, every other slot
-    seeding), each slot's weights, h0, then u's buffer and chunk."""
+    seeding), each slot's weights, h0, then u's buffer and chunk. ``int8``:
+    ``mr_tick_int8``'s, the same weights quantized per slot and per column
+    (int8 codes beside their [S, cols] scales) and the serving PWL tables."""
     mk = _maker(device, seed)
     S, L, n, m, C, T, H, Dh, Ko, Kc = (TICK[k] for k in "S L n m C T H Dh Ko Kc".split())
     D, N = n + m, (L - T) // TICK["stride"] + 1
     flags = lambda xs: torch.tensor(xs, dtype=torch.float32, device=device)
-    return [mk(S, L, n), mk(S, C, n), mk(S, n, scale=0.1), mk(S, n, scale=0.25, shift=1.0).abs(),
+    ops = [mk(S, L, n), mk(S, C, n), mk(S, n, scale=0.1), mk(S, n, scale=0.25, shift=1.0).abs(),
             mk(S, Kc, scale=0.3), flags([1.0, 0.0] * (S // 2)), flags([1.0] * (S - 1) + [0.0]),
             mk(S, D, 3 * H, scale=(D + H) ** -0.5), mk(S, H, 3 * H, scale=(D + H) ** -0.5),
             mk(S, 3 * H, scale=0.1), mk(S, H, scale=0.5), mk(S, H, Dh, scale=H**-0.5),
             mk(S, Dh, scale=0.1), mk(S, Dh, Ko, scale=0.1 * Dh**-0.5), mk(S, Ko, scale=0.1),
             torch.zeros(N, H, device=device), mk(S, L, m), mk(S, C, m)]  # fmt: skip
+    if not int8:
+        return ops
+    wx, wh, w1, w2 = (quantize_int8(w, batch_dims=1) for w in (ops[7], ops[8], ops[11], ops[13]))
+    flat = lambda q: q.scale.reshape(S, -1).contiguous()
+    return [*ops[:7], wx.values, wh.values, flat(wx), flat(wh), ops[9], *serving_packs(device),
+            w1.values, flat(w1), ops[12], w2.values, flat(w2), ops[14], *ops[15:]]  # fmt: skip
 
 
 def launcher(lib, kernel, ops, tile: int):
     """A launch of ``lib``'s ``kernel`` on ``ops`` into fresh outputs, as a
-    closure; ``tile`` is the fused kernels' block_b or the tick's bank."""
-    if kernel == "mr_tick":
+    closure; ``tile`` is the fused kernels' and the scan's block_b or the
+    ticks' bank."""
+    if kernel in TICKS:
         S, L, n, m, C, T, H, Dh, Ko, Kc = (TICK[k] for k in "S L n m C T H Dh Ko Kc".split())
         outs = [torch.empty_like(ops[0]), torch.empty(S, Kc, device=ops[0].device),
-                torch.empty(S, device=ops[0].device), torch.empty_like(ops[16])]  # fmt: skip
+                torch.empty(S, device=ops[0].device), torch.empty_like(ops[-2])]  # fmt: skip
         ptrs = [t.data_ptr() for t in (*ops, *outs)]
-        args = (S, L, n, m, C, T, TICK["stride"], H, Dh, Ko, Kc, tile, 0, TICK["ema"],
-                1.0 - TICK["ema"])  # fmt: skip
+        args = (S, L, n, m, C, T, TICK["stride"], H, Dh, Ko, Kc, tile,
+                N_SEG if kernel == "mr_tick_int8" else 0, TICK["ema"], 1.0 - TICK["ema"])  # fmt: skip
+    elif kernel == "gru_scan":  # xs, h0, wx, wh, b, time_scale, dts -> hs
+        B, T, _ = ops[0].shape
+        outs = [torch.empty(B, T, ops[1].shape[1], device=ops[0].device)]
+        ptrs = [t.data_ptr() for t in (*ops[:7], *outs)]
+        args = (B, T, ops[0].shape[2], ops[1].shape[1], tile, 1)
     else:
         B, T, D = ops[0].shape
         H, (Dh, K) = ops[1].shape[1], ops[-2].shape
@@ -185,19 +214,25 @@ def launcher(lib, kernel, ops, tile: int):
     return launch
 
 
-def device_ms(launch, kernel: str) -> float:
-    """Mean device time of LAUNCHES launches, from the profiler's kernel records."""
+def device_ms(launch, kernel: str, traces: int = 3) -> float:
+    """Mean device time of LAUNCHES launches, from the profiler's kernel
+    records: one launch inside the trace first (the tracer may miss it while
+    it starts), then the timed ones, the last LAUNCHES kept. A trace that
+    recorded fewer is taken again, ``traces`` times at most."""
     launch()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(LAUNCHES):
+    for _ in range(traces):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             launch()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in e.name]  # fmt: skip
-    if not times:
-        raise RuntimeError(f"the profiler recorded no {kernel} kernel")
-    return sum(times) / len(times)
+            torch.cuda.synchronize()
+            for _ in range(LAUNCHES):
+                launch()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                         and f"{kernel}_kernel" in e.name), key=lambda e: e.time_range.start)  # fmt: skip
+        if len(events) >= LAUNCHES:
+            return sum(e.time_range.elapsed_us() for e in events[-LAUNCHES:]) / 1e3 / LAUNCHES
+    raise RuntimeError(f"the profiler recorded {len(events)} {kernel} kernels of {LAUNCHES + 1}")
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -205,7 +240,7 @@ def ptxas_summary(log: str) -> list[str]:
     lines, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(mr_\w*?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
+            m = re.search(r"((?:mr|gru)_\w*?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
             width = "any" if m and m[2] == "0" else m and m[2]  # 0: the generic instantiation
             name = f"{m[1]}<H={width}{', flow' if m[3] == '1' else ''}>" if m else line
         elif name and ("spill" in line or "registers" in line):
@@ -223,16 +258,25 @@ def plain(kernel, ops):
         return ref.mr_step_ltc_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
     if kernel == "mr_step_node":
         return ref.mr_step_node_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
+    if kernel == "gru_scan":
+        return gru_scan_reference(*ops[:7], flow=True)
+    kw = dict(window=TICK["T"], stride=TICK["stride"], ema=TICK["ema"])
+    if kernel == "mr_tick_int8":
+        sc = lambda s: s.reshape(TICK["S"], 1, -1)
+        return ref.mr_tick_int8_reference(
+            *ops[:5], ops[5] > 0, ops[6] > 0, ops[7], ops[8], sc(ops[9]), sc(ops[10]), ops[11],
+            ops[14], sc(ops[15]), ops[16], ops[17], sc(ops[18]), ops[19], *serving_tables(),
+            ops[21], ops[22], **kw,
+        )[1]  # fmt: skip
     return ref.mr_tick_reference(
-        *ops[:5], ops[5] > 0, ops[6] > 0, *ops[7:15], ops[16], ops[17], flow=False,
-        window=TICK["T"], stride=TICK["stride"], ema=TICK["ema"],
-    )[1]  # fmt: skip
+        *ops[:5], ops[5] > 0, ops[6] > 0, *ops[7:15], ops[16], ops[17], flow=False, **kw
+    )[1]
 
 
 def report(libs, kernel, label, ops) -> None:
     """Parity, the phases, the tiles and the baseline of one kernel at one shape."""
     out = launcher(libs["current"], kernel, ops, 1)()
-    got = out[1] if kernel == "mr_tick" else out[0]
+    got = out[1] if kernel in TICKS else out[0]
     err = (got - plain(kernel, ops)).abs().max().item()
     print(f"[parity] {kernel} at {label}: {err:.3e}", flush=True)
     tags = ("current", *PHASES[kernel])
@@ -242,7 +286,7 @@ def report(libs, kernel, label, ops) -> None:
         saved = "" if tag == "current" else f", {whole - ms:+.4f} ms saved"
         print(f"[phase] {kernel} at {label}, {tag}: {ms:.4f} ms{saved}", flush=True)
     tiles = {t: device_ms(launcher(libs["current"], kernel, ops, t), kernel) for t in TILES}
-    what = "slots a bank" if kernel == "mr_tick" else "block_b"
+    what = "slots a bank" if kernel in TICKS else "block_b"
     print(f"[tile] {kernel} at {label}: "
           + ", ".join(f"{what}={t} {ms:.4f} ms" for t, ms in tiles.items()), flush=True)
     if "baseline" in libs:
@@ -287,7 +331,8 @@ def main() -> None:
             for kernel in KERNELS:
                 report(libs, kernel, shape, operands(kernel, B, T, D, H, Dh, K, dev))
         shape = "the serve shape (S={S} N=17 T={T} D=4 H={H} Dh={Dh} Ko={Ko})".format(**TICK)
-        report(libs, "mr_tick", shape, tick_operands(dev))
+        for kernel in TICKS:
+            report(libs, kernel, shape, tick_operands(dev, int8=kernel == "mr_tick_int8"))
 
 
 if __name__ == "__main__":

@@ -264,10 +264,13 @@ def test_tiling_follows_the_family():
         smem = tiling.family_smem_bytes(family, D, H, Dh, K, 2)
         assert tiling.config_smem_bytes(cfg, family, 2) == smem
         assert tiling.auto_block_b(cfg, family, 64) == 1
-    # the bare scan (csrc/gru_step.cuh) stages no head: the gate weights, the
-    # rates and the tile's four [bb, H] buffers
+    # the bare scan (csrc/gru_scan.cu) is mr_step's warp cell with no head: the
+    # gate weights, b and the rates once, then a warp's two rows of H, two x and
+    # dts chunks and 16 steps of its lanes' gate and phi slots
     scan = tiling.family_smem_bytes("gru_scan", D, H, Dh, K, 1)
-    assert scan == 4 * ((D + H) * 3 * H + 3 * H + H + 4 * H)
+    assert scan == 4 * (
+        D * 3 * H + 3 * H * S + 3 * H + H + 2 * H + 2 * 16 * D + 2 * 16 + 16 * 3 * 32 + 16 * 32
+    )
     assert tiling.fit_block_b("gru_scan", 1024, D, H) == 4
     # at H = 64 the LTC tile is the warp cells' (at least 132 blocks); the int8
     # twin's stops where one thread a (window, unit) pair runs out

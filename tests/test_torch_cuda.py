@@ -224,6 +224,24 @@ def test_warp_cells_do_not_depend_on_the_tile(dev, H):
     torch.testing.assert_close(outs[1][2], want, **TOL)
 
 
+@pytest.mark.parametrize("flow", [True, False])
+@pytest.mark.parametrize("H", [8, 32, 48, 64])
+def test_gru_scan_does_not_depend_on_the_tile(dev, H, flow):
+    """gru_scan runs mr_step's warp cell without the head: every window's hs
+    is the same bit for bit whatever its block holds (a tile of 9 runs its
+    windows on 8 warps, the ninth after the first), from a non-zero h0, and
+    within 1e-4 of the plain version; H=48 is the generic instantiation."""
+    B, T, D = 36, 21, 3
+    ops = _operands(B, T, D, H, 16, 4, dev, seed=9)[:7]
+    before = gru_scan_cuda.launches
+    outs = {bb: gru_scan_cuda(*ops, flow=flow, block_b=bb) for bb in (1, 2, 3, 4, 9)}
+    torch.cuda.synchronize()
+    assert gru_scan_cuda.launches == before + 5
+    for bb, hs in outs.items():
+        torch.testing.assert_close(hs, outs[1], atol=0, rtol=0, msg=f"gru_scan block_b={bb}")
+    torch.testing.assert_close(outs[1], gru_scan_reference(*ops, flow=flow), **TOL)
+
+
 def test_ltc_takes_a_tile_past_a_thousand_threads(dev):
     """The warp cell gives a window a warp, not a thread a unit: 32 windows of
     H = 64 (2,048 (window, unit) pairs) in one block of 8 warps, each equal bit
@@ -520,15 +538,27 @@ def test_gru_scan_int8_matches_plain(dev, B, T, D, H):
     assert (hs - hs_fp).abs().max().item() >= QUANT_GAP
 
 
-INT8_TICK_SWEEP = [(0, 1, "test"), (2, 2, "test"), (1, 1, "serve"), (1, 2, "serve"), (1, 4, "serve")]
+# the serve geometry spreads a slot's 17 windows over a cluster of 3 blocks, the
+# wide one's 72 over 8 blocks of 8 warps, in turn; H=48 (the generic
+# instantiation) and H=64 read the int8 recurrent columns from shared memory
+INT8_TICK_SWEEP = [(0, 1, "test"), (2, 2, "test"), (1, 1, "serve"), (1, 2, "serve"), (1, 4, "serve"),
+                   (1, 1, "wide"), (1, 2, "wide"), (1, 4, "wide"), (2, 2, "test-H48"),
+                   (0, 1, "test-H64")]  # fmt: skip
+
+
+def _int8_tick_geometry(geometry, m):
+    if geometry in ("serve", "wide"):
+        cfg = merinda.MRConfig(encoder="gru", **SERVE)
+        return cfg, StreamConfig() if geometry == "serve" else WIDE
+    # "test": the JAX tests' width; "test-H48", "test-H64": wider cells, Dh = 40
+    H = geometry.partition("-H")[2]
+    width = dict(TICK_BASE, hidden=int(H), dense_hidden=40) if H else TICK_BASE
+    return merinda.MRConfig(input_dim=m, encoder="gru", **width), TCFG
 
 
 @pytest.mark.parametrize("m,spb,geometry", INT8_TICK_SWEEP)
 def test_mr_tick_int8_matches_plain(dev, m, spb, geometry):
-    if geometry == "serve":
-        cfg, scfg = merinda.MRConfig(encoder="gru", **SERVE), StreamConfig()
-    else:
-        cfg, scfg = merinda.MRConfig(input_dim=m, encoder="gru", **TICK_BASE), TCFG
+    cfg, scfg = _int8_tick_geometry(geometry, m)
     ops = _tick_operands(cfg, scfg, 4, dev, seed=5)
     before = (mr_tick_int8_cuda.launches, mr_tick_cuda.launches)
     out = mr_tick(ops[0], cfg, scfg, *ops[1:], quant=True, slots_per_bank=spb)
@@ -542,6 +572,19 @@ def test_mr_tick_int8_matches_plain(dev, m, spb, geometry):
     torch.testing.assert_close(out[3], want[3], **INT8_TOL)  # delta
     theta_fp = mr_tick(ops[0], cfg, scfg, *ops[1:], slots_per_bank=spb)[2]
     assert (out[2] - theta_fp).abs().max().item() >= QUANT_GAP
+
+
+def test_mr_tick_int8_does_not_depend_on_the_bank(dev):
+    """A window's result and the slot's readout are the same bit for bit at
+    1, 2 and 4 slots a bank (a cluster walks its bank's slots in turn)."""
+    cfg = merinda.MRConfig(encoder="gru", **SERVE)
+    for scfg in (StreamConfig(), WIDE):
+        ops = _tick_operands(cfg, scfg, 4, dev, seed=6)
+        outs = [mr_tick(ops[0], cfg, scfg, *ops[1:], quant=True, slots_per_bank=b)
+                for b in (1, 2, 4)]  # fmt: skip
+        for other in outs[1:]:
+            for a, b in zip(outs[0], other):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 def test_int8_monitor_launches_mr_tick_int8_once_a_tick(dev):

@@ -302,5 +302,12 @@ def test_int8_shared_memory_models():
     q = tiling.config_tick_smem_bytes(cfg, scfg, int8=True)
     assert q == tiling.tick_smem_bytes(4, 32, 64, 45, 17, 32, int8=True)
     assert q < tiling.config_tick_smem_bytes(cfg, scfg)
+    # the int8 tick's block of a slot's cluster, float for float at the serve
+    # shape: int8 wx and wh's 96 columns of 36 bytes, two scale rows, b, two
+    # tables (37 floats, padded to 40), the int8 head, the [17, 45] outputs;
+    # then 6 warps of two rows, the window's x [32, 4] and 16 steps of slots
+    block = (4 * 96 // 4 + 96 * 36 // 4 + 3 * 96 + 2 * 40 + 32 * 64 // 4 + 2 * 64
+             + 64 * 45 // 4 + 2 * 48 + 17 * 45 + 3)  # fmt: skip
+    assert q == 4 * (block + 6 * (2 * 64 + 32 * 4 + 16 * 3 * 32))
     assert tiling.auto_slots_per_bank(cfg, scfg, 4, int8=True) == 1
     assert tiling.auto_slots_per_bank(cfg, scfg, 4, smem_budget_bytes=1024, int8=True) == 0

@@ -372,6 +372,9 @@ def test_tick_shared_memory_model():
     assert tiling.config_tick_smem_bytes(cfg, scfg) == tiling.tick_smem_bytes(4, 32, 64, 45, 17, 32)
     assert (tiling.tick_cluster(17), tiling.tick_warps(17)) == (3, 6)
     assert 75_000 < tiling.config_tick_smem_bytes(cfg, scfg) < 90_000
+    # the int8 tick's block of the same cluster: int8 weights, about 57 KB
+    assert 50_000 < tiling.config_tick_smem_bytes(cfg, scfg, int8=True) < 65_000
+    assert tiling.auto_slots_per_bank(cfg, scfg, 264, int8=True) == 2
     assert tiling.auto_slots_per_bank(cfg, scfg, 4) == 1
     assert tiling.auto_slots_per_bank(cfg, scfg, 264) == 2  # 132 blocks of two slots
     assert tiling.auto_slots_per_bank(cfg, scfg, 4, smem_budget_bytes=1024) == 0

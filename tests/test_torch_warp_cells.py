@@ -1,7 +1,8 @@
 """The warp-cell kernels' arithmetic (``csrc/warp_cell.cuh``), emulated on the CPU.
 
-``csrc/mr_step.cu``, ``mr_step_ltc.cu``, ``mr_step_node.cu`` and the banked
-tick ``mr_tick.cu`` run one warp a window and sum in another order than the
+``csrc/mr_step.cu``, ``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan
+``gru_scan.cu`` and the banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu``
+run one warp a window and sum in another order than the
 plain versions: each matvec output in four partial sums over k mod 4,
 combined as (p0 + p1) + (p2 + p3); x_t . Wx + b (GRU), the drive
 x_t . W_in + bias (LTC) and x_t . W_in + b_in (NODE) computed ahead of the
@@ -10,13 +11,19 @@ phi(t) * alpha computed ahead as well; the LTC update's numerator and
 denominator each one FMA, then the division; the head's RMS sum and layer 2
 summed per lane (units j = lane + 32u) and reduced over the lanes by a
 shuffle butterfly; the tick's readout summing the windows' outputs in
-window order. The emulation below follows that order in float32, an FMA
-being a float64 product and sum rounded once to float32, and is held against
-the JAX package's fused stage and tick run as its own tests run them on the
-CPU (``repro.kernels.mr_step.ops.mr_step(..., interpret=True)``,
-``tests/test_kernels_mr_step.py:49``; ``repro.kernels.mr_step.tick.mr_tick(...,
+window order. The int8/PWL cell of ``mr_tick_int8.cu`` dequantizes each
+weight once (``float(q) * scale``), keeps x.Wx alone ahead of the chain and
+adds the bias after the matvec, ``(x.Wx + h.Wh) + b``, and evaluates the PWL
+tables with a true division. The emulation below follows that order in
+float32, an FMA being a float64 product and sum rounded once to float32, and
+is held against the JAX package's fused stage, scan and ticks run as its own
+tests run them on the CPU (``repro.kernels.mr_step.ops.mr_step(...,
+interpret=True)``, ``tests/test_kernels_mr_step.py:49``;
+``repro.kernels.gru_scan.ops.gru_scan(..., interpret=True)``,
+``tests/test_kernels_gru.py:31``, every step's h; ``repro.kernels.mr_step.tick.mr_tick(...,
 interpret=True)``, ``tests/test_tick.py:79``), within 1e-4: the bound the
-card tests hold the fused kernels to. Inputs are made with numpy from a seed.
+card tests hold the fused kernels to; the int8 tick within the JAX int8 tick
+tests' 1e-5 (``tests/test_tick.py:111``). Inputs are made with numpy from a seed.
 
 The carve functions of ``kernels/mr_step/tiling.py`` are held against the
 regions the header's layouts take, read from the header itself.
@@ -36,6 +43,8 @@ import torch
 
 from repro.core.merinda import MRConfig as JMRConfig
 from repro.core.merinda import init_mr as jinit_mr
+from repro.core.neural_flow import GRUParams as JGRUParams
+from repro.kernels.gru_scan.ops import gru_scan as jgru_scan
 from repro.kernels.mr_step.ops import mr_step as jmr_step
 from repro.kernels.mr_step.tick import mr_tick as jmr_tick
 from repro_torch.convert import params_from_numpy
@@ -43,10 +52,11 @@ from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.merinda import RMS_EPS, MRConfig
 from repro_torch.core.neural_flow import INV_LIPSCHITZ_ALPHA, softplus
 from repro_torch.core.node_mr import node_sub_dt
+from repro_torch.core.quant import PWL_FLOATS, pwl_width, serving_tables
 from repro_torch.core.stream import StreamConfig
 from repro_torch.data.windows import window_views
 from repro_torch.kernels.mr_step import tiling
-from repro_torch.kernels.mr_step.ops import head_weights, split_out
+from repro_torch.kernels.mr_step.ops import head_weights, int8_weights, split_out
 from repro_torch.kernels.mr_step.tick import tick_weights
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -105,12 +115,12 @@ def _head(h, w1, b1, w2, b2):
     return _butterfly(s.movedim(1, -1)) + b2
 
 
-def _gru_cell_emulation(xs, wx, wh, b, time_scale, dts, w1, b1, w2, b2, flow):
-    B, T, _ = xs.shape
+def _gru_scan_emulation(xs, h0, wx, wh, b, time_scale, dts, flow):
+    """gru_scan.cu (and mr_step's scan): every step's h [B, T, H]."""
     H = wh.shape[0]
     sp = softplus(time_scale)
-    h = torch.zeros(B, H)
-    for t in range(T):
+    h, hs = h0, []
+    for t in range(xs.shape[1]):
         gx = _xw(xs[:, t], wx) + b  # ahead of the chain
         pa = torch.tanh(sp * dts[t]) * INV_LIPSCHITZ_ALPHA
         a = _matvec4(h, wh[:, : 2 * H])
@@ -118,6 +128,45 @@ def _gru_cell_emulation(xs, wx, wh, b, time_scale, dts, w1, b1, w2, b2, flow):
         z = torch.sigmoid(gx[:, H : 2 * H] + a[:, H:])
         c = torch.tanh(gx[:, 2 * H :] + _matvec4(r * h, wh[:, 2 * H :]))
         h = h + pa * (1.0 - z) * (c - h) if flow else (1.0 - z) * c + z * h
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _gru_cell_emulation(xs, wx, wh, b, time_scale, dts, w1, b1, w2, b2, flow):
+    h0 = torch.zeros(xs.shape[0], wh.shape[0])
+    hs = _gru_scan_emulation(xs, h0, wx, wh, b, time_scale, dts, flow)
+    return _head(hs[:, -1], w1, b1, w2, b2)
+
+
+def _pwl(table, x):
+    """pwl.cuh pwl_eval: the segment is the truncated TRUE quotient
+    (x - x_min) / width (a tensor divisor: PyTorch may divide by a Python
+    scalar as a product with its reciprocal), clamped; then slope * x +
+    intercept rounded apart, and the end values outside [x_min, x_max]."""
+    n = table.slopes.shape[0]
+    width = torch.tensor(pwl_width(table), dtype=torch.float32)
+    idx = torch.clamp(((x - table.x_min) / width).to(torch.int32), 0, n - 1).long()
+    y = table.slopes[idx] * x + table.intercepts[idx]
+    y = torch.where(x < table.x_min, torch.full_like(y, table.left), y)
+    return torch.where(x > table.x_max, torch.full_like(y, table.right), y)
+
+
+def _gru_q_cell_emulation(xs, wx, wh, b, w1, b1, w2, b2, tables):
+    """warp_cell.cuh's Int8Cell and Int8Head on dequantized weights (each
+    float(q) * scale, one rounding): x.Wx ahead of the chain without the
+    bias, (x.Wx + h.Wh) + b, PWL sigmoid and tanh, the update's products
+    rounded apart; the head's biases after each layer's sum."""
+    sig, tanh = tables
+    B, T, _ = xs.shape
+    H = wh.shape[0]
+    h = torch.zeros(B, H)
+    for t in range(T):
+        gx = _xw(xs[:, t], wx)  # ahead of the chain: x.Wx alone
+        a = _matvec4(h, wh[:, : 2 * H])
+        r = _pwl(sig, (gx[:, :H] + a[:, :H]) + b[:H])
+        z = _pwl(sig, (gx[:, H : 2 * H] + a[:, H:]) + b[H : 2 * H])
+        c = _pwl(tanh, (gx[:, 2 * H :] + _matvec4(r * h, wh[:, 2 * H :])) + b[2 * H :])
+        h = (1.0 - z) * c + z * h
     return _head(h, w1, b1, w2, b2)
 
 
@@ -225,24 +274,32 @@ TICK_CASES = [  # (encoder, m, geometry, hidden, dense_hidden)
 
 
 def _tick_emulation(params, cfg, scfg, buf_y, buf_u, new_y, new_u, mean, scale, theta_prev, seed,
-                    active, flow):  # fmt: skip
-    """mr_tick.cu: the rolled buffers, each window's GRU scan and head in its
-    own warp, then the leader's readout (tick.cuh tick_readout): the windows'
-    first Kc outputs summed in window order and divided by N, the EMA's two
-    products rounded apart, the delta."""
+                    active, flow=False, tables=None):  # fmt: skip
+    """mr_tick.cu (``tables``: mr_tick_int8.cu on the raw weights quantized
+    per slot, with these PWL tables): the rolled buffers, each window's GRU
+    scan and head in its own warp, then the leader's readout (tick.cuh
+    tick_readout): the windows' first Kc outputs summed in window order and
+    divided by N, the EMA's two products rounded apart, the delta."""
     S, C = buf_y.shape[0], new_y.shape[1]
     roll = lambda buf, new: torch.cat([buf[:, C:], new], dim=1)
     buf_y, buf_u = roll(buf_y, new_y), roll(buf_u, new_u)
-    wx, wh, b, ts, w1, b1, w2, b2 = tick_weights(params, cfg)
     Kc, T = cfg.n_coef, scfg.window
+    if tables is None:
+        wx, wh, b, ts, w1, b1, w2, b2 = tick_weights(params, cfg)
+        cell = lambda s, xs: _gru_cell_emulation(xs, wx[s], wh[s], b[s], ts[s], torch.ones(T),
+                                                 w1[s], b1[s], w2[s], b2[s], flow=flow)  # fmt: skip
+    else:
+        wx, wh, w1, w2 = (q.values.float() * q.scale for q in int8_weights(params, cfg, 1))
+        b, b1, b2 = params.encoder.b, params.head_b1, params.head_b2
+        cell = lambda s, xs: _gru_q_cell_emulation(xs, wx[s], wh[s], b[s], w1[s], b1[s], w2[s],
+                                                   b2[s], tables)  # fmt: skip
     one_minus_ema = torch.tensor(1.0 - scfg.ema)
     thetas, deltas = [], []
     for s in range(S):
         xs = window_views((buf_y[s] - mean[s]) / scale[s], T, scfg.stride)
         if cfg.input_dim:
             xs = torch.cat([xs, window_views(buf_u[s], T, scfg.stride)], dim=-1)
-        out = _gru_cell_emulation(xs, wx[s], wh[s], b[s], ts[s], torch.ones(T), w1[s], b1[s],
-                                  w2[s], b2[s], flow=flow)  # fmt: skip
+        out = cell(s, xs)
         acc = torch.zeros(Kc)
         for w in range(out.shape[0]):
             acc = acc + out[w, :Kc]
@@ -287,10 +344,84 @@ def test_tick_order_matches_jax_kernel(encoder, m, geometry, H, Dh):
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), **TOL)  # delta
 
 
+def _gru_operands(B, T, D, H, seed):
+    """GRU weights at initialization scale, a non-zero flow-gate rate and
+    bias, xs, a non-zero h0 and variable dts (zeros among them: phi(0) = 0)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    w, b, ts = mk(D + H, 3 * H, scale=(D + H) ** -0.5), mk(3 * H, scale=0.1), mk(H, scale=0.5)
+    dts = rng.uniform(0.0, 2.0, T).astype(np.float32)
+    dts[::5] = 0.0
+    return (w, b, ts), mk(B, T, D), mk(B, H, scale=0.1), dts
+
+
+@pytest.mark.parametrize("flow", [True, False])
+@pytest.mark.parametrize("label,B,T,n,m,H,Dh", SHAPES, ids=[s[0] for s in SHAPES])
+def test_gru_scan_order_matches_jax_kernel(label, B, T, n, m, H, Dh, flow):
+    """gru_scan.cu's hs at every step, from a non-zero h0 at variable dts."""
+    D = n + m
+    (w, b, ts), xs, h0, dts = _gru_operands(B, T, D, H, seed=12)
+    _, want = jgru_scan(JGRUParams(*map(jnp.asarray, (w, b, ts))), jnp.asarray(xs),
+                        jnp.asarray(h0), dts=jnp.asarray(dts), flow=flow, interpret=True)  # fmt: skip
+    w, b, ts, xs, h0, dts = map(torch.from_numpy, (w, b, ts, xs, h0, dts))
+    with torch.no_grad():
+        got = _gru_scan_emulation(xs, h0, w[:D], w[D:], b, ts, dts, flow)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _asymptote_tables():
+    """The serving tables with JAX's Pallas kernels' saturation values (0 and
+    1, -1 and 1), where the plain versions take the function's values at the
+    tables' ends (``tests/test_torch_int8.py`` ``_asymptote_tables``)."""
+    sig, tanh = serving_tables()
+    return sig._replace(left=0.0, right=1.0), tanh._replace(left=-1.0, right=1.0)
+
+
+# tests/test_torch_int8.py's sweep (m, slots a bank) at the JAX tick tests'
+# geometry and width, and serve_mr's geometry (N=17 windows of T=32, H=32, m=1)
+INT8_TICK_CASES = [(0, 1, TICK_TEST, 8, 16), (2, 2, TICK_TEST, 8, 16), (1, 1, {}, 32, 64)]
+
+
+@pytest.mark.parametrize("dispatch", ["reference", "interpret"])
+@pytest.mark.parametrize("m,spb,geometry,H,Dh", INT8_TICK_CASES,
+                         ids=[f"m{c[0]}-spb{c[1]}-H{c[3]}" for c in INT8_TICK_CASES])  # fmt: skip
+def test_int8_tick_order_matches_jax_kernel(m, spb, geometry, H, Dh, dispatch):
+    """mr_tick_int8.cu's order against JAX's int8 tick: its oracle
+    (``force_reference``) on the serving tables, its Pallas kernel
+    (``interpret``) on the tables saturating where that kernel does. Buffers
+    exact, theta and delta within 1e-5."""
+    common = dict(state_dim=3, input_dim=m, order=2, hidden=H, dense_hidden=Dh, dt=0.01,
+                  encoder="gru")  # fmt: skip
+    jcfg, cfg = JMRConfig(**common), MRConfig(**common)
+    scfg = StreamConfig(**geometry)
+    S, n, L, C = 4, 3, scfg.buf_len, scfg.chunk
+    rng = np.random.default_rng(21 + m)
+    jparams = jax.vmap(lambda k: jinit_mr(k, jcfg))(jax.random.split(jax.random.key(6), S))
+    jparams = jax.tree.map(np.asarray, jparams)
+    mk = lambda *shape, scale=1.0: (rng.standard_normal(shape) * scale).astype(np.float32)
+    ops = [mk(S, L, n), mk(S, L, m), mk(S, C, n), mk(S, C, m), mk(S, n, scale=0.1),
+           rng.uniform(0.5, 1.5, (S, n)).astype(np.float32), mk(S, cfg.n_terms, n, scale=0.3),
+           np.array([True, False] * (S // 2)), np.array([True] * (S - 1) + [False])]  # fmt: skip
+    kw = dict(force_reference=True) if dispatch == "reference" else dict(interpret=True)
+    want = jmr_tick(jax.tree.map(jnp.asarray, jparams), jcfg, scfg, *map(jnp.asarray, ops),
+                    quant=True, slots_per_bank=spb, **kw)  # fmt: skip
+    tables = serving_tables() if dispatch == "reference" else _asymptote_tables()
+    with torch.no_grad():
+        got = _tick_emulation(params_from_numpy(jparams), cfg, scfg, *map(torch.from_numpy, ops),
+                              tables=tables)  # fmt: skip
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # rolled buffers
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-5, rtol=0)  # theta
+    assert np.isinf(got[3][-1].item()) and np.isinf(np.asarray(want[3])[-1])
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), atol=1e-5, rtol=0)  # delta
+
+
 def _header_carve(layout: str, D, H, Dh, K, bb, T=0, N=0) -> int:
     """Bytes that ``warp_cell.cuh``'s ``layout`` carves, evaluating each of
-    its ``take(...)`` regions (and the head's) as the header writes them, for
-    ``bb`` windows a block (the tick: ``tiling.tick_warps(N)`` warps)."""
+    its ``take(...)`` regions (and its head's, ``HeadLayout`` or
+    ``HeadQLayout``) as the header writes them, for ``bb`` windows a block
+    (the ticks: ``tiling.tick_warps(N)`` warps); int8 regions take whole
+    floats (``q_floats``), a PWL table ``PWL_FLOATS``."""
     text = HEADER.read_text()
     chunk = int(re.search(r"constexpr int kChunk = (\d+);", text).group(1))
     warps_max = int(re.search(r"constexpr int kWarps = (\d+);", text).group(1))
@@ -300,18 +431,19 @@ def _header_carve(layout: str, D, H, Dh, K, bb, T=0, N=0) -> int:
         return re.findall(r"(\w+(?:\[\d\])?) = (\w)\.take\((.*?)\);", body), body
 
     env = dict(D=D, H=H, Dh=Dh, K=K, kChunk=chunk, nu=-(-H // 32), R=max(H, Dh),
-               S=tiling.col_stride(H), T=T, N=N, Tc=-(-T // chunk) * chunk)  # fmt: skip
+               S=tiling.col_stride(H), T=T, N=N, Tc=-(-T // chunk) * chunk, P=PWL_FLOATS,
+               q_floats=tiling.q_floats)  # fmt: skip
     pad4 = lambda n: (n + 3) // 4 * 4
 
     def size(expr):
         return pad4(eval(re.sub(r"\(size_t\)", "", expr), {}, env))
 
-    head, _ = regions("HeadLayout")
     takes, body = regions(layout)
     assert "head.carve(c, H, Dh, K);" in body
+    head, _ = regions(re.search(r"(Head\w*Layout) head;", body).group(1))
     block = sum(size(e) for _, c, e in takes if c == "c") + sum(size(e) for _, _, e in head)
     warp = sum(size(e) for _, c, e in takes if c == "w")
-    warps = tiling.tick_warps(N) if layout == "TickLayout" else min(bb, warps_max)
+    warps = tiling.tick_warps(N) if layout.startswith("Tick") else min(bb, warps_max)
     return 4 * (block + warps * warp)
 
 
@@ -321,6 +453,11 @@ def _header_carve(layout: str, D, H, Dh, K, bb, T=0, N=0) -> int:
 )
 def test_cell_carves_match_the_header(D, H, Dh, K, bb):
     assert tiling.mr_step_smem_bytes(D, H, Dh, K, bb) == _header_carve("GruLayout", D, H, Dh, K, bb)
+    # gru_scan carves mr_step's layout with no head
+    assert tiling.gru_scan_smem_bytes(D, H, bb) == _header_carve("GruLayout", D, H, 0, 0, bb)
+    assert tiling.family_smem_bytes("gru_scan", D, H, Dh, K, bb) == tiling.gru_scan_smem_bytes(
+        D, H, bb
+    )
     assert tiling.node_smem_bytes(D, H, Dh, K, bb) == _header_carve("NodeLayout", D, H, Dh, K, bb)
     assert tiling.ltc_smem_bytes(D, H, Dh, K, bb) == _header_carve("LtcLayout", D, H, Dh, K, bb)
     assert tiling.family_smem_bytes("ltc", D, H, Dh, K, bb) == tiling.ltc_smem_bytes(
@@ -341,10 +478,15 @@ def test_cell_carves_match_the_header(D, H, Dh, K, bb):
 def test_tick_carve_matches_the_header(D, H, Dh, Ko, T, N):
     """tick_smem_bytes is one block of a slot's cluster: ceil(N / 8) blocks, at
     most the portable 8, the windows spread evenly over them (past 64 the
-    warps take the windows in turn)."""
+    warps take the windows in turn); the int8 tick's block (``TickQLayout``)
+    the same, with int8 weights beside their scales, the PWL tables and the
+    int8 head."""
     assert tiling.tick_smem_bytes(D, H, Dh, Ko, N, T) == _header_carve(
         "TickLayout", D, H, Dh, Ko, 0, T=T, N=N
     )
+    q = tiling.tick_smem_bytes(D, H, Dh, Ko, N, T, int8=True)
+    assert q == _header_carve("TickQLayout", D, H, Dh, Ko, 0, T=T, N=N)
+    assert 0 < q < tiling.tick_smem_bytes(D, H, Dh, Ko, N, T) and math.gcd(q, 16) == 16
     text = HEADER.read_text()
     assert int(re.search(r"constexpr int kMaxCluster = (\d+);", text).group(1)) == tiling.MAX_CLUSTER
     cs, wpb = tiling.tick_cluster(N), tiling.tick_warps(N)
