@@ -18,11 +18,12 @@ prints no result):
    The three fused kernels also run the coarse step ``act_bits=(2, 3)`` at
    every shape: it must move their output by at least 10x the tolerance, and
    the output must match the plain version's on every window whose
-   normalized summary lies clear of the grid's rounding thresholds. The three
-   warp-cell fused kernels (``mr_step``, ``mr_step_ltc``, ``mr_step_node``)
-   also run H=48 (their generic instantiation) and four windows a block, each
-   within 1e-4 of the plain version and within 1e-6 of the same call at one
-   window a block (``mr_step_ltc``: bit for bit);
+   normalized summary lies clear of the grid's rounding thresholds. The
+   warp-cell fused kernels (``mr_step``, ``mr_step_ltc``, ``mr_step_node``
+   and the int8 twins ``mr_step_int8``, ``mr_step_ltc_int8``) also run H=48
+   (their generic instantiation) and four windows a block, each within 1e-4
+   (int8: 1e-5) of the plain version and within 1e-6 of the same call at one
+   window a block (``mr_step_ltc`` and the int8 twins: bit for bit);
 3. gradient parity: one training step through each fused kernel (GRU flow,
    GRU flow with QAT, LTC, NODE) against the same step with
    ``force_reference``; loss, gradients and step metrics within 1e-4;
@@ -62,7 +63,8 @@ prints no result):
    and ``mr_step_ltc`` at the bench_cycles shape and of ``mr_tick`` at the
    serve shape, beside the least time the card could take for the same work;
 10. where the time goes: ``torch.profiler`` over 25 launches each of
-    ``mr_step`` and ``mr_step_ltc`` (quickstart and bench_cycles),
+    ``mr_step``, ``mr_step_ltc``, ``mr_step_int8`` and ``mr_step_ltc_int8``
+    (quickstart and bench_cycles),
     ``mr_step_node`` and ``gru_scan`` (quickstart; the scan with and without
     the flow gate), ``mr_tick`` and ``mr_tick_int8`` (serve shape) gives each
     kernel's own device time, printed beside phase 9's event time (which, at
@@ -244,7 +246,7 @@ PROFILED_PATHS = ("gru_flow", "ltc", "node", "gru_flow+qat")
 # tile of four windows, (B, T, D, H, Dh, K, block_b); a window's result must not
 # depend on the tile: within TILE_TOL of the same call at one window a block
 CELL_CASES = [(8, 20, 3, 48, 64, 12, 4), (64, 32, 2, 32, 64, 12, 4)]
-TILE_TOL = 1e-6  # mr_step_ltc: 0, bit for bit
+TILE_TOL = 1e-6  # mr_step_ltc and the int8 twins: 0, bit for bit
 # the tick past 64 windows a slot (N = 72): a cluster of 8 blocks of 8 warps
 # whose warps take the windows in turn
 TICK_WIDE = dict(buf_len=600, window=32, stride=8, chunk=8)
@@ -460,8 +462,9 @@ def qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed, device, dtype=torch.float32):
 
 def chain_cycles(family: str, H: int) -> int:
     """Cycles of one dependent step of a warp-cell kernel (GRU step, the int8/PWL
-    GRU step ``gru_q``, LTC or NODE substep): each matvec is a row exchange, H/4 FMAs deep (four partial
-    sums) and two adds to combine them; then what follows it on the chain."""
+    GRU step ``gru_q``, LTC substep, the int8/PWL LTC substep ``ltc_q``, NODE
+    substep): each matvec is a row exchange, H/4 FMAs deep (four partial sums)
+    and two adds to combine them; then what follows it on the chain."""
     matvec = LAT_EXCHANGE + (H // 4 + 2) * LAT_OP
     if family == "gru":  # + x.Wx + b, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
         return 2 * matvec + LAT_OP + LAT_SIGMOID + LAT_OP + LAT_OP + LAT_TANH + 4 * LAT_OP
@@ -471,13 +474,16 @@ def chain_cycles(family: str, H: int) -> int:
     if family == "ltc":  # + drive, sigmoid; sub_dt * f and the FMA of num (den's
         # inv_tau + f and FMA beside them); num / den
         return matvec + LAT_OP + LAT_SIGMOID + 2 * LAT_OP + LAT_DIV
+    if family == "ltc_q":  # + drive, PWL sigmoid; sub_dt * f, * a, + h, each rounded
+        # (den's three beside them); num / den
+        return matvec + LAT_OP + LAT_PWL + 3 * LAT_OP + LAT_DIV
     # node: + b_f1, tanh; + b_f2, * sub_dt, + h
     return 2 * matvec + LAT_OP + LAT_TANH + 3 * LAT_OP
 
 
 def chain_floor_ms(family: str, T: int, H: int, clock_hz: float, n_sub: int = SUBSTEPS) -> float:
     """T dependent steps (T * n_sub substeps for LTC and NODE) at ``chain_cycles``."""
-    steps = T * (n_sub if family in ("ltc", "node") else 1)
+    steps = T * (n_sub if family in ("ltc", "ltc_q", "node") else 1)
     return steps * chain_cycles(family, H) / clock_hz * 1e3
 
 
@@ -606,10 +612,10 @@ def main() -> None:
     def launch_int8(family, ops, head=True):
         return int8_kernel(family, ops, head)()
 
-    def int8_kernel(family, ops, head=True):
-        """A launch of an int8 kernel at the fitted tile on operands quantized
-        once: mr_step_int8 (``head``) or gru_scan_int8 for the GRU,
-        mr_step_ltc_int8 for the LTC."""
+    def int8_kernel(family, ops, head=True, block_b=None):
+        """A launch of an int8 kernel at ``block_b`` (None: the fitted tile)
+        on operands quantized once: mr_step_int8 (``head``) or gru_scan_int8
+        for the GRU, mr_step_ltc_int8 for the LTC."""
         act, (qa, qb, q1, q2), vec = quantized(ops, family)
         B, _, D = act[0].shape
         H, (Dh, K) = act[1].shape[1], q2.values.shape
@@ -617,7 +623,7 @@ def main() -> None:
         flat = lambda q: q.scale.reshape(-1)
         head_ops = (q1.values, flat(q1), vec[-2], q2.values, flat(q2), vec[-1])
         if family == "ltc":
-            bb = tiling.fit_block_b("ltc", B, D, H, Dh, K, int8=True)
+            bb = block_b or tiling.fit_block_b("ltc", B, D, H, Dh, K, int8=True)
             args = (*act, qa.values, flat(qa), qb.values, flat(qb), *vec[:3], sig, *head_ops)
             kw = dict(sub_dt=ltc_sub_dt(DT, SUBSTEPS), n_substeps=SUBSTEPS, block_b=bb)
             return lambda: mr_step_ltc_int8_cuda(*args, **kw)
@@ -625,7 +631,7 @@ def main() -> None:
         if not head:
             bb = tiling.fit_block_b("gru_scan", B, D, H, int8=True)
             return lambda: gru_scan_int8_cuda(*cell, block_b=bb)
-        bb = tiling.fit_block_b("gru", B, D, H, Dh, K, int8=True)
+        bb = block_b or tiling.fit_block_b("gru", B, D, H, Dh, K, int8=True)
         return lambda: mr_step_int8_cuda(*cell, *head_ops, block_b=bb)
 
     def plain_int8(family, ops, head=True):
@@ -773,20 +779,26 @@ def main() -> None:
             shape = f"warp cell (B={B} T={T} D={D} H={H} Dh={Dh} K={K} block_b={bb})"
             ops = operands(B, T, D, H, Dh, K, seed=40 + H, device=dev)
             calls = [("mr_step", f"flow={flow}", lambda b, f=flow: mr_step_cuda(*ops, flow=f, block_b=b),
-                      mr_step_reference(*ops, flow=flow), TILE_TOL) for flow in (True, False)]  # fmt: skip
+                      mr_step_reference(*ops, flow=flow), TILE_TOL, TOL) for flow in (True, False)]  # fmt: skip
             for family, seed, tile_tol in (("node", 50, TILE_TOL), ("ltc", 60, 0.0)):
                 f_ops = substep_operands(family, B, T, D, H, Dh, K, seed=seed + H, device=dev)
                 kernel, _, sub_dt = substep[family]
                 kw = dict(sub_dt=sub_dt(DT, SUBSTEPS), n_substeps=SUBSTEPS)
                 calls.append((f"mr_step_{family}", f"substeps={SUBSTEPS}",
                               lambda b, k=kernel, o=f_ops, kw=kw: k(*o, **kw, block_b=b),
-                              plain_substep(family, f_ops), tile_tol))  # fmt: skip
-            for kernel, what, launch, want, tile_tol in calls:
+                              plain_substep(family, f_ops), tile_tol, TOL))  # fmt: skip
+                if family == "ltc":  # the int8 twin on the same operands, bit for bit
+                    calls.append(("mr_step_ltc_int8", f"substeps={SUBSTEPS}",
+                                  lambda b, o=f_ops: int8_kernel("ltc", o, block_b=b)(),
+                                  plain_int8("ltc", f_ops), 0.0, INT8_TOL))  # fmt: skip
+            calls.append(("mr_step_int8", "", lambda b: int8_kernel("gru", ops, block_b=b)(),
+                          plain_int8("gru", ops), 0.0, INT8_TOL))  # fmt: skip
+            for kernel, what, launch, want, tile_tol, tol in calls:
                 out, one = launch(bb), launch(1)
                 torch.cuda.synchronize()
                 tile = (out - one).abs().max().item()
                 record(kernel, f"{shape} {what} (against block_b=1: {tile:.3e})",
-                       (out - want).abs().max().item())  # fmt: skip
+                       (out - want).abs().max().item(), tol)  # fmt: skip
                 check(tile <= tile_tol, f"{kernel} depends on the tile at {shape} {what}: {tile:.3e}")
 
     # -- 3. gradient parity ----------------------------------------------------
@@ -1695,7 +1707,8 @@ def main() -> None:
     # -- 10. where the time of a training step, a tick and an ssd_scan call goes --------
     device_timed = {}  # (kernel, shape label) -> the kernel's mean device ms
     with Phase("profile"):
-        profiled = [(k, KERNEL_SHAPES[i]) for i in (0, 3) for k in ("mr_step", "mr_step_ltc")]
+        profiled = [(k, KERNEL_SHAPES[i]) for i in (0, 3)
+                    for k in ("mr_step", "mr_step_ltc", "mr_step_int8", "mr_step_ltc_int8")]  # fmt: skip
         profiled += [("mr_step_node", KERNEL_SHAPES[0]), ("gru_scan", KERNEL_SHAPES[0]),
                      ("gru_scan (flow=False)", KERNEL_SHAPES[0]), ("mr_tick", None),
                      ("mr_tick_int8", None)]  # fmt: skip
@@ -1717,6 +1730,11 @@ def main() -> None:
             if kernel == "mr_step":
                 bb = tiling.fit_block_b("gru", B, D, H, Dh, K)
                 launch = lambda: mr_step_cuda(*ops, flow=True, block_b=bb)
+            elif kernel == "mr_step_int8":
+                launch = int8_kernel("gru", ops)
+            elif kernel == "mr_step_ltc_int8":
+                launch = int8_kernel("ltc", substep_operands("ltc", B, T, D, H, Dh, K, seed=20,
+                                                             device=dev))  # fmt: skip
             elif kernel == "gru_scan":
                 bb = tiling.fit_block_b("gru_scan", B, D, H)
                 flow = key == "gru_scan"
@@ -1742,9 +1760,8 @@ def main() -> None:
             d_ms = sum(times) / len(times)
             e_ms = timed[key, label][0]
             device_timed[key, label] = d_ms
-            family = {"mr_step_node": "node", "mr_step_ltc": "ltc", "mr_tick_int8": "gru_q"}.get(
-                kernel, "gru"
-            )
+            family = {"mr_step_node": "node", "mr_step_ltc": "ltc", "mr_tick_int8": "gru_q",
+                      "mr_step_int8": "gru_q", "mr_step_ltc_int8": "ltc_q"}.get(kernel, "gru")  # fmt: skip
             floor = chain_floor_ms(family, T, H, clock_mhz * 1e6)
             gap = abs(e_ms - d_ms) / d_ms
             host = ": the event time is the host's" if gap > EVENT_GAP else ""

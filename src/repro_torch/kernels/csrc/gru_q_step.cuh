@@ -1,6 +1,7 @@
-// Quantized standard-GRU step shared by the block-per-tile gru_scan_int8 and
-// mr_step_int8 kernels (mr_tick_int8 runs warp_cell.cuh's Int8Cell): int8 gate weights with one float scale per output
-// channel, PWL sigmoid and tanh (pwl.cuh), float32 sums.
+// Quantized standard-GRU step of the block-per-tile gru_scan_int8 kernel
+// (mr_step_int8 and mr_tick_int8 run warp_cell.cuh's Int8Cell): int8 gate
+// weights with one float scale per output channel, PWL sigmoid and tanh
+// (pwl.cuh), float32 sums.
 //
 // Counterpart of repro/kernels/gru_scan/kernel.py:174 (_gru_q_step_math),
 // which the TPU kernels share in the same way. One thread block owns a tile of `bb` windows and runs the

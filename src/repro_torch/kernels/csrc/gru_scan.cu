@@ -30,8 +30,8 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                     const float* __restrict__ b, const float* __restrict__ time_scale,
                     const float* __restrict__ dts, float* __restrict__ hs, int T, int D, int H_rt,
                     int bb) {
-  wc::gru_windows<N, FLOW, true>(xs, h0, wx, wh, b, time_scale, dts, nullptr, nullptr, nullptr,
-                                 nullptr, hs, T, D, H_rt, 0, 0, bb, 0, -1);
+  const wc::GruArgs args{wx, wh, b, time_scale, dts, nullptr, nullptr, nullptr, nullptr};
+  wc::gru_windows<N, FLOW, true>(xs, h0, args, hs, T, D, H_rt, 0, 0, bb, 0, -1);
 }
 
 // static: internal linkage, so each library keeps its own `allowed` record

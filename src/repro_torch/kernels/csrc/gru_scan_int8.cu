@@ -3,8 +3,7 @@
 // Replaces repro/kernels/gru_scan/kernel.py:246 gru_scan_pallas_int8 (body
 // _gru_scan_q_kernel, :207-243). One block per tile of `bb` windows runs the
 // whole time loop with the int8 gate weights, their scales, the PWL tables
-// and h in shared memory (gru_q_step.cuh, the step shared with mr_step_int8)
-// and writes each step's h.
+// and h in shared memory (gru_q_step.cuh) and writes each step's h.
 //
 // What bounds it on an H100: the chain of T dependent steps, two block
 // barriers each; the hs write (B*T*H floats) is the only sizeable traffic.

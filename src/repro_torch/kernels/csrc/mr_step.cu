@@ -35,8 +35,8 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ out, int T, int D, int H_rt,
                    int Dh, int K, int bb, int act_int, int act_frac) {
-  wc::gru_windows<N, FLOW, false>(xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, T, D,
-                                  H_rt, Dh, K, bb, act_int, act_frac);
+  const wc::GruArgs args{wx, wh, b, time_scale, dts, w1, b1, w2, b2};
+  wc::gru_windows<N, FLOW, false>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, act_int, act_frac);
 }
 
 // static: internal linkage, so each library keeps its own `allowed` record

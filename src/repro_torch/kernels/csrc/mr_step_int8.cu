@@ -3,39 +3,65 @@
 // precision="int8_pwl" on the GRU rows.
 //
 // Replaces repro/kernels/mr_step/kernel.py:251 mr_step_pallas_int8 (body
-// _mr_step_q_kernel, :196-248). One block per tile of `bb` windows: the int8
-// gate and head weights, their per-channel scales, the biases and the two
-// PWL tables are staged once in dynamic shared memory (about a quarter of
-// mr_step's carve), the scan runs inside the block (gru_q_step.cuh) and the
-// int8 head (head_q.cuh) reads h_T straight from shared memory. Per window
-// the only device-memory traffic is x in and the head output out.
+// _mr_step_q_kernel, :196-248; step gru_scan/kernel.py:174 _gru_q_step_math).
+// mr_step's warp-per-window recurrence on the warp cell's int8/PWL policy
+// (warp_cell.cuh gru_windows with GruQArgs: Int8Cell, Int8Head): a block of
+// `bb` windows stages the int8 gate and head weights, their per-column
+// scales, the biases and the two PWL tables once by cp.async (GruQLayout),
+// then each warp runs its window's T steps and the head with no block
+// barrier. At H <= 32 a lane dequantizes its units' 96 recurrent weights
+// once into registers, so no multiply is left on the chain; above, the block
+// dequantizes the columns once at staging into a column-major float copy,
+// read a float4 of a column a load as in mr_step (a dequantizing multiply and
+// conversion beside every FMA of the chain made H = 64 slower than the
+// block-per-tile kernel). x.Wx is computed a chunk of steps ahead; on the chain
+// each gate is (x.Wx + h.Wh) + b, both adds rounded, then the PWL sigmoid or
+// tanh with its IEEE division. The standard cell only: dts and time_scale are
+// not read. Per window the only device-memory traffic is x in and the head
+// output out.
 //
 // What bounds it on an H100: the chain of T dependent steps, as mr_step; at
 // the quickstart readout (B=193, T=32, D=2, H=32) ~45 MFLOP and ~28 KB, far
 // under a microsecond of the card's float32 rate. The tiling
 // (kernels/mr_step/tiling.py) keeps min(B, 132) blocks in the grid.
-#include "gru_q_step.cuh"
-#include "head_q.cuh"
+#include "warp_cell.cuh"
 
 namespace repro {
 
-__global__ void mr_step_int8_kernel(
-    const float* __restrict__ xs, const float* __restrict__ h0, const int8_t* __restrict__ wxq,
-    const int8_t* __restrict__ whq, const float* __restrict__ sx, const float* __restrict__ sh,
-    const float* __restrict__ b, const float* __restrict__ sig, const float* __restrict__ tnh,
-    const int8_t* __restrict__ w1q, const float* __restrict__ s1, const float* __restrict__ b1,
-    const int8_t* __restrict__ w2q, const float* __restrict__ s2, const float* __restrict__ b2,
-    float* __restrict__ out, int T, int D, int H, int Dh, int K, int bb, int n_seg) {
-  extern __shared__ float smem[];
-  const int b0 = blockIdx.x * bb;
-  GruQShared s;
-  float* p =
-      gru_q_setup(s, smem, wxq, whq, sx, sh, b, sig, tnh, h0 + (size_t)b0 * H, D, H, bb, n_seg);
-  HeadQShared hd;
-  head_q_setup(hd, p, w1q, s1, b1, w2q, s2, b2, H, Dh, K, bb);
-  // the head weights are first read after the scan's barriers
-  gru_q_scan_tile<false>(s, xs + (size_t)b0 * T * D, nullptr, T, D, H, bb, n_seg);
-  head_q_tile(hd, s.h, s.rh, out + (size_t)b0 * K, H, Dh, K, bb);
+template <int N>
+// minBlocksPerSM = 1, as mr_step: the cell's registers decide the schedule
+__global__ void __launch_bounds__(wc::kWarps * 32, 1)
+    mr_step_int8_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
+                        const int8_t* __restrict__ wxq, const int8_t* __restrict__ whq,
+                        const float* __restrict__ sx, const float* __restrict__ sh,
+                        const float* __restrict__ b, const float* __restrict__ sig,
+                        const float* __restrict__ tnh, const int8_t* __restrict__ w1q,
+                        const float* __restrict__ s1, const float* __restrict__ b1,
+                        const int8_t* __restrict__ w2q, const float* __restrict__ s2,
+                        const float* __restrict__ b2, float* __restrict__ out, int T, int D,
+                        int H_rt, int Dh, int K, int bb, int n_seg) {
+  const wc::GruQArgs args{wxq, whq, sx, sh, b, sig, tnh, w1q, s1, b1, w2q, s2, b2, n_seg};
+  wc::gru_windows<N, false, false>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, 0, -1);
+}
+
+// static: internal linkage, so each library keeps its own `allowed` record
+template <int N>
+static cudaError_t launch_mr_step_int8(const float* xs, const float* h0, const int8_t* wxq,
+                                       const int8_t* whq, const float* sx, const float* sh,
+                                       const float* b, const float* sig, const float* tnh,
+                                       const int8_t* w1q, const float* s1, const float* b1,
+                                       const int8_t* w2q, const float* s2, const float* b2,
+                                       float* out, int B, int T, int D, int H, int Dh, int K,
+                                       int bb, int n_seg, cudaStream_t stream) {
+  static size_t allowed[wc::kMaxDevices] = {};
+  const size_t smem = wc::GruQLayout(D, H, Dh, K, bb, pwl_floats(n_seg)).total * sizeof(float);
+  auto kernel = &mr_step_int8_kernel<N>;
+  cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / bb, 32 * wc::warps_for(bb), smem, stream>>>(
+      xs, h0, wxq, whq, sx, sh, b, sig, tnh, w1q, s1, b1, w2q, s2, b2, out, T, D, H, Dh, K, bb,
+      n_seg);
+  return cudaGetLastError();
 }
 
 }  // namespace repro
@@ -47,14 +73,16 @@ extern "C" int mr_step_int8_launch(const float* xs, const float* h0, const int8_
                                    const int8_t* w2q, const float* s2, const float* b2, float* out,
                                    int B, int T, int D, int H, int Dh, int K, int bb, int n_seg,
                                    void* stream) {
-  if (bb < 1 || B % bb != 0 || T < 1 || n_seg < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (repro::gru_q_shared_floats(D, H, bb, n_seg) +
-                       repro::head_q_shared_floats(H, Dh, K, bb)) *
-                      sizeof(float);
-  cudaError_t err = repro::allow_shared(repro::mr_step_int8_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  repro::mr_step_int8_kernel<<<B / bb, repro::tile_threads(bb, H), smem, (cudaStream_t)stream>>>(
-      xs, h0, wxq, whq, sx, sh, b, sig, tnh, w1q, s1, b1, w2q, s2, b2, out, T, D, H, Dh, K, bb,
-      n_seg);
-  return (int)cudaGetLastError();
+  if (bb < 1 || B % bb != 0 || T < 1 || n_seg < 1 || H < 1 || H > 32 * repro::wc::kMaxUnits)
+    return (int)cudaErrorInvalidValue;
+#define REPRO_MR_STEP_INT8(N)                                                                      \
+  repro::launch_mr_step_int8<N>(xs, h0, wxq, whq, sx, sh, b, sig, tnh, w1q, s1, b1, w2q, s2, b2,  \
+                                out, B, T, D, H, Dh, K, bb, n_seg, (cudaStream_t)stream)
+  switch (H) {
+    case 8: return (int)REPRO_MR_STEP_INT8(8);
+    case 32: return (int)REPRO_MR_STEP_INT8(32);
+    case 64: return (int)REPRO_MR_STEP_INT8(64);
+    default: return (int)REPRO_MR_STEP_INT8(0);
+  }
+#undef REPRO_MR_STEP_INT8
 }

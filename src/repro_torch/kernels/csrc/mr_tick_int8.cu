@@ -146,20 +146,13 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
 #pragma unroll
         for (int g = 0; g < 3; ++g)
 #pragma unroll
-          for (int q = 0; q < N / 4; ++q) {
-            const int8_t* w = whs + un.col[u] + g * H + 4 * q * H3;  // row-major
-            const float sc = shr[g][u];
-            wr[g][u][q] = make_float4(__fmul_rn((float)w[0], sc), __fmul_rn((float)w[H3], sc),
-                                      __fmul_rn((float)w[2 * H3], sc),
-                                      __fmul_rn((float)w[3 * H3], sc));
-          }
+          for (int q = 0; q < N / 4; ++q)  // row-major: k = 4q .. 4q + 3
+            wr[g][u][q] = wc::dequant4(wc::rows4(whs + un.col[u] + g * H + 4 * q * H3, H3),
+                                       shr[g][u]);
       }
     }
     auto col_at = [&](int q, int g, int u) {
-      const char4 w = wh4[(g * H + un.col[u]) * (S / 4) + q];
-      const float sc = shr[g][u];
-      return make_float4(__fmul_rn((float)w.x, sc), __fmul_rn((float)w.y, sc),
-                         __fmul_rn((float)w.z, sc), __fmul_rn((float)w.w, sc));
+      return wc::dequant4(wh4[(g * H + un.col[u]) * (S / 4) + q], shr[g][u]);
     };
     auto w_rz = [&](int q, int g, int u) {
       if constexpr (REG) return wr[g][u][q];

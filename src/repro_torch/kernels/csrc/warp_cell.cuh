@@ -1,9 +1,11 @@
 // Warp-per-window recurrences shared by the fused kernels mr_step.cu (GRU /
 // GRU-flow), mr_step_ltc.cu (LTC, semi-implicit substeps), mr_step_node.cu
 // (NODE, Euler substeps), the bare scan gru_scan.cu (mr_step's step without
-// the head, writing each step's h) and the banked service ticks mr_tick.cu
+// the head, writing each step's h), the banked service ticks mr_tick.cu
 // (mr_step's step and head over a slot's windows) and mr_tick_int8.cu (the
-// same with the int8/PWL standard GRU cell and int8 head).
+// same with the int8/PWL standard GRU cell and int8 head), and the int8/PWL
+// serving stages mr_step_int8.cu (mr_step's body on the int8 cell and head)
+// and mr_step_ltc_int8.cu (mr_step_ltc's body on the int8 substep and head).
 //
 // What bounds them on an H100: a window's scan is a chain of T dependent
 // steps (T * n_substeps for LTC and NODE) whose work is a few thousand FMAs
@@ -34,15 +36,20 @@
 //   on the lanes, layer 2 with each of the K outputs reduced by shuffles.
 //
 // The GRU's gate arithmetic is a policy of one set of loops (gru_terms_ahead,
-// gru_steps, warp_head), not a second copy of them: F32Cell and F32Head
-// (float weights, x.Wx + b ahead of the chain, the accurate sigmoid and
-// tanh) and Int8Cell and Int8Head, the int8/PWL serving cell of
+// gru_steps, warp_head, gru_windows), not a second copy of them: F32Cell and
+// F32Head (float weights, x.Wx + b ahead of the chain, the accurate sigmoid
+// and tanh) and Int8Cell and Int8Head, the int8/PWL serving cell of
 // repro/kernels/gru_scan/kernel.py:174 (_gru_q_step_math): each int8 weight
 // dequantized as __fmul_rn(float(q), scale[column]), the value the plain
 // version's dequantized weight holds; the slots ahead hold x.Wx alone and the
 // bias is added on the chain after the matvec, (x.Wx + h.Wh) + b with both
 // adds rounded; PWL sigmoid and tanh (pwl.cuh) on tables in shared memory;
-// each head layer's bias added after its sum and no activation step.
+// each head layer's bias added after its sum and no activation step. The LTC
+// substep is a policy of ltc_windows the same way: F32Ltc and Int8Ltc, the
+// int8/PWL substep of repro/kernels/mr_step/kernel.py:614 (_ltc_q_step_math),
+// every operation rounded apart as the plain version rounds it. A kernel's
+// operands (GruArgs, GruQArgs, LtcArgs, LtcQArgs) select the policy, the
+// carve and the staging.
 //
 // Precision: float32 throughout with the accurate expf, tanhf, log1pf and
 // the IEEE division (no fast-math, no approximate intrinsics); the partial
@@ -52,9 +59,12 @@
 // Shared memory: the block's weights (staged once, cp.async by every thread),
 // then one area a warp (two broadcast rows, the x chunks, the precomputed
 // slots). The layouts below are the carves; kernels/mr_step/tiling.py
-// mr_step_smem_bytes, gru_scan_smem_bytes, ltc_smem_bytes, node_smem_bytes
-// and tick_smem_bytes count the same regions.
+// mr_step_smem_bytes, gru_scan_smem_bytes, ltc_smem_bytes, node_smem_bytes,
+// int8_smem_bytes, ltc_int8_smem_bytes and tick_smem_bytes count the same
+// regions.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "head.cuh"  // quantize_fixed, kRmsEps
@@ -108,8 +118,9 @@ struct HeadLayout {
   }
 };
 
-// The int8 head's weights (mr_tick_int8): int8 w1 [H, Dh] and w2 [Dh, K] in
-// whole floats (q_floats), each beside its scales and bias.
+// The int8 head's weights (mr_tick_int8, mr_step_int8, mr_step_ltc_int8): int8
+// w1 [H, Dh] and w2 [Dh, K] in whole floats (q_floats), each beside its
+// scales and bias.
 struct HeadQLayout {
   size_t w1, s1, b1, w2, s2, b2;
   __host__ __device__ void carve(Carve& c, int H, int Dh, int K) {
@@ -147,6 +158,38 @@ struct GruLayout {
     dbuf[1] = w.take(kChunk);
     gx = w.take(kChunk * 3 * 32 * nu);
     phi = w.take(kChunk * 32 * nu);
+    per_warp = w.n;
+    total = warps + warps_for(bb) * per_warp;
+  }
+};
+
+// mr_step_int8: int8 wx [D, 3H], wh's 3H columns [3H, S] dequantized at
+// staging (at H <= 32 the region holds int8 wh row-major [H, 3H] instead, read
+// once into registers), the scales of wx and wh and b [3H], the PWL sigmoid and
+// tanh tables (P floats each), the int8 head; a warp: rows h and r*h (or the
+// head's hidden layer), two chunks of x [kChunk, D], the gates' x.Wx
+// [kChunk, 3, nu, 32].
+struct GruQLayout {
+  size_t wx, wh, sx, sh, b, sig, tnh, warps, row_h, row_r, xbuf[2], gx, per_warp, total;
+  HeadQLayout head;
+  __host__ __device__ GruQLayout(int D, int H, int Dh, int K, int bb, int P) {
+    const int nu = units_for(H), R = H > Dh ? H : Dh, S = col_stride(H);
+    Carve c;
+    wx = c.take(q_floats((size_t)D * 3 * H));
+    wh = c.take((size_t)3 * H * S);
+    sx = c.take(3 * H);
+    sh = c.take(3 * H);
+    b = c.take(3 * H);
+    sig = c.take(P);
+    tnh = c.take(P);
+    head.carve(c, H, Dh, K);
+    warps = c.n;
+    Carve w;
+    row_h = w.take(R);
+    row_r = w.take(R);
+    xbuf[0] = w.take(kChunk * D);
+    xbuf[1] = w.take(kChunk * D);
+    gx = w.take(kChunk * 3 * 32 * nu);
     per_warp = w.n;
     total = warps + warps_for(bb) * per_warp;
   }
@@ -194,6 +237,38 @@ struct LtcLayout {
     bias = c.take(H);
     a = c.take(H);
     itau = c.take(H);
+    head.carve(c, H, Dh, K);
+    warps = c.n;
+    Carve w;
+    row_h = w.take(R);
+    row_r = w.take(R);
+    xbuf[0] = w.take(kChunk * D);
+    xbuf[1] = w.take(kChunk * D);
+    drv = w.take(kChunk * 32 * nu);
+    per_warp = w.n;
+    total = warps + warps_for(bb) * per_warp;
+  }
+};
+
+// mr_step_ltc_int8: w_rec's columns [H, S] dequantized at staging (at H <= 32
+// the region holds int8 w_rec row-major [H, H] instead, read once into
+// registers), int8 w_in [D, H], the scales of w_in and w_rec, bias, a, inv_tau
+// [H], the PWL sigmoid table (P floats), the int8 head; a warp: as LtcLayout.
+struct LtcQLayout {
+  size_t wrec, win, s_in, s_rec, bias, a, itau, sig, warps, row_h, row_r, xbuf[2], drv, per_warp,
+      total;
+  HeadQLayout head;
+  __host__ __device__ LtcQLayout(int D, int H, int Dh, int K, int bb, int P) {
+    const int nu = units_for(H), R = H > Dh ? H : Dh, S = col_stride(H);
+    Carve c;
+    wrec = c.take((size_t)H * S);
+    win = c.take(q_floats((size_t)D * H));
+    s_in = c.take(H);
+    s_rec = c.take(H);
+    bias = c.take(H);
+    a = c.take(H);
+    itau = c.take(H);
+    sig = c.take(P);
     head.carve(c, H, Dh, K);
     warps = c.n;
     Carve w;
@@ -338,6 +413,23 @@ __device__ inline void copy_columns_q(int8_t* dst, const int8_t* __restrict__ sr
     for (int c = t; c < cols; c += nt) dst[(size_t)c * S + k] = src[(size_t)k * cols + c];
 }
 
+// The [rows, cols] row-major int8 matrix src dequantized into shared memory
+// column-major with a column stride of S floats, dst[c * S + k] =
+// __fmul_rn(float(src[k * cols + c]), scale[c]) (the value the plain version's
+// dequantized weight holds), by threads t, t + nt, ...: plain loads,
+// consecutive threads on consecutive columns. The caller publishes with a
+// barrier.
+__device__ inline void copy_columns_dequant(float* dst, const int8_t* __restrict__ src,
+                                            const float* __restrict__ scale, int rows, int cols,
+                                            int S, int t, int nt) {
+  for (int c = t; c < cols; c += nt) {
+    const float sc = scale[c];
+#pragma unroll 4
+    for (int k = 0; k < rows; ++k)
+      dst[(size_t)c * S + k] = __fmul_rn((float)src[(size_t)k * cols + c], sc);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // warp arithmetic
 // ---------------------------------------------------------------------------
@@ -350,6 +442,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
+}
+
+// The weights of k = 0 .. 3 of a column of a row-major matrix with n columns.
+__device__ __forceinline__ float4 rows4(const float* w, int n) {
+  return make_float4(w[0], w[n], w[2 * n], w[3 * n]);
+}
+__device__ __forceinline__ char4 rows4(const int8_t* w, int n) {
+  return make_char4(w[0], w[n], w[2 * n], w[3 * n]);
+}
+
+// Four int8 weights of one column dequantized with its scale, each
+// __fmul_rn(float(q), sc): the value the plain version's dequantized weight holds.
+__device__ __forceinline__ float4 dequant4(char4 w, float sc) {
+  return make_float4(__fmul_rn((float)w.x, sc), __fmul_rn((float)w.y, sc),
+                     __fmul_rn((float)w.z, sc), __fmul_rn((float)w.w, sc));
 }
 
 // out[g][u] = sum_{k < n} v[k] * W_g(k, u) for the G columns of each of the
@@ -500,6 +607,118 @@ struct Int8Head {
   }
 };
 
+// The head's policy on the weights a block staged at L (HeadLayout, HeadQLayout).
+__device__ __forceinline__ F32Head head_at(const float* smem, const HeadLayout& L, int Dh, int K) {
+  return {smem + L.w1, smem + L.b1, smem + L.w2, smem + L.b2, Dh, K};
+}
+__device__ __forceinline__ Int8Head head_at(const float* smem, const HeadQLayout& L, int Dh,
+                                            int K) {
+  return {reinterpret_cast<const int8_t*>(smem + L.w1), smem + L.s1, smem + L.b1,
+          reinterpret_cast<const int8_t*>(smem + L.w2), smem + L.s2, smem + L.b2, Dh, K};
+}
+
+// The LTC substep's arithmetic, a policy of ltc_windows: win_at the input
+// weight of (d, the lane's unit u in column col), drive the drive from its sum
+// x.W_in, step the new h from h, the drive and the recurrent sum h.W_rec.
+// F32Ltc (mr_step_ltc): float w_in, the accurate sigmoid, the update's
+// (sub_dt * f) * a and sub_dt * (inv_tau + f) as the plain version forms them,
+// each with its add fused into one FMA (what nvcc makes of a * b + c), and
+// the IEEE num / den.
+template <int U>
+struct F32Ltc {
+  const float* win;
+  int H;
+  float sub_dt;
+  float bias[U], a[U], itau[U];  // the lane's units'
+  __device__ __forceinline__ float win_at(int d, int, int col) const { return win[d * H + col]; }
+  __device__ __forceinline__ float drive(float xw, int u) const { return xw + bias[u]; }
+  __device__ __forceinline__ float step(float h, float drive, float rec, int u) const {
+    const float f = sigmoid(drive + rec);
+    const float num = fmaf(sub_dt * f, a[u], h);        // h + (sub_dt * f) * a
+    const float den = fmaf(sub_dt, itau[u] + f, 1.0f);  // 1 + sub_dt * (inv_tau + f)
+    return num / den;
+  }
+};
+
+// The int8/PWL substep (mr_step_ltc_int8): int8 w_in dequantized on use with
+// the lane's column scales, the PWL sigmoid on its table in shared memory, and
+// every operation rounded apart as the plain version (ltc_scan_int8_reference)
+// rounds it, so ptxas has no product and add to contract:
+// drive = x.W_in + bias; f = pwl(drive + h.W_rec);
+// h = (h + (sub_dt * f) * a) / (1 + sub_dt * (inv_tau + f)).
+template <int U>
+struct Int8Ltc {
+  const int8_t* win;
+  const float* sig_tab;
+  int H, n_seg;
+  float sub_dt;
+  float s_in[U], bias[U], a[U], itau[U];  // the lane's units'
+  __device__ __forceinline__ float win_at(int d, int u, int col) const {
+    return __fmul_rn((float)win[d * H + col], s_in[u]);
+  }
+  __device__ __forceinline__ float drive(float xw, int u) const { return __fadd_rn(xw, bias[u]); }
+  __device__ __forceinline__ float step(float h, float drive, float rec, int u) const {
+    const float f = pwl_eval(sig_tab, n_seg, __fadd_rn(drive, rec));
+    const float num = __fadd_rn(h, __fmul_rn(__fmul_rn(sub_dt, f), a[u]));
+    const float den = __fadd_rn(1.0f, __fmul_rn(sub_dt, __fadd_rn(itau[u], f)));
+    return __fdiv_rn(num, den);
+  }
+};
+
+// A kernel's operands in device memory; their type selects the policy, the
+// carve and the staging of gru_windows and ltc_windows. GruArgs (mr_step,
+// gru_scan): float weights, the flow gate's rates and dts, the float head;
+// GruQArgs (mr_step_int8): int8 weights beside their column scales, the PWL
+// sigmoid and tanh tables of n_seg segments, the int8 head; LtcArgs
+// (mr_step_ltc) and LtcQArgs (mr_step_ltc_int8) the same for the LTC.
+struct GruArgs {
+  const float *wx, *wh, *b, *time_scale, *dts, *w1, *b1, *w2, *b2;
+};
+struct GruQArgs {
+  const int8_t *wx, *wh;
+  const float *sx, *sh, *b, *sig, *tnh;
+  const int8_t* w1;
+  const float *s1, *b1;
+  const int8_t* w2;
+  const float *s2, *b2;
+  int n_seg;
+};
+struct LtcArgs {
+  const float *w_in, *w_rec, *bias, *a, *inv_tau, *w1, *b1, *w2, *b2;
+};
+struct LtcQArgs {
+  const int8_t* w_in;
+  const float* s_in;
+  const int8_t* w_rec;
+  const float *s_rec, *bias, *a, *inv_tau, *sig;
+  const int8_t* w1;
+  const float *s1, *b1;
+  const int8_t* w2;
+  const float *s2, *b2;
+  int n_seg;
+};
+
+// The head's weights into the block's carve at L by threads t, t + nt, ...;
+// the caller commits, waits and publishes.
+template <class A>
+__device__ __forceinline__ void stage_head(float* smem, const HeadLayout& L, const A& a, int H,
+                                           int Dh, int K, int t, int nt) {
+  copy_async(smem + L.w1, a.w1, H * Dh, t, nt);
+  copy_async(smem + L.b1, a.b1, Dh, t, nt);
+  copy_async(smem + L.w2, a.w2, Dh * K, t, nt);
+  copy_async(smem + L.b2, a.b2, K, t, nt);
+}
+template <class A>
+__device__ __forceinline__ void stage_head(float* smem, const HeadQLayout& L, const A& a, int H,
+                                           int Dh, int K, int t, int nt) {
+  copy_bytes_async(reinterpret_cast<int8_t*>(smem + L.w1), a.w1, H * Dh, t, nt);
+  copy_async(smem + L.s1, a.s1, Dh, t, nt);
+  copy_async(smem + L.b1, a.b1, Dh, t, nt);
+  copy_bytes_async(reinterpret_cast<int8_t*>(smem + L.w2), a.w2, Dh * K, t, nt);
+  copy_async(smem + L.s2, a.s2, K, t, nt);
+  copy_async(smem + L.b2, a.b2, K, t, nt);
+}
+
 // The GRU step's h-independent terms for a chunk of kChunk steps, each lane
 // for its own units: x.Wx over d for all the chunk's steps at once (kChunk
 // independent sums a gate), then the cell's ahead (b, for F32Cell), into the
@@ -630,53 +849,67 @@ __device__ __forceinline__ void warp_head(const Units<U>& un, const float (&h)[U
 }
 
 // The body of the GRU kernels that read their windows from device memory,
-// mr_step.cu and gru_scan.cu: a block of `bb` windows (GruLayout) stages the
-// gate weights and, for mr_step, the head's once, meets its one barrier, and
-// each warp runs its windows' T steps, the x chunk and dts staged by cp.async
-// a chunk ahead and x.Wx + b and the flow gate's phi(t) * alpha computed
-// ahead of each chunk. HS (gru_scan): each step's h goes to out = hs
-// [B, T, H], the lanes on consecutive columns, and there is no head (Dh = K =
-// 0); else the head's K outputs go to out [B, K].
-template <int N, bool FLOW, bool HS>
-__device__ __forceinline__ void gru_windows(
-    const float* __restrict__ xs, const float* __restrict__ h0, const float* __restrict__ wx,
-    const float* __restrict__ wh, const float* __restrict__ b,
-    const float* __restrict__ time_scale, const float* __restrict__ dts,
-    const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* __restrict__ out, int T, int D, int H_rt, int Dh, int K,
-    int bb, int act_int, int act_frac) {
+// mr_step.cu, gru_scan.cu and mr_step_int8.cu: a block of `bb` windows stages
+// the gate weights and, for the fused stages, the head's once (GruLayout, or
+// GruQLayout for the int8 operands GruQArgs), meets its one barrier, and each
+// warp runs its windows' T steps, the x chunk (and the flow gate's dts) staged
+// by cp.async a chunk ahead and the cell's terms ahead (x.Wx + b, or x.Wx
+// alone on the int8 cell) and the flow gate's phi(t) * alpha computed ahead of
+// each chunk. HS (gru_scan): each step's h goes to out = hs [B, T, H], the
+// lanes on consecutive columns, and there is no head (Dh = K = 0); else the
+// head's K outputs go to out [B, K].
+template <int N, bool FLOW, bool HS, class A>
+__device__ __forceinline__ void gru_windows(const float* __restrict__ xs,
+                                            const float* __restrict__ h0, const A& args,
+                                            float* __restrict__ out, int T, int D, int H_rt,
+                                            int Dh, int K, int bb, int act_int, int act_frac) {
+  constexpr bool Q = std::is_same_v<A, GruQArgs>;
+  static_assert(!(Q && FLOW), "the int8/PWL cell is the standard GRU");
   constexpr int U = N > 0 ? (N + 31) / 32 : kMaxUnits;
   constexpr bool REG = N > 0 && N <= 32;  // the recurrent columns fit in registers
   const int H = width<N>(H_rt), H3 = 3 * H, S = col_stride(H);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const GruLayout L(D, H, Dh, K, bb);
+  const auto L = [&] {
+    if constexpr (Q) return GruQLayout(D, H, Dh, K, bb, pwl_floats(args.n_seg));
+    else return GruLayout(D, H, Dh, K, bb);
+  }();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
   const int b0 = blockIdx.x * bb;
   float* area = smem + L.warps + warp * L.per_warp;
 
-  // a window's x chunk [t0, t0 + kChunk) and its dts into slot s of the warp's area
+  // a window's x chunk [t0, t0 + kChunk) (and its dts) into slot s of the warp's area
   auto stage_chunk = [&](int s, int window, int t0) {
     const int nc = min(kChunk, T - t0);
     float* dst = area + (s ? L.xbuf[1] : L.xbuf[0]);
     copy_async(dst, xs + ((size_t)window * T + t0) * D, nc * D, lane, 32);
-    copy_async(area + (s ? L.dbuf[1] : L.dbuf[0]), dts + t0, nc, lane, 32);
+    if constexpr (!Q) copy_async(area + (s ? L.dbuf[1] : L.dbuf[0]), args.dts + t0, nc, lane, 32);
   };
 
   // staging: the weights by every thread, each warp's first x chunk by the warp
-  copy_async(smem + L.wx, wx, D * H3, threadIdx.x, blockDim.x);
-  if constexpr (REG)  // read once into registers: row-major, 16-byte copies
-    copy_async(smem + L.wh, wh, H * H3, threadIdx.x, blockDim.x);
-  else  // read every step: column-major, a float4 of a column per load
-    copy_columns_async(smem + L.wh, wh, H, H3, S, threadIdx.x, blockDim.x);
-  copy_async(smem + L.b, b, H3, threadIdx.x, blockDim.x);
-  copy_async(smem + L.ts, time_scale, H, threadIdx.x, blockDim.x);
-  if constexpr (!HS) {
-    copy_async(smem + L.head.w1, w1, H * Dh, threadIdx.x, blockDim.x);
-    copy_async(smem + L.head.b1, b1, Dh, threadIdx.x, blockDim.x);
-    copy_async(smem + L.head.w2, w2, Dh * K, threadIdx.x, blockDim.x);
-    copy_async(smem + L.head.b2, b2, K, threadIdx.x, blockDim.x);
+  if constexpr (Q) {
+    if constexpr (REG)  // dequantized once into registers: int8 row-major, 16-byte copies
+      copy_bytes_async(reinterpret_cast<int8_t*>(smem + L.wh), args.wh, H * H3, threadIdx.x,
+                       blockDim.x);
+    else  // read every step: dequantized once, column-major, a float4 of a column per load
+      copy_columns_dequant(smem + L.wh, args.wh, args.sh, H, H3, S, threadIdx.x, blockDim.x);
+    copy_bytes_async(reinterpret_cast<int8_t*>(smem + L.wx), args.wx, D * H3, threadIdx.x,
+                     blockDim.x);
+    copy_async(smem + L.sx, args.sx, H3, threadIdx.x, blockDim.x);
+    copy_async(smem + L.sh, args.sh, H3, threadIdx.x, blockDim.x);
+    copy_async(smem + L.b, args.b, H3, threadIdx.x, blockDim.x);
+    copy_async(smem + L.sig, args.sig, pwl_floats(args.n_seg), threadIdx.x, blockDim.x);
+    copy_async(smem + L.tnh, args.tnh, pwl_floats(args.n_seg), threadIdx.x, blockDim.x);
+  } else {
+    copy_async(smem + L.wx, args.wx, D * H3, threadIdx.x, blockDim.x);
+    if constexpr (REG)  // read once into registers: row-major, 16-byte copies
+      copy_async(smem + L.wh, args.wh, H * H3, threadIdx.x, blockDim.x);
+    else  // read every step: column-major, a float4 of a column per load
+      copy_columns_async(smem + L.wh, args.wh, H, H3, S, threadIdx.x, blockDim.x);
+    copy_async(smem + L.b, args.b, H3, threadIdx.x, blockDim.x);
+    copy_async(smem + L.ts, args.time_scale, H, threadIdx.x, blockDim.x);
   }
+  if constexpr (!HS) stage_head(smem, L.head, args, H, Dh, K, threadIdx.x, blockDim.x);
   stage_chunk(0, b0 + warp, 0);
   cp_async_commit();
   const Units<U> un(H);
@@ -685,30 +918,47 @@ __device__ __forceinline__ void gru_windows(
   cp_async_wait<0>();
   __syncthreads();  // the block's only barrier
 
-  // wh's column g * H + j, k = 4q .. 4q + 3: a float4 of the column-major copy
-  const float4* wh4 = reinterpret_cast<const float4*>(smem + L.wh);
-  auto wh_at = [&](int q, int g, int u) { return wh4[(g * H + un.col[u]) * (S / 4) + q]; };
-  F32Cell<U> cell;
-  cell.wx = smem + L.wx;
+  // the lane's constants: its units' biases (the int8 cell: and wx's scales),
+  // the flow gate's rates, and at H <= 32 its recurrent columns (the int8
+  // cell: dequantized here, so no multiply is left on the chain)
+  std::conditional_t<Q, Int8Cell<U>, F32Cell<U>> cell;
   cell.H = H;
+  if constexpr (Q) {
+    cell.wx = reinterpret_cast<const int8_t*>(smem + L.wx);
+    cell.sig_tab = smem + L.sig;
+    cell.tanh_tab = smem + L.tnh;
+    cell.n_seg = args.n_seg;
+  } else {
+    cell.wx = smem + L.wx;
+  }
   float sp[U];
   float4 wr[REG ? 3 : 1][U][REG ? N / 4 : 1];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
 #pragma unroll
-    for (int g = 0; g < 3; ++g) cell.bias[g][u] = smem[L.b + g * H + un.col[u]];
-    sp[u] = softplus(smem[L.ts + un.col[u]]);
+    for (int g = 0; g < 3; ++g) {
+      const int j = g * H + un.col[u];
+      cell.bias[g][u] = smem[L.b + j];
+      if constexpr (Q) cell.sx[g][u] = smem[L.sx + j];
+    }
+    if constexpr (!Q) sp[u] = softplus(smem[L.ts + un.col[u]]);
     if constexpr (REG) {
-      const float* c = smem + L.wh + un.col[u];
 #pragma unroll
       for (int g = 0; g < 3; ++g)
 #pragma unroll
         for (int q = 0; q < N / 4; ++q) {
-          const float* w = c + g * H + 4 * q * H3;  // row-major: k = 4q .. 4q + 3
-          wr[g][u][q] = make_float4(w[0], w[H3], w[2 * H3], w[3 * H3]);
+          const int at = un.col[u] + g * H + 4 * q * H3;  // row-major: k = 4q .. 4q + 3
+          if constexpr (Q)
+            wr[g][u][q] = dequant4(rows4(reinterpret_cast<const int8_t*>(smem + L.wh) + at, H3),
+                                   smem[L.sh + g * H + un.col[u]]);
+          else
+            wr[g][u][q] = rows4(smem + L.wh + at, H3);
         }
     }
   }
+  // wh's column g * H + j, k = 4q .. 4q + 3: a float4 of the column-major copy
+  const float4* wh4 = reinterpret_cast<const float4*>(smem + L.wh);
+  auto wh_at = [&](int q, int g, int u) { return wh4[(g * H + un.col[u]) * (S / 4) + q]; };
   auto w_rz = [&](int q, int g, int u) {
     if constexpr (REG) return wr[g][u][q];
     else return wh_at(q, g, u);
@@ -721,7 +971,8 @@ __device__ __forceinline__ void gru_windows(
   float* row_h = area + L.row_h;
   float* row_r = area + L.row_r;
   float* gxs = area + L.gx;
-  float* phis = area + L.phi;
+  float* phis = nullptr;  // the flow gate's phi * alpha
+  if constexpr (!Q) phis = area + L.phi;
   const int nu = un.nu;
   int slot = 0;
   for (int w = warp; w < bb; w += n_warps) {
@@ -737,9 +988,10 @@ __device__ __forceinline__ void gru_windows(
       const int nc = min(kChunk, T - t0);
       cp_async_wait<0>();
       __syncwarp();  // this chunk's x and dts have arrived; row_h holds h
-      // the chunk's h-independent terms: x.Wx + b, and the flow gate's phi * alpha
+      // the chunk's h-independent terms: the cell's x.Wx (+ b), and the flow gate's phi * alpha
       const float* xc = area + (slot ? L.xbuf[1] : L.xbuf[0]);
-      const float* dc = area + (slot ? L.dbuf[1] : L.dbuf[0]);
+      const float* dc = nullptr;
+      if constexpr (!Q) dc = area + (slot ? L.dbuf[1] : L.dbuf[0]);
       gru_terms_ahead<U>(un, cell, xc, D, gxs, [&](int c, int u) {
         if (FLOW) phis[(c * nu + u) * 32 + lane] = tanhf(sp[u] * dc[c]) * kInvLipschitzAlpha;
       });
@@ -760,10 +1012,183 @@ __device__ __forceinline__ void gru_windows(
                             });
     }
     if constexpr (!HS) {
-      const F32Head hd{smem + L.head.w1, smem + L.head.b1, smem + L.head.w2, smem + L.head.b2,
-                       Dh, K};
+      const auto hd = head_at(smem, L.head, Dh, K);
       warp_head<N, U>(un, h, H, hd, row_h, row_r, out + (size_t)window * K, act_int, act_frac);
     }
+  }
+}
+
+// The body of the LTC kernels, mr_step_ltc.cu and mr_step_ltc_int8.cu: a block
+// of `bb` windows (LtcLayout, or LtcQLayout for the int8 operands LtcQArgs)
+// stages w_rec, w_in, bias, a, inv_tau and the head weights once, meets its one
+// barrier, and each warp runs its windows' T * n_substeps substeps and the
+// head. A substep's chain is h.W_rec (four partial sums an output, from
+// registers at H <= 32), the add of the drive, the activation, the numerator
+// and denominator and their IEEE division (the policy's step); the drive
+// x_t.W_in + bias was computed before the chunk of steps from an x chunk that
+// cp.async staged a chunk ahead.
+template <int N, class A>
+__device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
+                                            const float* __restrict__ h0, const A& args,
+                                            float* __restrict__ out, int T, int D, int H_rt,
+                                            int Dh, int K, int bb, int n_substeps, float sub_dt,
+                                            int act_int, int act_frac) {
+  constexpr bool Q = std::is_same_v<A, LtcQArgs>;
+  constexpr int U = N > 0 ? (N + 31) / 32 : kMaxUnits;
+  constexpr bool REG = N > 0 && N <= 32;  // w_rec's columns fit in registers
+  const int H = width<N>(H_rt), S = col_stride(H);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const auto L = [&] {
+    if constexpr (Q) return LtcQLayout(D, H, Dh, K, bb, pwl_floats(args.n_seg));
+    else return LtcLayout(D, H, Dh, K, bb);
+  }();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  const int b0 = blockIdx.x * bb;
+  float* area = smem + L.warps + warp * L.per_warp;
+
+  // a window's x chunk [t0, t0 + kChunk) into slot s of the warp's area
+  auto stage_chunk = [&](int s, int window, int t0) {
+    const int nc = min(kChunk, T - t0);
+    float* dst = area + (s ? L.xbuf[1] : L.xbuf[0]);
+    copy_async(dst, xs + ((size_t)window * T + t0) * D, nc * D, lane, 32);
+  };
+
+  // staging: the weights by every thread, each warp's first x chunk by the warp
+  if constexpr (Q) {
+    if constexpr (REG)  // dequantized once into registers: int8 row-major, 16-byte copies
+      copy_bytes_async(reinterpret_cast<int8_t*>(smem + L.wrec), args.w_rec, H * H, threadIdx.x,
+                       blockDim.x);
+    else  // read every substep: dequantized once, column-major, a float4 of a column per load
+      copy_columns_dequant(smem + L.wrec, args.w_rec, args.s_rec, H, H, S, threadIdx.x,
+                           blockDim.x);
+    copy_bytes_async(reinterpret_cast<int8_t*>(smem + L.win), args.w_in, D * H, threadIdx.x,
+                     blockDim.x);
+    copy_async(smem + L.s_in, args.s_in, H, threadIdx.x, blockDim.x);
+    copy_async(smem + L.s_rec, args.s_rec, H, threadIdx.x, blockDim.x);
+    copy_async(smem + L.sig, args.sig, pwl_floats(args.n_seg), threadIdx.x, blockDim.x);
+  } else {
+    if constexpr (REG)  // read once into registers: row-major, 16-byte copies
+      copy_async(smem + L.wrec, args.w_rec, H * H, threadIdx.x, blockDim.x);
+    else  // read every substep: column-major, a float4 of a column per load
+      copy_columns_async(smem + L.wrec, args.w_rec, H, H, S, threadIdx.x, blockDim.x);
+    copy_async(smem + L.win, args.w_in, D * H, threadIdx.x, blockDim.x);
+  }
+  copy_async(smem + L.bias, args.bias, H, threadIdx.x, blockDim.x);
+  copy_async(smem + L.a, args.a, H, threadIdx.x, blockDim.x);
+  copy_async(smem + L.itau, args.inv_tau, H, threadIdx.x, blockDim.x);
+  stage_head(smem, L.head, args, H, Dh, K, threadIdx.x, blockDim.x);
+  stage_chunk(0, b0 + warp, 0);
+  cp_async_commit();
+  const Units<U> un(H);
+  float h_next[U];  // the warp's next window's h0, loaded ahead of its use
+  load_h0(un, h_next, h0 + (size_t)(b0 + warp) * H);
+  cp_async_wait<0>();
+  __syncthreads();  // the block's only barrier
+
+  // the lane's constants: its units' bias, a and inv_tau (the int8 substep:
+  // and w_in's scales), and at H <= 32 its w_rec columns (the int8 substep:
+  // dequantized here, so no multiply is left on the chain)
+  std::conditional_t<Q, Int8Ltc<U>, F32Ltc<U>> cell;
+  cell.H = H;
+  cell.sub_dt = sub_dt;
+  if constexpr (Q) {
+    cell.win = reinterpret_cast<const int8_t*>(smem + L.win);
+    cell.sig_tab = smem + L.sig;
+    cell.n_seg = args.n_seg;
+  } else {
+    cell.win = smem + L.win;
+  }
+  float4 wr[U][REG ? N / 4 : 1];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    cell.bias[u] = smem[L.bias + un.col[u]];
+    cell.a[u] = smem[L.a + un.col[u]];
+    cell.itau[u] = smem[L.itau + un.col[u]];
+    if constexpr (Q) cell.s_in[u] = smem[L.s_in + un.col[u]];
+    if constexpr (REG) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const int at = 4 * q * H + un.col[u];  // row-major: k = 4q .. 4q + 3
+        if constexpr (Q)
+          wr[u][q] = dequant4(rows4(reinterpret_cast<const int8_t*>(smem + L.wrec) + at, H),
+                              smem[L.s_rec + un.col[u]]);
+        else
+          wr[u][q] = rows4(smem + L.wrec + at, H);
+      }
+    }
+  }
+  // column j of w_rec, k = 4q .. 4q + 3, from the column-major copy
+  const float4* wrec4 = reinterpret_cast<const float4*>(smem + L.wrec);
+  auto w_recc = [&](int q, int, int u) {
+    if constexpr (REG) return wr[u][q];
+    else return wrec4[un.col[u] * (S / 4) + q];
+  };
+
+  float* row_h = area + L.row_h;
+  float* row_r = area + L.row_r;
+  float* drvs = area + L.drv;
+  const int nu = un.nu;
+  int slot = 0;
+  for (int w = warp; w < bb; w += n_warps) {
+    const int window = b0 + w;
+    __syncwarp();  // the previous window's head has read row_h
+    float h[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      h[u] = h_next[u];
+      if (un.own[u]) row_h[un.col[u]] = h[u];
+    }
+    for (int t0 = 0; t0 < T; t0 += kChunk) {
+      const int nc = min(kChunk, T - t0);
+      cp_async_wait<0>();
+      __syncwarp();  // this chunk's x has arrived; row_h holds h
+      // the chunk's drives x_t . W_in + bias, each lane for its own units:
+      // over d for all kChunk steps at once (kChunk independent sums), then bias
+      const float* xc = area + (slot ? L.xbuf[1] : L.xbuf[0]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= nu) continue;
+        float acc[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) acc[c] = 0.0f;
+        for (int d = 0; d < D; ++d) {
+          const float wd = cell.win_at(d, u, un.col[u]);
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)  // past nc: unread
+            acc[c] = fmaf(xc[c * D + d], wd, acc[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) drvs[(c * nu + u) * 32 + lane] = cell.drive(acc[c], u);
+      }
+      // the next chunk's x (or the next window's first) while this one runs
+      if (t0 + kChunk < T) stage_chunk(slot ^ 1, window, t0 + kChunk);
+      else if (w + n_warps < bb) {
+        stage_chunk(slot ^ 1, window + n_warps, 0);
+        load_h0(un, h_next, h0 + (size_t)(window + n_warps) * H);
+      }
+      cp_async_commit();
+      slot ^= 1;
+
+      for (int c = 0; c < nc; ++c) {
+        float drive[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) drive[u] = u < nu ? drvs[(c * nu + u) * 32 + lane] : 0.0f;
+        for (int s = 0; s < n_substeps; ++s) {
+          float rec[1][U];
+          matvec<N, 1, U>(row_h, H, nu, w_recc, rec);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (u >= nu) continue;
+            h[u] = cell.step(h[u], drive[u], rec[0][u], u);
+            if (un.own[u]) row_h[un.col[u]] = h[u];
+          }
+          __syncwarp();
+        }
+      }
+    }
+    const auto hd = head_at(smem, L.head, Dh, K);
+    warp_head<N, U>(un, h, H, hd, row_h, row_r, out + (size_t)window * K, act_int, act_frac);
   }
 }
 

@@ -27,14 +27,17 @@ field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
 ``"gru_scan"`` for the bare scan (``csrc/gru_scan.cu``: ``mr_step``'s carve
 with no head).
 
-The int8 serving kernels ``csrc/gru_scan_int8.cu``, ``mr_step_int8.cu`` and
-``mr_step_ltc_int8.cu`` keep the block-per-tile design (one thread a (window,
-unit) pair): they carve the same buffers with the weights as int8 (rounded up
-to whole floats), one float scale per output channel beside them, and the
-packed PWL tables (``core/quant.py`` ``PWL_FLOATS`` floats each); the
-functions below that serve both kinds take ``int8=True`` for them. ``mr_step_ltc_int8`` gives
-each (window, hidden unit) pair its own thread, so its tile also keeps
-``block_b * H`` within one block's 1024 threads.
+The int8 serving stages ``csrc/mr_step_int8.cu`` and ``mr_step_ltc_int8.cu``
+are the same warp-per-window recurrences on the warp cell's int8/PWL policy:
+their carves (``int8_smem_bytes``, ``ltc_int8_smem_bytes``) hold the input
+and head weights as int8 (rounded up to whole floats), the recurrent columns
+dequantized once (as the fp32 twin's, or the int8 rows at H <= 32, which each
+lane dequantizes into its registers), one float scale per output channel and
+the packed PWL tables (``core/quant.py`` ``PWL_FLOATS`` floats each), and
+their tile follows the same rule. The int8 scan ``csrc/gru_scan_int8.cu``
+keeps the block-per-tile design (one thread a (window, unit) pair,
+``gru_scan_int8_smem_bytes``). The functions below that serve both kinds take
+``int8=True`` for the int8 kernels.
 
 The banked service ticks (``csrc/mr_tick.cu``, and its int8/PWL twin
 ``mr_tick_int8.cu`` on the warp cell's int8 policy) spread one slot's N
@@ -53,7 +56,6 @@ from repro_torch.core.quant import PWL_FLOATS
 
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most dynamic shared memory a block can use
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
-MAX_THREADS = 1024  # threads a block can have
 FAMILIES = ("gru", "ltc", "node", "gru_scan")
 
 
@@ -126,9 +128,10 @@ def q_floats(n: int) -> int:
     return (n + 3) // 4
 
 
-def head_q_floats(H: int, Dh: int, K: int, block_b: int) -> int:
-    """``csrc/head_q.cuh``: scales and biases, the hidden layer, int8 w1 and w2."""
-    return 2 * Dh + 2 * K + block_b * Dh + q_floats(H * Dh) + q_floats(Dh * K)
+def _cell_head_q_floats(H: int, Dh: int, K: int) -> int:
+    """``warp_cell.cuh`` ``HeadQLayout``: int8 w1, its scales, b1, int8 w2,
+    its scales, b2."""
+    return sum(map(_pad4, (q_floats(H * Dh), Dh, Dh, q_floats(Dh * K), K, K)))
 
 
 def gru_q_floats(D: int, H: int, block_b: int) -> int:
@@ -144,15 +147,27 @@ def gru_scan_int8_smem_bytes(D: int, H: int, block_b: int) -> int:
 
 
 def int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """``mr_step_int8``: the quantized scan, then the int8 head."""
-    return 4 * (gru_q_floats(D, H, block_b) + head_q_floats(H, Dh, K, block_b))
+    """``mr_step_int8`` (``warp_cell.cuh`` ``GruQLayout``): int8 wx in whole
+    floats, wh's 3H columns dequantized (at H <= 32 the int8 rows in their
+    place), the scales of both, b, the two PWL tables and the int8 head once; a
+    warp: two rows, two x chunks, the gates' x.Wx for a chunk."""
+    nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
+    block = (sum(map(_pad4, (q_floats(D * 3 * H), 3 * H * S, 3 * H, 3 * H, 3 * H, PWL_FLOATS,
+                             PWL_FLOATS))) + _cell_head_q_floats(H, Dh, K))  # fmt: skip
+    warp = 2 * _pad4(R) + 2 * _pad4(C * D) + _pad4(C * 3 * 32 * nu)
+    return 4 * (block + cell_warps(block_b) * warp)
 
 
 def ltc_int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
-    """``mr_step_ltc_int8``: two scale rows, bias, a, inv_tau, the sigmoid
-    table, two h buffers, int8 w_in and w_rec, the int8 head."""
-    floats = 5 * H + PWL_FLOATS + 2 * block_b * H + q_floats(D * H) + q_floats(H * H)
-    return 4 * (floats + head_q_floats(H, Dh, K, block_b))
+    """``mr_step_ltc_int8`` (``warp_cell.cuh`` ``LtcQLayout``): w_rec's columns
+    dequantized (at H <= 32 the int8 rows in their place), int8 w_in in whole
+    floats, the scales of both, bias, a, inv_tau, the sigmoid table and the
+    int8 head once; a warp as ``mr_step_ltc``'s."""
+    nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
+    block = (sum(map(_pad4, (H * S, q_floats(D * H), H, H, H, H, H, PWL_FLOATS)))
+             + _cell_head_q_floats(H, Dh, K))  # fmt: skip
+    warp = 2 * _pad4(R) + 2 * _pad4(C * D) + _pad4(C * 32 * nu)
+    return 4 * (block + cell_warps(block_b) * warp)
 
 
 def family_smem_bytes(
@@ -206,9 +221,8 @@ def fit_block_b(
     int8: bool = False,
 ) -> int:
     """Largest tile that divides ``batch``, fits the shared-memory budget and
-    leaves at least ``min(batch, N_SMS)`` blocks in the grid (and, for
-    ``mr_step_ltc_int8``, at most ``MAX_THREADS`` (window, unit) pairs).
-    ``int8`` fits the family's int8 serving kernel.
+    leaves at least ``min(batch, N_SMS)`` blocks in the grid. ``int8`` fits
+    the family's int8 serving kernel.
 
     Raises when not even one window fits the budget: the weights alone
     overflow a block.
@@ -220,8 +234,7 @@ def fit_block_b(
 
     min_blocks = min(batch, N_SMS)
     for bb in block_b_candidates(batch):
-        threads_ok = not (int8 and family == "ltc") or bb * H <= MAX_THREADS
-        if batch // bb >= min_blocks and threads_ok and nbytes(bb) <= budget:
+        if batch // bb >= min_blocks and nbytes(bb) <= budget:
             return bb
     raise ValueError(
         f"no batch tile fits {budget} bytes of shared memory: one window needs "
@@ -285,9 +298,9 @@ def tick_smem_bytes(D: int, H: int, Dh: int, Ko: int, N: int, T: int, int8: bool
     nu, C, R, S = -(-H // 32), CELL_CHUNK, max(H, Dh), col_stride(H)
     Tc = -(-T // C) * C
     if int8:
-        head = sum(map(_pad4, (q_floats(H * Dh), Dh, Dh, q_floats(Dh * Ko), Ko, Ko)))
         block = (sum(map(_pad4, (q_floats(D * 3 * H), q_floats(3 * H * S), 3 * H, 3 * H, 3 * H,
-                                 PWL_FLOATS, PWL_FLOATS))) + head + _pad4(N * Ko))  # fmt: skip
+                                 PWL_FLOATS, PWL_FLOATS))) + _cell_head_q_floats(H, Dh, Ko)
+                 + _pad4(N * Ko))  # fmt: skip
     else:
         block = (sum(map(_pad4, (D * 3 * H, 3 * H * S, 3 * H, H))) + _cell_head_floats(H, Dh, Ko)
                  + _pad4(N * Ko))  # fmt: skip

@@ -2,9 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_phases [--baseline CSRC_DIR]
 
-Builds the six warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
-``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan ``gru_scan.cu`` and
-the banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu``, as they are and in
+Builds the eight warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
+``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan ``gru_scan.cu``, the
+int8/PWL stages ``mr_step_int8.cu`` and ``mr_step_ltc_int8.cu`` and the
+banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu``, as they are and in
 copies with one phase switched off -- the chain of steps, the h-independent
 terms computed ahead of it, the head (the scan: its hs write), and for the
 ticks the ingest (the ring roll and each warp's window build) and the
@@ -13,8 +14,10 @@ run in parallel), and times every build's kernels with ``torch.profiler``
 (the mean device time of 25 launches). The fused kernels and the scan run at
 the quickstart shape (B=64, T=32, D=2, H=32, Dh=64, K=12; 6 LTC and NODE
 substeps; the GRU flow gate on) and at bench_cycles' (B=64, T=200, D=8, H=64,
-Dh=128); the ticks at the serve shape (S=4 slots of N=17 windows, T=32, D=4,
-H=32, Dh=64, Ko=45, the standard GRU; the int8 tick on the same weights
+Dh=128), the int8 stages on the same weights quantized per column with the
+serving PWL tables (``mr_step_int8`` the standard cell); the ticks at the
+serve shape (S=4 slots of N=17 windows, T=32, D=4, H=32, Dh=64, Ko=45, the
+standard GRU; the int8 tick on the same weights
 quantized per slot and per column, with the serving PWL tables). The time a
 variant saves is its phase's cost (a variant computes on values its
 switched-off phase left unset, so it checks nothing). The unmodified build
@@ -48,9 +51,10 @@ from repro_torch.core.quant import N_SEG, quantize_int8, serving_packs, serving_
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.gru_scan.ref import gru_scan_reference
 
-SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "gru_scan.cu", "mr_tick.cu",
-           "mr_tick_int8.cu")
-KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node", "gru_scan")  # then the ticks
+SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "gru_scan.cu", "mr_step_int8.cu",
+           "mr_step_ltc_int8.cu", "mr_tick.cu", "mr_tick_int8.cu")
+KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node", "gru_scan", "mr_step_int8",
+           "mr_step_ltc_int8")  # then the ticks
 TICKS = ("mr_tick", "mr_tick_int8")
 # (label, B, T, D, H, Dh, K)
 SHAPES = [("quickstart", 64, 32, 2, 32, 64, 12), ("bench_cycles", 64, 200, 8, 64, 128, 12)]
@@ -65,7 +69,7 @@ VARIANTS = {
     "no steps": [
         ("warp_cell.cuh", "for (int c = 0; c < nc; ++c) {\n    float a[2][U];",
          "for (int c = 0; c < 0; ++c) {\n    float a[2][U];"),
-        ("mr_step_ltc.cu", "for (int c = 0; c < nc; ++c) {\n        float drive[U];",
+        ("warp_cell.cuh", "for (int c = 0; c < nc; ++c) {\n        float drive[U];",
          "for (int c = 0; c < 0; ++c) {\n        float drive[U];"),
         ("mr_step_node.cu", "for (int c = 0; c < nc; ++c) {\n        for (int s = 0;",
          "for (int c = 0; c < 0; ++c) {\n        for (int s = 0;"),
@@ -73,15 +77,16 @@ VARIANTS = {
     "no terms ahead": [
         ("warp_cell.cuh", "if (u >= nu) continue;\n    float a[kChunk][3];",
          "if (u >= nu || D > 0) continue;\n    float a[kChunk][3];"),
-        ("mr_step_ltc.cu", "if (u >= nu) continue;\n        float acc[kC];",
-         "if (u >= nu || T > 0) continue;\n        float acc[kC];"),
+        ("warp_cell.cuh", "if (u >= nu) continue;\n        float acc[kChunk];",
+         "if (u >= nu || T > 0) continue;\n        float acc[kChunk];"),
         ("mr_step_node.cu", "if (u >= nu) continue;\n        float a[kC];",
          "if (u >= nu || T > 0) continue;\n        float a[kC];"),
     ],
     "no head": [
         (src, "    wc::warp_head<N, U>(", "    if (T < 0) wc::warp_head<N, U>(")
-        for src in ("mr_step_ltc.cu", "mr_step_node.cu", "mr_tick.cu", "mr_tick_int8.cu")
-    ] + [("warp_cell.cuh", "      warp_head<N, U>(", "      if (T < 0) warp_head<N, U>(")],
+        for src in ("mr_step_node.cu", "mr_tick.cu", "mr_tick_int8.cu")
+    ] + [("warp_cell.cuh", "      warp_head<N, U>(", "      if (T < 0) warp_head<N, U>("),  # gru_windows
+         ("warp_cell.cuh", "\n    warp_head<N, U>(", "\n    if (T < 0) warp_head<N, U>(")],  # ltc_windows
     "no hs write": [
         ("warp_cell.cuh", "if constexpr (HS) hs_c[", "if constexpr (HS) if (T < 0) hs_c["),
     ],
@@ -144,13 +149,31 @@ def operands(kernel, B, T, D, H, Dh, K, device, seed=0) -> list[torch.Tensor]:
     if kernel == "mr_step_node":  # w_f1, b_f1, w_f2, b_f2, w_in, b_in
         cell = [mk(H, H, scale=H**-0.5), mk(H, scale=0.1), mk(H, H, scale=0.1 * H**-0.5),
                 mk(H, scale=0.1), mk(D, H, scale=D**-0.5), mk(H, scale=0.1)]  # fmt: skip
-    elif kernel == "mr_step_ltc":  # w_in, w_rec, bias, a, inv_tau
+    elif kernel.startswith("mr_step_ltc"):  # w_in, w_rec, bias, a, inv_tau
         cell = [mk(D, H, scale=D**-0.5), mk(H, H, scale=H**-0.5), mk(H, scale=0.1),
                 mk(H, scale=0.5), mk(H, scale=0.05, shift=0.5)]  # fmt: skip
     else:  # wx, wh, b, time_scale, dts
         cell = [mk(D, 3 * H, scale=(D + H) ** -0.5), mk(H, 3 * H, scale=(D + H) ** -0.5),
                 mk(3 * H, scale=0.1), mk(H, scale=0.5), torch.ones(T, device=device)]  # fmt: skip
-    return [mk(B, T, D), mk(B, H, scale=0.1), *cell, *head]
+    ops = [mk(B, T, D), mk(B, H, scale=0.1), *cell, *head]
+    return int8_operands(kernel, ops) if kernel.endswith("int8") else ops
+
+
+def int8_operands(kernel, ops) -> list[torch.Tensor]:
+    """The int8 stage's operands of the fp32 ones: each weight matrix quantized
+    per column (its int8 codes, then its scales), the vectors as they are, the
+    serving PWL tables; the standard GRU reads no time_scale and no dts."""
+    def q(w):
+        z = quantize_int8(w)
+        return z.values, z.scale.reshape(-1)
+
+    sig, tanh = serving_packs(ops[0].device)
+    if kernel == "mr_step_ltc_int8":
+        xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2 = ops
+        return [xs, h0, *q(w_in), *q(w_rec), bias, a, inv_tau, sig, *q(w1), b1, *q(w2), b2]
+    xs, h0, wx, wh, b, _, _, w1, b1, w2, b2 = ops
+    (wxq, sx), (whq, sh) = q(wx), q(wh)
+    return [xs, h0, wxq, whq, sx, sh, b, sig, tanh, *q(w1), b1, *q(w2), b2]
 
 
 def tick_operands(device, seed=0, int8=False) -> list[torch.Tensor]:
@@ -195,12 +218,16 @@ def launcher(lib, kernel, ops, tile: int):
         args = (B, T, ops[0].shape[2], ops[1].shape[1], tile, 1)
     else:
         B, T, D = ops[0].shape
-        H, (Dh, K) = ops[1].shape[1], ops[-2].shape
+        H, (Dh, K) = ops[1].shape[1], ops[-3 if kernel.endswith("int8") else -2].shape
         outs = [torch.empty(B, K, device=ops[0].device)]
         ptrs = [t.data_ptr() for t in (*ops, *outs)]
         args = (B, T, D, H, Dh, K, tile)
         if kernel == "mr_step":
             args += (1, 0, -1)
+        elif kernel == "mr_step_int8":
+            args += (N_SEG,)
+        elif kernel == "mr_step_ltc_int8":
+            args += (SUBSTEPS, N_SEG, ltc_sub_dt(DT, SUBSTEPS))
         else:
             sub_dt = (ltc_sub_dt if kernel == "mr_step_ltc" else node_sub_dt)(DT, SUBSTEPS)
             args += (SUBSTEPS, 0, -1, sub_dt)
@@ -260,6 +287,16 @@ def plain(kernel, ops):
         return ref.mr_step_node_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
     if kernel == "gru_scan":
         return gru_scan_reference(*ops[:7], flow=True)
+    if kernel == "mr_step_int8":
+        xs, h0, wxq, whq, sx, sh, b, _, _, w1q, s1, b1, w2q, s2, b2 = ops
+        dts = torch.ones(xs.shape[1], device=xs.device)  # unread: the standard cell
+        return ref.mr_step_int8_reference(xs, h0, wxq, whq, sx, sh, b, dts, w1q, s1, b1, w2q, s2,
+                                          b2, *serving_tables())  # fmt: skip
+    if kernel == "mr_step_ltc_int8":
+        xs, h0, w_inq, s_in, w_recq, s_rec, bias, a, inv_tau, _, *head = ops
+        return ref.mr_step_ltc_int8_reference(xs, h0, w_inq, s_in, w_recq, s_rec, bias, a, inv_tau,
+                                              *head, serving_tables()[0], dt=DT,
+                                              n_substeps=SUBSTEPS)  # fmt: skip
     kw = dict(window=TICK["T"], stride=TICK["stride"], ema=TICK["ema"])
     if kernel == "mr_tick_int8":
         sc = lambda s: s.reshape(TICK["S"], 1, -1)

@@ -272,11 +272,11 @@ def test_tiling_follows_the_family():
         D * 3 * H + 3 * H * S + 3 * H + H + 2 * H + 2 * 16 * D + 2 * 16 + 16 * 3 * 32 + 16 * 32
     )
     assert tiling.fit_block_b("gru_scan", 1024, D, H) == 4
-    # at H = 64 the LTC tile is the warp cells' (at least 132 blocks); the int8
-    # twin's stops where one thread a (window, unit) pair runs out
+    # at H = 64 the LTC tile is the warp cells' (at least 132 blocks), for the
+    # int8 twin as well: both run a warp a window
     ltc = merinda.MRConfig(state_dim=2, hidden=64, dense_hidden=128, encoder="ltc")
     assert tiling.auto_block_b(ltc, "ltc", 132 * 32) == 32
-    assert tiling.auto_block_b(ltc, "ltc", 132 * 32, int8=True) == 16
+    assert tiling.auto_block_b(ltc, "ltc", 132 * 32, int8=True) == 32
     with pytest.raises(ValueError, match="unknown mr_step family"):
         tiling.family_smem_bytes("lstm", D, H, Dh, K, 1)
 

@@ -22,8 +22,9 @@ the masked keys of the tiles it does not skip).
 
 The int8/PWL serving kernels (``gru_scan_int8``, ``mr_step_int8``,
 ``mr_step_ltc_int8``, ``mr_tick_int8``) are held to their plain versions
-within 1e-5 (the tick's buffers bit for bit), and each must differ from its
-fp32 twin by at least 1e-4, so a kernel that skipped the quantization fails.
+within 1e-5 (the tick's buffers bit for bit, the warp-cell stages' tiles bit
+for bit), and each must differ from its fp32 twin by at least 1e-4, so a
+kernel that skipped the quantization fails.
 
 Tolerance: <= 1e-4 in float32, the JAX package's bound for its fused kernels;
 the kernel sums the gate products in another order than the plain version.
@@ -491,30 +492,59 @@ def test_banked_matches_composite_service_on_the_card(dev):
 # ---------------------------------------------------------------------------
 INT8_TOL = dict(atol=1e-5, rtol=0)
 QUANT_GAP = 1e-4  # the least an int8 output must differ from its fp32 twin's
-INT8_SHAPES = [  # (B, T, D, H, Dh, block_b): the JAX tests', the quickstart's, a tile of 2
-    (4, 20, 3, 32, 64, None), (64, 32, 2, 32, 64, None), (193, 32, 2, 32, 64, None),
-    (8, 9, 3, 64, 128, 2),
+INT8_SHAPES = [  # (B, T, D, H, Dh): the JAX tests', the quickstart's, wider cells
+    (4, 20, 3, 32, 64), (64, 32, 2, 32, 64), (193, 32, 2, 32, 64), (8, 9, 3, 64, 128),
+    (36, 21, 3, 8, 40), (36, 21, 3, 48, 40), (36, 21, 3, 64, 40),
 ]  # fmt: skip
 
 
-@pytest.mark.parametrize("B,T,D,H,Dh,block_b", INT8_SHAPES)
+@pytest.mark.parametrize("B,T,D,H,Dh", INT8_SHAPES)
 @pytest.mark.parametrize("encoder", ["gru", "ltc"])
-def test_int8_stages_match_plain(dev, encoder, B, T, D, H, Dh, block_b):
+def test_int8_stages_match_plain(dev, encoder, B, T, D, H, Dh):
+    """At the fitted tile within 1e-5 of the plain version; H=8, 32 and 64
+    take their instantiations, H=48 the generic one. Every tile of 1, 2, 3, 4
+    and 9 windows that divides B gives the fitted tile's bits: a warp a window
+    (a tile of 9 runs its windows on 8 warps, the ninth after the first)."""
     cfg = merinda.MRConfig(state_dim=D, hidden=H, dense_hidden=Dh, encoder=encoder, dt=0.05)
     params = merinda.init_mr(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     xs = torch.randn(B, T, D, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     kernel = mr_step_int8_cuda if encoder == "gru" else mr_step_ltc_int8_cuda
     before = kernel.launches
-    theta, shifts = mr_step_int8(params, cfg, xs, block_b=block_b)
+    theta, shifts = mr_step_int8(params, cfg, xs)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     want = mr_step_int8(params, cfg, xs, force_reference=True)
     assert kernel.launches == before + 1
     torch.testing.assert_close(theta, want[0], **INT8_TOL)
     torch.testing.assert_close(shifts, want[1], **INT8_TOL)
+    tiles = [bb for bb in (1, 2, 3, 4, 9) if B % bb == 0]
+    for bb in tiles:
+        t_bb, s_bb = mr_step_int8(params, cfg, xs, block_b=bb)
+        torch.testing.assert_close(t_bb, theta, atol=0, rtol=0, msg=f"{encoder} block_b={bb}")
+        torch.testing.assert_close(s_bb, shifts, atol=0, rtol=0, msg=f"{encoder} block_b={bb}")
+    assert kernel.launches == before + 1 + len(tiles)
     with torch.no_grad():
         theta_fp, _ = mr_step(params, cfg, xs)
     assert (theta - theta_fp).abs().max().item() >= QUANT_GAP
+
+
+def test_ltc_int8_takes_a_tile_past_a_thousand_threads(dev):
+    """The int8 LTC runs a warp a window, as the fp32 one: 32 windows of H = 64
+    (2,048 (window, unit) pairs) in one block of 8 warps, each equal bit for
+    bit to its one-window block and within 1e-5 of the plain version."""
+    B, T, D, H, Dh = 64, 12, 2, 64, 128
+    cfg = merinda.MRConfig(state_dim=D, hidden=H, dense_hidden=Dh, encoder="ltc", dt=0.05)
+    params = merinda.init_mr(torch.Generator(device=dev).manual_seed(3), cfg, dev)
+    xs = torch.randn(B, T, D, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    before = mr_step_ltc_int8_cuda.launches
+    out = mr_step_int8(params, cfg, xs, block_b=32)
+    one = mr_step_int8(params, cfg, xs, block_b=1)
+    torch.cuda.synchronize()
+    assert 32 * H > 1024 and mr_step_ltc_int8_cuda.launches == before + 2
+    want = mr_step_int8(params, cfg, xs, force_reference=True)
+    for got, ref1, w in zip(out, one, want):
+        torch.testing.assert_close(got, ref1, atol=0, rtol=0)
+        torch.testing.assert_close(got, w, **INT8_TOL)
 
 
 @pytest.mark.parametrize("B,T,D,H", [(4, 20, 8, 32), (64, 32, 2, 32), (193, 32, 2, 32)])

@@ -280,7 +280,8 @@ def test_int8_refusals():
 
 def test_int8_shared_memory_models():
     """Every int8 carve is smaller than its fp32 twin's; the readout batch of
-    193 windows (a prime) takes one window a block, as in fp32."""
+    193 windows (a prime) takes one window a block, as in fp32; the int8 LTC,
+    a warp a window, takes a tile past 1024 (window, unit) pairs."""
     D, H, Dh, K = 2, 32, 64, 12
     fp32 = dict(gru=tiling.mr_step_smem_bytes, ltc=tiling.ltc_smem_bytes,
                 gru_scan=lambda D, H, Dh, K, bb: tiling.gru_scan_smem_bytes(D, H, bb))  # fmt: skip
@@ -290,13 +291,24 @@ def test_int8_shared_memory_models():
             assert 0 < q < fp32[family](D, H, Dh, K, bb)
         assert tiling.fit_block_b(family, 193, D, H, Dh, K, int8=True) == 1
     assert tiling.fit_block_b("gru", 1024, D, H, Dh, K, int8=True) == 4
-    assert tiling.fit_block_b("ltc", 4096, D, H, Dh, K, int8=True) == 16  # 512 threads, 256 blocks
+    assert tiling.fit_block_b("ltc", 4096, D, H, Dh, K, int8=True) == 16  # 256 blocks
+    # H = 64, 132 blocks of 32 windows: 2,048 (window, unit) pairs a block
+    assert tiling.fit_block_b("ltc", 132 * 32, D, 64, 128, K, int8=True) == 32
     with pytest.raises(ValueError, match="int8 kernel"):
         tiling.family_smem_bytes("node", D, H, Dh, K, 1, int8=True)
-    # the gru kernel's carve, float for float: scales, bias, tables, state, int8 weights
-    floats = 9 * H + 2 * 37 + 4 * H + (D * 3 * H + 3) // 4 + (H * 3 * H + 3) // 4
-    head = 2 * Dh + 2 * K + Dh + (H * Dh + 3) // 4 + (Dh * K + 3) // 4
-    assert tiling.int8_smem_bytes(D, H, Dh, K, 1) == 4 * (floats + head)
+    # the gru kernel's carve (warp_cell.cuh GruQLayout), float for float at one
+    # window: int8 wx, wh's 96 columns of 36 floats (at H = 32 its int8 rows),
+    # two scale rows, b, two tables (37 floats, padded to 40), the int8 head;
+    # then one warp's two rows of 64, two x chunks [16, 2] and 16 steps of the
+    # gates' x.Wx
+    block = (2 * 96 // 4 + 96 * 36 + 3 * 96 + 2 * 40 + 32 * 64 // 4 + 2 * 64 + 64 * 12 // 4
+             + 2 * 12)  # fmt: skip
+    assert tiling.int8_smem_bytes(D, H, Dh, K, 1) == 4 * (block + 2 * 64 + 2 * 32 + 16 * 3 * 32)
+    # the LTC's (LtcQLayout): w_rec's 32 columns of 36 floats, int8 w_in, five
+    # rows of H, the sigmoid table, the int8 head; a warp's rows, x chunks and drives
+    block = (32 * 36 + 2 * 32 // 4 + 5 * 32 + 40 + 32 * 64 // 4 + 2 * 64 + 64 * 12 // 4
+             + 2 * 12)  # fmt: skip
+    assert tiling.ltc_int8_smem_bytes(D, H, Dh, K, 1) == 4 * (block + 2 * 64 + 2 * 32 + 16 * 32)
     cfg = merinda.MRConfig(input_dim=1, encoder="gru", **dict(BASE, hidden=32, dense_hidden=64))
     scfg = StreamConfig()
     q = tiling.config_tick_smem_bytes(cfg, scfg, int8=True)

@@ -1,8 +1,9 @@
 """The warp-cell kernels' arithmetic (``csrc/warp_cell.cuh``), emulated on the CPU.
 
 ``csrc/mr_step.cu``, ``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan
-``gru_scan.cu`` and the banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu``
-run one warp a window and sum in another order than the
+``gru_scan.cu``, the int8/PWL stages ``mr_step_int8.cu`` and
+``mr_step_ltc_int8.cu`` and the banked ticks ``mr_tick.cu`` and
+``mr_tick_int8.cu`` run one warp a window and sum in another order than the
 plain versions: each matvec output in four partial sums over k mod 4,
 combined as (p0 + p1) + (p2 + p3); x_t . Wx + b (GRU), the drive
 x_t . W_in + bias (LTC) and x_t . W_in + b_in (NODE) computed ahead of the
@@ -11,10 +12,13 @@ phi(t) * alpha computed ahead as well; the LTC update's numerator and
 denominator each one FMA, then the division; the head's RMS sum and layer 2
 summed per lane (units j = lane + 32u) and reduced over the lanes by a
 shuffle butterfly; the tick's readout summing the windows' outputs in
-window order. The int8/PWL cell of ``mr_tick_int8.cu`` dequantizes each
-weight once (``float(q) * scale``), keeps x.Wx alone ahead of the chain and
-adds the bias after the matvec, ``(x.Wx + h.Wh) + b``, and evaluates the PWL
-tables with a true division. The emulation below follows that order in
+window order. The int8/PWL cell of ``mr_tick_int8.cu`` and
+``mr_step_int8.cu`` dequantizes each weight once (``float(q) * scale``),
+keeps x.Wx alone ahead of the chain and adds the bias after the matvec,
+``(x.Wx + h.Wh) + b``, and evaluates the PWL tables with a true division; the
+int8/PWL LTC substep of ``mr_step_ltc_int8.cu`` rounds every operation apart:
+the drive ``x.W_in + bias`` ahead, ``pwl(drive + h.W_rec)``, then
+``(h + (sub_dt * f) * a) / (1 + sub_dt * (inv_tau + f))``. The emulation below follows that order in
 float32, an FMA being a float64 product and sum rounded once to float32, and
 is held against the JAX package's fused stage, scan and ticks run as its own
 tests run them on the CPU (``repro.kernels.mr_step.ops.mr_step(...,
@@ -22,8 +26,11 @@ interpret=True)``, ``tests/test_kernels_mr_step.py:49``;
 ``repro.kernels.gru_scan.ops.gru_scan(..., interpret=True)``,
 ``tests/test_kernels_gru.py:31``, every step's h; ``repro.kernels.mr_step.tick.mr_tick(...,
 interpret=True)``, ``tests/test_tick.py:79``), within 1e-4: the bound the
-card tests hold the fused kernels to; the int8 tick within the JAX int8 tick
-tests' 1e-5 (``tests/test_tick.py:111``). Inputs are made with numpy from a seed.
+card tests hold the fused kernels to; the int8 tick and stages within the
+JAX int8 tick tests' 1e-5 (``tests/test_tick.py:111``), against JAX's int8
+oracles and, on tables saturating where they do, its int8 Pallas kernels
+(``repro.kernels.mr_step.ops.mr_step_int8(..., interpret=True)``). Inputs
+are made with numpy from a seed.
 
 The carve functions of ``kernels/mr_step/tiling.py`` are held against the
 regions the header's layouts take, read from the header itself.
@@ -46,6 +53,7 @@ from repro.core.merinda import init_mr as jinit_mr
 from repro.core.neural_flow import GRUParams as JGRUParams
 from repro.kernels.gru_scan.ops import gru_scan as jgru_scan
 from repro.kernels.mr_step.ops import mr_step as jmr_step
+from repro.kernels.mr_step.ops import mr_step_int8 as jmr_step_int8
 from repro.kernels.mr_step.tick import mr_tick as jmr_tick
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.ltc import ltc_sub_dt
@@ -167,6 +175,21 @@ def _gru_q_cell_emulation(xs, wx, wh, b, w1, b1, w2, b2, tables):
         z = _pwl(sig, (gx[:, H : 2 * H] + a[:, H:]) + b[H : 2 * H])
         c = _pwl(tanh, (gx[:, 2 * H :] + _matvec4(r * h, wh[:, 2 * H :])) + b[2 * H :])
         h = (1.0 - z) * c + z * h
+    return _head(h, w1, b1, w2, b2)
+
+
+def _ltc_q_cell_emulation(xs, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, sub_dt, n_sub, sig):
+    """warp_cell.cuh's Int8Ltc and Int8Head on dequantized weights: the drive
+    x.W_in + bias ahead of the chain, the PWL sigmoid of drive + h.W_rec, and
+    every operation of the update rounded apart (no FMA)."""
+    B, T, _ = xs.shape
+    h = torch.zeros(B, w_rec.shape[0])
+    sdt, one = torch.tensor(sub_dt), torch.tensor(1.0)
+    for t in range(T):
+        drive = _xw(xs[:, t], w_in) + bias  # ahead of the chain
+        for _ in range(n_sub):
+            f = _pwl(sig, drive + _matvec4(h, w_rec))
+            h = (h + (sdt * f) * a) / (one + sdt * (inv_tau + f))
     return _head(h, w1, b1, w2, b2)
 
 
@@ -416,6 +439,39 @@ def test_int8_tick_order_matches_jax_kernel(m, spb, geometry, H, Dh, dispatch):
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), atol=1e-5, rtol=0)  # delta
 
 
+# (encoder, substeps): the int8 GRU has none
+INT8_CELLS = [("gru", 1), ("ltc", 1), ("ltc", 2), ("ltc", 6)]
+
+
+@pytest.mark.parametrize("dispatch", ["reference", "interpret"])
+@pytest.mark.parametrize("encoder,n_sub", INT8_CELLS, ids=[f"{e}-{n}" for e, n in INT8_CELLS])
+@pytest.mark.parametrize("label,B,T,n,m,H,Dh", SHAPES, ids=[s[0] for s in SHAPES])
+def test_int8_cell_order_matches_jax_kernel(label, B, T, n, m, H, Dh, encoder, n_sub, dispatch):
+    """mr_step_int8.cu's and mr_step_ltc_int8.cu's order against JAX's int8
+    stage: its oracle (``force_reference``) on the serving tables, its Pallas
+    kernel (``interpret``) on the tables saturating where that kernel does;
+    within 1e-5."""
+    jcfg, cfg, jparams, params, xs = _setup(B, T, n, m, H, Dh, encoder, seed=13,
+                                            ltc_substeps=n_sub)  # fmt: skip
+    kw = dict(force_reference=True) if dispatch == "reference" else dict(interpret=True)
+    jt, js = jmr_step_int8(jax.tree.map(jnp.asarray, jparams), jcfg, jnp.asarray(xs), **kw)
+    tables = serving_tables() if dispatch == "reference" else _asymptote_tables()
+    cell_a, cell_b, w1, w2 = (q.values.float() * q.scale for q in int8_weights(params, cfg))
+    head = (w1, params.head_b1, w2, params.head_b2)
+    enc = params.encoder
+    with torch.no_grad():
+        if encoder == "ltc":
+            out = _ltc_q_cell_emulation(
+                torch.from_numpy(xs), cell_a, cell_b, enc.bias, enc.a, enc.inv_tau, *head,
+                sub_dt=ltc_sub_dt(cfg.dt, n_sub), n_sub=n_sub, sig=tables[0],
+            )  # fmt: skip
+        else:
+            out = _gru_q_cell_emulation(torch.from_numpy(xs), cell_a, cell_b, enc.b, *head, tables)
+    theta, shifts = split_out(out, cfg)
+    np.testing.assert_allclose(theta.numpy(), np.asarray(jt), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(shifts.numpy(), np.asarray(js), atol=1e-5, rtol=0)
+
+
 def _header_carve(layout: str, D, H, Dh, K, bb, T=0, N=0) -> int:
     """Bytes that ``warp_cell.cuh``'s ``layout`` carves, evaluating each of
     its ``take(...)`` regions (and its head's, ``HeadLayout`` or
@@ -466,6 +522,13 @@ def test_cell_carves_match_the_header(D, H, Dh, K, bb):
     assert tiling.family_smem_bytes("gru", D, H, Dh, K, bb) == tiling.mr_step_smem_bytes(
         D, H, Dh, K, bb
     )
+    # the int8/PWL stages: int8 weights beside their scales, the PWL tables, the int8 head
+    q = tiling.int8_smem_bytes(D, H, Dh, K, bb)
+    assert q == _header_carve("GruQLayout", D, H, Dh, K, bb)
+    assert q == tiling.family_smem_bytes("gru", D, H, Dh, K, bb, int8=True)
+    q = tiling.ltc_int8_smem_bytes(D, H, Dh, K, bb)
+    assert q == _header_carve("LtcQLayout", D, H, Dh, K, bb)
+    assert q == tiling.family_smem_bytes("ltc", D, H, Dh, K, bb, int8=True)
     assert tiling.cell_warps(bb) == min(bb, 8)
     S = tiling.col_stride(H)  # whole float4s, 4 mod 8: conflict-free float4 reads
     assert S % 4 == 0 and S % 8 == 4 and S >= H
