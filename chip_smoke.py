@@ -59,12 +59,13 @@ prints no result):
    the median host syncs a tick (after the first) at most 1. Then 3 banked
    and 3 composite ticks at the serve shape, timed on the host's clock;
 9. timings with CUDA events (warm-up, then the median of 25 runs) of each
-   kernel and its plain version at the quickstart shapes, of ``mr_step``
-   and ``mr_step_ltc`` at the bench_cycles shape and of ``mr_tick`` at the
-   serve shape, beside the least time the card could take for the same work;
+   kernel and its plain version at the quickstart shapes, of ``mr_step``,
+   ``mr_step_ltc`` and ``gru_scan`` without the flow gate at the bench_cycles
+   shape and of ``mr_tick`` at the serve shape, beside the least time the card
+   could take for the same work;
 10. where the time goes: ``torch.profiler`` over 25 launches each of
-    ``mr_step``, ``mr_step_ltc``, ``mr_step_int8`` and ``mr_step_ltc_int8``
-    (quickstart and bench_cycles),
+    ``mr_step``, ``mr_step_ltc``, ``mr_step_int8``, ``mr_step_ltc_int8`` and
+    ``gru_scan_int8`` (quickstart and bench_cycles),
     ``mr_step_node`` and ``gru_scan`` (quickstart; the scan with and without
     the flow gate), ``mr_tick`` and ``mr_tick_int8`` (serve shape) gives each
     kernel's own device time, printed beside phase 9's event time (which, at
@@ -99,7 +100,10 @@ The int8/PWL serving slice adds, each checked the same way:
   int8-to-fp32 gap split into the weight codes' and the PWL tables' shares
   (printed, not bounded);
 - in phase 9, the four int8 kernels' times beside their plain versions, their
-  bounds and their fp32 twins.
+  bounds and their fp32 twins (``gru_scan_int8``, ``mr_step_int8`` and
+  ``mr_step_ltc_int8`` at bench_cycles too).
+- in phase 2's warp-cell cases, ``gru_scan_int8`` at H=48 and four windows a
+  block too, bit for bit against one window a block.
 
 The LM zoo's slice adds, before phase 10:
 
@@ -250,7 +254,6 @@ TILE_TOL = 1e-6  # mr_step_ltc and the int8 twins: 0, bit for bit
 # the tick past 64 windows a slot (N = 72): a cluster of 8 blocks of 8 warps
 # whose warps take the windows in turn
 TICK_WIDE = dict(buf_len=600, window=32, stride=8, chunk=8)
-DEVICE_TIMED = 25  # launches profiled for a kernel's own device time
 EVENT_GAP = 0.2  # event against device time: above it, the event time is the host's
 # the warp-cell kernels' chain floor: the dependent latency of one step, counted
 # from the code in cycles (FP32 op 4; a row exchange, store + __syncwarp + the
@@ -552,6 +555,8 @@ def main() -> None:
     )
     from repro_torch.launch import serve_mr
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch.kernel_phases import LAUNCHES as DEVICE_TIMED
+    from repro_torch.launch.kernel_phases import device_ms
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_cuda
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -629,7 +634,7 @@ def main() -> None:
             return lambda: mr_step_ltc_int8_cuda(*args, **kw)
         cell = (*act[:2], qa.values, qb.values, flat(qa), flat(qb), vec[0], sig, tanh)
         if not head:
-            bb = tiling.fit_block_b("gru_scan", B, D, H, int8=True)
+            bb = block_b or tiling.fit_block_b("gru_scan", B, D, H, int8=True)
             return lambda: gru_scan_int8_cuda(*cell, block_b=bb)
         bb = block_b or tiling.fit_block_b("gru", B, D, H, Dh, K, int8=True)
         return lambda: mr_step_int8_cuda(*cell, *head_ops, block_b=bb)
@@ -793,6 +798,9 @@ def main() -> None:
                                   plain_int8("ltc", f_ops), 0.0, INT8_TOL))  # fmt: skip
             calls.append(("mr_step_int8", "", lambda b: int8_kernel("gru", ops, block_b=b)(),
                           plain_int8("gru", ops), 0.0, INT8_TOL))  # fmt: skip
+            calls.append(("gru_scan_int8", "",
+                          lambda b: int8_kernel("gru", ops, head=False, block_b=b)(),
+                          plain_int8("gru", ops, head=False), 0.0, INT8_TOL))  # fmt: skip
             for kernel, what, launch, want, tile_tol, tol in calls:
                 out, one = launch(bb), launch(1)
                 torch.cuda.synchronize()
@@ -1569,17 +1577,17 @@ def main() -> None:
                     lambda: gru_scan_reference(*ops[:7], flow=True),
                     work("gru", B, T, D, H, Dh, K, head=False),
                 )
-                calls["gru_scan (flow=False)"] = (
-                    lambda: gru_scan_cuda(*ops[:7], flow=False, block_b=bb_gru),
-                    lambda: gru_scan_reference(*ops[:7], flow=False),
-                    work("gru", B, T, D, H, Dh, K, head=False),
-                )
-                calls["gru_scan_int8"] = (
-                    int8_kernel("gru", ops, head=False),
-                    lambda: plain_int8("gru", ops, head=False),
-                    work_int8("gru", B, T, D, H, Dh, K, head=False),
-                )
             # the int8 kernels beside their fp32 twins (the standard GRU: flow=False)
+            calls["gru_scan (flow=False)"] = (
+                lambda: gru_scan_cuda(*ops[:7], flow=False, block_b=bb_gru),
+                lambda: gru_scan_reference(*ops[:7], flow=False),
+                work("gru", B, T, D, H, Dh, K, head=False),
+            )
+            calls["gru_scan_int8"] = (
+                int8_kernel("gru", ops, head=False),
+                lambda: plain_int8("gru", ops, head=False),
+                work_int8("gru", B, T, D, H, Dh, K, head=False),
+            )
             calls["mr_step (flow=False)"] = (
                 lambda: mr_step_cuda(*ops, flow=False, block_b=bb_mr),
                 lambda: mr_step_reference(*ops, flow=False),
@@ -1612,7 +1620,8 @@ def main() -> None:
             f"({timed['mr_step_ltc', cycles][0] / timed['mr_step', cycles][0]:.2f}x)"
         )
         for where in (quick, cycles):
-            for q, f in (("mr_step_int8", "mr_step (flow=False)"), ("mr_step_ltc_int8", "mr_step_ltc")):
+            for q, f in (("mr_step_int8", "mr_step (flow=False)"), ("mr_step_ltc_int8", "mr_step_ltc"),
+                         ("gru_scan_int8", "gru_scan (flow=False)")):
                 log(
                     f"[time] int8 against fp32 at {where}: {q} {timed[q, where][0]:.4f} ms, {f} "
                     f"{timed[f, where][0]:.4f} ms ({timed[q, where][0] / timed[f, where][0]:.2f}x)"
@@ -1708,7 +1717,8 @@ def main() -> None:
     device_timed = {}  # (kernel, shape label) -> the kernel's mean device ms
     with Phase("profile"):
         profiled = [(k, KERNEL_SHAPES[i]) for i in (0, 3)
-                    for k in ("mr_step", "mr_step_ltc", "mr_step_int8", "mr_step_ltc_int8")]  # fmt: skip
+                    for k in ("mr_step", "mr_step_ltc", "mr_step_int8", "mr_step_ltc_int8",
+                              "gru_scan_int8")]  # fmt: skip
         profiled += [("mr_step_node", KERNEL_SHAPES[0]), ("gru_scan", KERNEL_SHAPES[0]),
                      ("gru_scan (flow=False)", KERNEL_SHAPES[0]), ("mr_tick", None),
                      ("mr_tick_int8", None)]  # fmt: skip
@@ -1735,6 +1745,8 @@ def main() -> None:
             elif kernel == "mr_step_ltc_int8":
                 launch = int8_kernel("ltc", substep_operands("ltc", B, T, D, H, Dh, K, seed=20,
                                                              device=dev))  # fmt: skip
+            elif kernel == "gru_scan_int8":
+                launch = int8_kernel("gru", ops, head=False)
             elif kernel == "gru_scan":
                 bb = tiling.fit_block_b("gru_scan", B, D, H)
                 flow = key == "gru_scan"
@@ -1744,24 +1756,17 @@ def main() -> None:
                 f_ops = substep_operands(family, B, T, D, H, Dh, K,
                                          seed=20 if family == "ltc" else 21, device=dev)  # fmt: skip
                 launch = lambda: launch_substep(family, f_ops)
-            launch()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                # one launch the tracer may miss while it starts, then the timed ones
-                launch()
-                torch.cuda.synchronize()
-                for _ in range(DEVICE_TIMED):
-                    launch()
-                torch.cuda.synchronize()
-            events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                             and f"{kernel}_kernel<" in e.name), key=lambda e: e.time_range.start)  # fmt: skip
-            check(len(events) >= DEVICE_TIMED, f"{key}: {len(events)} device activities profiled")
-            times = [e.time_range.elapsed_us() / 1e3 for e in events[-DEVICE_TIMED:]]
-            d_ms = sum(times) / len(times)
+            # the mean of the last DEVICE_TIMED launches the profiler recorded; it can
+            # drop records, so a short trace is taken again with twice the launches
+            try:
+                d_ms = device_ms(launch, kernel)
+            except RuntimeError as e:
+                check(False, f"{key}: {e}")
             e_ms = timed[key, label][0]
             device_timed[key, label] = d_ms
             family = {"mr_step_node": "node", "mr_step_ltc": "ltc", "mr_tick_int8": "gru_q",
-                      "mr_step_int8": "gru_q", "mr_step_ltc_int8": "ltc_q"}.get(kernel, "gru")  # fmt: skip
+                      "mr_step_int8": "gru_q", "mr_step_ltc_int8": "ltc_q",
+                      "gru_scan_int8": "gru_q"}.get(kernel, "gru")  # fmt: skip
             floor = chain_floor_ms(family, T, H, clock_mhz * 1e6)
             gap = abs(e_ms - d_ms) / d_ms
             host = ": the event time is the host's" if gap > EVENT_GAP else ""

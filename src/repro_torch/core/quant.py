@@ -10,7 +10,7 @@ and tanh from LUT/ROM tables. Two emulations live here:
   scale per output channel (``quantize_int8``), and piecewise-linear
   activation tables (``pwl_table``: per-segment slopes and intercepts, as the
   FPGA ROM would be filled). The int8 serving kernels
-  (``kernels/csrc/pwl.cuh``, ``gru_q_step.cuh``) read exactly these.
+  (``kernels/csrc/pwl.cuh``, ``warp_cell.cuh``) read exactly these.
 
 The tables are built in numpy float64 and cast to float32 once, as the JAX
 package builds them, so knots and slopes agree bit for bit.

@@ -4,8 +4,9 @@
 // the head, writing each step's h), the banked service ticks mr_tick.cu
 // (mr_step's step and head over a slot's windows) and mr_tick_int8.cu (the
 // same with the int8/PWL standard GRU cell and int8 head), and the int8/PWL
-// serving stages mr_step_int8.cu (mr_step's body on the int8 cell and head)
-// and mr_step_ltc_int8.cu (mr_step_ltc's body on the int8 substep and head).
+// serving kernels mr_step_int8.cu (mr_step's body on the int8 cell and head),
+// gru_scan_int8.cu (gru_scan's body on the int8 cell) and mr_step_ltc_int8.cu
+// (mr_step_ltc's body on the int8 substep and head).
 //
 // What bounds them on an H100: a window's scan is a chain of T dependent
 // steps (T * n_substeps for LTC and NODE) whose work is a few thousand FMAs
@@ -168,7 +169,7 @@ struct GruLayout {
 // once into registers), the scales of wx and wh and b [3H], the PWL sigmoid and
 // tanh tables (P floats each), the int8 head; a warp: rows h and r*h (or the
 // head's hidden layer), two chunks of x [kChunk, D], the gates' x.Wx
-// [kChunk, 3, nu, 32].
+// [kChunk, 3, nu, 32]. gru_scan_int8 carves the same with no head (Dh = K = 0).
 struct GruQLayout {
   size_t wx, wh, sx, sh, b, sig, tnh, warps, row_h, row_r, xbuf[2], gx, per_warp, total;
   HeadQLayout head;
@@ -559,10 +560,10 @@ struct F32Cell {
   __device__ __forceinline__ float tanh_(float v) const { return tanhf(v); }
 };
 
-// The int8/PWL standard GRU cell (mr_tick_int8): int8 wx [D, 3H] in shared
-// memory, dequantized on use with the lane's column scales (one rounding);
-// the slots ahead hold x.Wx alone and the bias comes last, (x.Wx + h.Wh) + b,
-// both adds rounded; the PWL tables in shared memory.
+// The int8/PWL standard GRU cell (mr_tick_int8, mr_step_int8, gru_scan_int8):
+// int8 wx [D, 3H] in shared memory, dequantized on use with the lane's column
+// scales (one rounding); the slots ahead hold x.Wx alone and the bias comes
+// last, (x.Wx + h.Wh) + b, both adds rounded; the PWL tables in shared memory.
 template <int U>
 struct Int8Cell {
   const int8_t* wx;
@@ -668,9 +669,9 @@ struct Int8Ltc {
 // A kernel's operands in device memory; their type selects the policy, the
 // carve and the staging of gru_windows and ltc_windows. GruArgs (mr_step,
 // gru_scan): float weights, the flow gate's rates and dts, the float head;
-// GruQArgs (mr_step_int8): int8 weights beside their column scales, the PWL
-// sigmoid and tanh tables of n_seg segments, the int8 head; LtcArgs
-// (mr_step_ltc) and LtcQArgs (mr_step_ltc_int8) the same for the LTC.
+// GruQArgs (mr_step_int8, gru_scan_int8): int8 weights beside their column
+// scales, the PWL sigmoid and tanh tables of n_seg segments, the int8 head;
+// LtcArgs (mr_step_ltc) and LtcQArgs (mr_step_ltc_int8) the same for the LTC.
 struct GruArgs {
   const float *wx, *wh, *b, *time_scale, *dts, *w1, *b1, *w2, *b2;
 };
@@ -849,15 +850,15 @@ __device__ __forceinline__ void warp_head(const Units<U>& un, const float (&h)[U
 }
 
 // The body of the GRU kernels that read their windows from device memory,
-// mr_step.cu, gru_scan.cu and mr_step_int8.cu: a block of `bb` windows stages
-// the gate weights and, for the fused stages, the head's once (GruLayout, or
-// GruQLayout for the int8 operands GruQArgs), meets its one barrier, and each
-// warp runs its windows' T steps, the x chunk (and the flow gate's dts) staged
-// by cp.async a chunk ahead and the cell's terms ahead (x.Wx + b, or x.Wx
-// alone on the int8 cell) and the flow gate's phi(t) * alpha computed ahead of
-// each chunk. HS (gru_scan): each step's h goes to out = hs [B, T, H], the
-// lanes on consecutive columns, and there is no head (Dh = K = 0); else the
-// head's K outputs go to out [B, K].
+// mr_step.cu, gru_scan.cu, mr_step_int8.cu and gru_scan_int8.cu: a block of
+// `bb` windows stages the gate weights and, for the fused stages, the head's
+// once (GruLayout, or GruQLayout for the int8 operands GruQArgs), meets its one
+// barrier, and each warp runs its windows' T steps, the x chunk (and the flow
+// gate's dts) staged by cp.async a chunk ahead and the cell's terms ahead
+// (x.Wx + b, or x.Wx alone on the int8 cell) and the flow gate's phi(t) * alpha
+// computed ahead of each chunk. HS (the scans): each step's h goes to
+// out = hs [B, T, H], the lanes on consecutive columns, and there is no head
+// (Dh = K = 0); else the head's K outputs go to out [B, K].
 template <int N, bool FLOW, bool HS, class A>
 __device__ __forceinline__ void gru_windows(const float* __restrict__ xs,
                                             const float* __restrict__ h0, const A& args,
@@ -1023,10 +1024,11 @@ __device__ __forceinline__ void gru_windows(const float* __restrict__ xs,
 // stages w_rec, w_in, bias, a, inv_tau and the head weights once, meets its one
 // barrier, and each warp runs its windows' T * n_substeps substeps and the
 // head. A substep's chain is h.W_rec (four partial sums an output, from
-// registers at H <= 32), the add of the drive, the activation, the numerator
-// and denominator and their IEEE division (the policy's step); the drive
-// x_t.W_in + bias was computed before the chunk of steps from an x chunk that
-// cp.async staged a chunk ahead.
+// registers at H <= 32, reading h from one of the warp's two rows and
+// publishing the new h in the other), the add of the drive, the activation,
+// the numerator and denominator and their IEEE division (the policy's step);
+// the drive x_t.W_in + bias was computed before the chunk of steps from an x
+// chunk that cp.async staged a chunk ahead.
 template <int N, class A>
 __device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
                                             const float* __restrict__ h0, const A& args,
@@ -1139,10 +1141,14 @@ __device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
       h[u] = h_next[u];
       if (un.own[u]) row_h[un.col[u]] = h[u];
     }
+    // the substeps ping-pong h between the warp's two rows: each reads one and
+    // writes the other, so no lane overwrites a value another has yet to read
+    float* row_in = row_h;
+    float* row_out = row_r;
     for (int t0 = 0; t0 < T; t0 += kChunk) {
       const int nc = min(kChunk, T - t0);
       cp_async_wait<0>();
-      __syncwarp();  // this chunk's x has arrived; row_h holds h
+      __syncwarp();  // this chunk's x has arrived; row_in holds h
       // the chunk's drives x_t . W_in + bias, each lane for its own units:
       // over d for all kChunk steps at once (kChunk independent sums), then bias
       const float* xc = area + (slot ? L.xbuf[1] : L.xbuf[0]);
@@ -1176,14 +1182,17 @@ __device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
         for (int u = 0; u < U; ++u) drive[u] = u < nu ? drvs[(c * nu + u) * 32 + lane] : 0.0f;
         for (int s = 0; s < n_substeps; ++s) {
           float rec[1][U];
-          matvec<N, 1, U>(row_h, H, nu, w_recc, rec);
+          matvec<N, 1, U>(row_in, H, nu, w_recc, rec);
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             if (u >= nu) continue;
             h[u] = cell.step(h[u], drive[u], rec[0][u], u);
-            if (un.own[u]) row_h[un.col[u]] = h[u];
+            if (un.own[u]) row_out[un.col[u]] = h[u];
           }
           __syncwarp();
+          float* const read = row_in;
+          row_in = row_out;
+          row_out = read;
         }
       }
     }

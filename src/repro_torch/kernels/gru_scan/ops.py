@@ -11,7 +11,8 @@ does: the JAX package has no backward kernel, and neither has the port.
 ``gru_scan_int8`` is the serving scan (``ops.py:92-136``): the standard GRU
 with int8 weights quantized on the fly per output channel and PWL
 activations, through ``csrc/gru_scan_int8.cu`` (which replaces
-``kernel.py:246 gru_scan_pallas_int8``). It is serve-only: no gradient.
+``kernel.py:246 gru_scan_pallas_int8``; ``gru_scan``'s warp cell on the int8
+policy). It is serve-only: no gradient.
 """
 
 from __future__ import annotations
@@ -143,6 +144,8 @@ def gru_scan_int8_cuda(xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, *, bl
     )
     if T < 1 or block_b < 1 or B % block_b:
         raise ValueError(f"gru_scan_int8: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
+    if H > tiling.MAX_HIDDEN:
+        raise ValueError(f"gru_scan_int8: H={H} exceeds the warp cell's {tiling.MAX_HIDDEN} units")
     smem = tiling.gru_scan_int8_smem_bytes(D, H, block_b)
     if smem > tiling.SMEM_BUDGET_BYTES:
         raise ValueError(f"gru_scan_int8: {smem} bytes of shared memory exceed one block's budget")

@@ -28,16 +28,16 @@ field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
 with no head).
 
 The int8 serving stages ``csrc/mr_step_int8.cu`` and ``mr_step_ltc_int8.cu``
-are the same warp-per-window recurrences on the warp cell's int8/PWL policy:
-their carves (``int8_smem_bytes``, ``ltc_int8_smem_bytes``) hold the input
-and head weights as int8 (rounded up to whole floats), the recurrent columns
-dequantized once (as the fp32 twin's, or the int8 rows at H <= 32, which each
-lane dequantizes into its registers), one float scale per output channel and
-the packed PWL tables (``core/quant.py`` ``PWL_FLOATS`` floats each), and
-their tile follows the same rule. The int8 scan ``csrc/gru_scan_int8.cu``
-keeps the block-per-tile design (one thread a (window, unit) pair,
-``gru_scan_int8_smem_bytes``). The functions below that serve both kinds take
-``int8=True`` for the int8 kernels.
+and the int8 scan ``csrc/gru_scan_int8.cu`` are the same warp-per-window
+recurrences on the warp cell's int8/PWL policy: their carves
+(``int8_smem_bytes``, ``ltc_int8_smem_bytes``, and ``gru_scan_int8_smem_bytes``,
+``mr_step_int8``'s carve with no head) hold the input and head weights as int8
+(rounded up to whole floats), the recurrent columns dequantized once (as the
+fp32 twin's, or the int8 rows at H <= 32, which each lane dequantizes into its
+registers), one float scale per output channel and the packed PWL tables
+(``core/quant.py`` ``PWL_FLOATS`` floats each), and their tile follows the same
+rule. The functions below that serve both kinds take ``int8=True`` for the
+int8 kernels.
 
 The banked service ticks (``csrc/mr_tick.cu``, and its int8/PWL twin
 ``mr_tick_int8.cu`` on the warp cell's int8 policy) spread one slot's N
@@ -63,6 +63,8 @@ FAMILIES = ("gru", "ltc", "node", "gru_scan")
 # float4s); a warp computes the h-independent terms of CELL_CHUNK steps at once
 CELL_WARPS = 8  # kWarps
 CELL_CHUNK = 16  # kChunk
+CELL_MAX_UNITS = 8  # kMaxUnits: hidden units a lane at most
+MAX_HIDDEN = 32 * CELL_MAX_UNITS  # the widest H a warp-cell kernel takes
 
 
 def _pad4(n: int) -> int:
@@ -134,18 +136,6 @@ def _cell_head_q_floats(H: int, Dh: int, K: int) -> int:
     return sum(map(_pad4, (q_floats(H * Dh), Dh, Dh, q_floats(Dh * K), K, K)))
 
 
-def gru_q_floats(D: int, H: int, block_b: int) -> int:
-    """``csrc/gru_q_step.cuh``: scales, bias, both tables, the tile's state
-    and the int8 gate weights."""
-    return (9 * H + 2 * PWL_FLOATS + 4 * block_b * H + q_floats(D * 3 * H)
-            + q_floats(H * 3 * H))  # fmt: skip
-
-
-def gru_scan_int8_smem_bytes(D: int, H: int, block_b: int) -> int:
-    """``gru_scan_int8``: the quantized scan's carve."""
-    return 4 * gru_q_floats(D, H, block_b)
-
-
 def int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
     """``mr_step_int8`` (``warp_cell.cuh`` ``GruQLayout``): int8 wx in whole
     floats, wh's 3H columns dequantized (at H <= 32 the int8 rows in their
@@ -156,6 +146,12 @@ def int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:
                              PWL_FLOATS))) + _cell_head_q_floats(H, Dh, K))  # fmt: skip
     warp = 2 * _pad4(R) + 2 * _pad4(C * D) + _pad4(C * 3 * 32 * nu)
     return 4 * (block + cell_warps(block_b) * warp)
+
+
+def gru_scan_int8_smem_bytes(D: int, H: int, block_b: int) -> int:
+    """``gru_scan_int8`` (``GruQLayout`` with no head): ``mr_step_int8``'s
+    carve at Dh = K = 0."""
+    return int8_smem_bytes(D, H, 0, 0, block_b)
 
 
 def ltc_int8_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:

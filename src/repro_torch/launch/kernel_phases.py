@@ -2,10 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_phases [--baseline CSRC_DIR]
 
-Builds the eight warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
+Builds the nine warp-cell kernels (``csrc/warp_cell.cuh``): ``mr_step.cu``,
 ``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan ``gru_scan.cu``, the
-int8/PWL stages ``mr_step_int8.cu`` and ``mr_step_ltc_int8.cu`` and the
-banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu``, as they are and in
+int8/PWL stages ``mr_step_int8.cu`` and ``mr_step_ltc_int8.cu``, the int8/PWL
+scan ``gru_scan_int8.cu`` and the banked ticks ``mr_tick.cu`` and
+``mr_tick_int8.cu``, as they are and in
 copies with one phase switched off -- the chain of steps, the h-independent
 terms computed ahead of it, the head (the scan: its hs write), and for the
 ticks the ingest (the ring roll and each warp's window build) and the
@@ -14,8 +15,8 @@ run in parallel), and times every build's kernels with ``torch.profiler``
 (the mean device time of 25 launches). The fused kernels and the scan run at
 the quickstart shape (B=64, T=32, D=2, H=32, Dh=64, K=12; 6 LTC and NODE
 substeps; the GRU flow gate on) and at bench_cycles' (B=64, T=200, D=8, H=64,
-Dh=128), the int8 stages on the same weights quantized per column with the
-serving PWL tables (``mr_step_int8`` the standard cell); the ticks at the
+Dh=128), the int8 stages and scan on the same weights quantized per column
+with the serving PWL tables (the standard cell); the ticks at the
 serve shape (S=4 slots of N=17 windows, T=32, D=4, H=32, Dh=64, Ko=45, the
 standard GRU; the int8 tick on the same weights
 quantized per slot and per column, with the serving PWL tables). The time a
@@ -26,7 +27,9 @@ block (the tiles ``kernels/mr_step/tiling.py`` chooses between; for the tick
 1, 2 and 4 slots a bank) and, with ``--baseline`` (the ``csrc`` directory of
 another tree, such as the parent commit unpacked with ``git archive``),
 timed in turns with the same kernels built from there: baseline, current,
-current, baseline. ``ptxas`` registers and spills of every build go to
+current, baseline, and the largest difference between the two builds'
+outputs on the same operands printed (0 where a change keeps the arithmetic).
+``ptxas`` registers and spills of every build go to
 ``--out``. It needs a card and ``nvcc``, and prints the card's name and power
 limit first.
 """
@@ -49,12 +52,13 @@ from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.node_mr import node_sub_dt
 from repro_torch.core.quant import N_SEG, quantize_int8, serving_packs, serving_tables
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.gru_scan.ref import gru_scan_reference
+from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
 
 SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "gru_scan.cu", "mr_step_int8.cu",
-           "mr_step_ltc_int8.cu", "mr_tick.cu", "mr_tick_int8.cu")
+           "mr_step_ltc_int8.cu", "gru_scan_int8.cu", "mr_tick.cu", "mr_tick_int8.cu")
 KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node", "gru_scan", "mr_step_int8",
-           "mr_step_ltc_int8")  # then the ticks
+           "mr_step_ltc_int8", "gru_scan_int8")  # then the ticks
+SCANS = ("gru_scan", "gru_scan_int8")  # no head: each step's h written
 TICKS = ("mr_tick", "mr_tick_int8")
 # (label, B, T, D, H, Dh, K)
 SHAPES = [("quickstart", 64, 32, 2, 32, 64, 12), ("bench_cycles", 64, 200, 8, 64, 128, 12)]
@@ -103,7 +107,8 @@ VARIANTS = {
 }  # fmt: skip
 # the phases each kernel has
 PHASES = {k: ("no steps", "no terms ahead", "no head") for k in KERNELS}
-PHASES["gru_scan"] = ("no steps", "no terms ahead", "no hs write")
+for _scan in SCANS:
+    PHASES[_scan] = ("no steps", "no terms ahead", "no hs write")
 for _tick in TICKS:
     PHASES[_tick] = ("no steps", "no terms ahead", "no head", "no ingest", "no readout")
 LAUNCHERS = tuple(f"{k}_launch" for k in (*KERNELS, *TICKS))
@@ -162,7 +167,8 @@ def operands(kernel, B, T, D, H, Dh, K, device, seed=0) -> list[torch.Tensor]:
 def int8_operands(kernel, ops) -> list[torch.Tensor]:
     """The int8 stage's operands of the fp32 ones: each weight matrix quantized
     per column (its int8 codes, then its scales), the vectors as they are, the
-    serving PWL tables; the standard GRU reads no time_scale and no dts."""
+    serving PWL tables; the standard GRU reads no time_scale and no dts, the
+    scan ``gru_scan_int8`` no head."""
     def q(w):
         z = quantize_int8(w)
         return z.values, z.scale.reshape(-1)
@@ -211,11 +217,13 @@ def launcher(lib, kernel, ops, tile: int):
         ptrs = [t.data_ptr() for t in (*ops, *outs)]
         args = (S, L, n, m, C, T, TICK["stride"], H, Dh, Ko, Kc, tile,
                 N_SEG if kernel == "mr_tick_int8" else 0, TICK["ema"], 1.0 - TICK["ema"])  # fmt: skip
-    elif kernel == "gru_scan":  # xs, h0, wx, wh, b, time_scale, dts -> hs
+    elif kernel in SCANS:  # xs, h0, wx, wh, b, time_scale, dts (int8: xs, h0, wxq, whq, sx,
+        # sh, b, sig, tanh) -> hs
         B, T, _ = ops[0].shape
         outs = [torch.empty(B, T, ops[1].shape[1], device=ops[0].device)]
-        ptrs = [t.data_ptr() for t in (*ops[:7], *outs)]
-        args = (B, T, ops[0].shape[2], ops[1].shape[1], tile, 1)
+        n_in, last = (7, 1) if kernel == "gru_scan" else (9, N_SEG)  # flow on; n_seg
+        ptrs = [t.data_ptr() for t in (*ops[:n_in], *outs)]
+        args = (B, T, ops[0].shape[2], ops[1].shape[1], tile, last)
     else:
         B, T, D = ops[0].shape
         H, (Dh, K) = ops[1].shape[1], ops[-3 if kernel.endswith("int8") else -2].shape
@@ -244,22 +252,27 @@ def launcher(lib, kernel, ops, tile: int):
 def device_ms(launch, kernel: str, traces: int = 3) -> float:
     """Mean device time of LAUNCHES launches, from the profiler's kernel
     records: one launch inside the trace first (the tracer may miss it while
-    it starts), then the timed ones, the last LAUNCHES kept. A trace that
-    recorded fewer is taken again, ``traces`` times at most."""
+    it starts), then the timed ones, the last LAUNCHES kept. The profiler can
+    drop records: a trace that kept fewer is taken again with twice the
+    launches, ``traces`` times at most."""
     launch()
     torch.cuda.synchronize()
+    n = LAUNCHES
     for _ in range(traces):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             launch()
             torch.cuda.synchronize()
-            for _ in range(LAUNCHES):
+            for _ in range(n):
                 launch()
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                          and f"{kernel}_kernel" in e.name), key=lambda e: e.time_range.start)  # fmt: skip
         if len(events) >= LAUNCHES:
             return sum(e.time_range.elapsed_us() for e in events[-LAUNCHES:]) / 1e3 / LAUNCHES
-    raise RuntimeError(f"the profiler recorded {len(events)} {kernel} kernels of {LAUNCHES + 1}")
+        print(f"[profile] {kernel}: the profiler kept {len(events)} of {n + 1} launches; tracing "
+              f"again with {2 * n}", flush=True)
+        n *= 2
+    raise RuntimeError(f"the profiler recorded {len(events)} {kernel} kernels of {n // 2 + 1}")
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -287,6 +300,10 @@ def plain(kernel, ops):
         return ref.mr_step_node_reference(*ops, dt=DT, n_substeps=SUBSTEPS)
     if kernel == "gru_scan":
         return gru_scan_reference(*ops[:7], flow=True)
+    if kernel == "gru_scan_int8":
+        xs, h0, wxq, whq, sx, sh, b = ops[:7]
+        dts = torch.ones(xs.shape[1], device=xs.device)  # unread: the standard cell
+        return gru_scan_int8_reference(xs, h0, wxq, whq, sx, sh, b, dts, *serving_tables())
     if kernel == "mr_step_int8":
         xs, h0, wxq, whq, sx, sh, b, _, _, w1q, s1, b1, w2q, s2, b2 = ops
         dts = torch.ones(xs.shape[1], device=xs.device)  # unread: the standard cell
@@ -327,6 +344,11 @@ def report(libs, kernel, label, ops) -> None:
     print(f"[tile] {kernel} at {label}: "
           + ", ".join(f"{what}={t} {ms:.4f} ms" for t, ms in tiles.items()), flush=True)
     if "baseline" in libs:
+        base = launcher(libs["baseline"], kernel, ops, 1)()
+        # equal infinities (the tick's inactive delta) differ by nothing
+        diff = max((a - b).abs().nan_to_num(nan=0.0, posinf=float("inf")).max().item()
+                   for a, b in zip(out, base))  # fmt: skip
+        print(f"[baseline] {kernel} at {label}: max |current - baseline| {diff:.3e}", flush=True)
         turns = ("baseline", "current", "current", "baseline")
         ms = [(tag, device_ms(launcher(libs[tag], kernel, ops, 1), kernel)) for tag in turns]
         print(f"[baseline] {kernel} at {label}: "

@@ -47,10 +47,10 @@ from repro_torch.core.stream import StreamConfig
 from repro_torch.core.ltc import LTCParams, ltc_scan, ltc_sub_dt
 from repro_torch.core.neural_flow import GRUParams
 from repro_torch.core.node_mr import NodeEncoderParams, node_scan, node_sub_dt
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.quant import QuantConfig, quantize_int8, serving_packs, serving_tables
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.gru_scan.ops import gru_scan, gru_scan_cuda, gru_scan_int8, gru_scan_int8_cuda
-from repro_torch.kernels.gru_scan.ref import gru_scan_reference
+from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
 from repro_torch.kernels.mr_step.ops import (
     mr_step,
     mr_step_cuda,
@@ -547,7 +547,9 @@ def test_ltc_int8_takes_a_tile_past_a_thousand_threads(dev):
         torch.testing.assert_close(got, w, **INT8_TOL)
 
 
-@pytest.mark.parametrize("B,T,D,H", [(4, 20, 8, 32), (64, 32, 2, 32), (193, 32, 2, 32)])
+@pytest.mark.parametrize(
+    "B,T,D,H", [(4, 20, 8, 32), (64, 32, 2, 32), (193, 32, 2, 32), (64, 200, 8, 64)]
+)
 def test_gru_scan_int8_matches_plain(dev, B, T, D, H):
     g = torch.Generator(device=dev).manual_seed(2)
     params = GRUParams(
@@ -566,6 +568,46 @@ def test_gru_scan_int8_matches_plain(dev, B, T, D, H):
     with torch.no_grad():
         _, hs_fp = gru_scan(params, xs, h0, flow=False)
     assert (hs - hs_fp).abs().max().item() >= QUANT_GAP
+
+
+def _gru_int8_operands(ops):
+    """gru_scan_int8_cuda's operands of gru_scan's (xs, h0, wx, wh, b, ...):
+    the weights quantized per column, their scales, the serving PWL tables."""
+    xs, h0, wx, wh, b = ops[:5]
+    qx, qh = quantize_int8(wx), quantize_int8(wh)
+    return (xs, h0, qx.values, qh.values, qx.scale.reshape(-1), qh.scale.reshape(-1), b,
+            *serving_packs(xs.device))  # fmt: skip
+
+
+@pytest.mark.parametrize("H", [8, 32, 48, 64])
+def test_gru_scan_int8_does_not_depend_on_the_tile(dev, H):
+    """gru_scan_int8 runs gru_scan's warp cell on the int8/PWL policy: every
+    window's hs is the same bit for bit whatever its block holds (a tile of 9
+    runs its windows on 8 warps, the ninth after the first), from a non-zero
+    h0, within 1e-5 of the plain version and at least 1e-4 from the fp32 twin;
+    H=48 is the generic instantiation."""
+    B, T, D = 36, 21, 3
+    ops = _operands(B, T, D, H, 16, 4, dev, seed=10)[:7]
+    q_ops = _gru_int8_operands(ops)
+    before = gru_scan_int8_cuda.launches
+    outs = {bb: gru_scan_int8_cuda(*q_ops, block_b=bb) for bb in (1, 2, 3, 4, 9)}
+    torch.cuda.synchronize()
+    assert gru_scan_int8_cuda.launches == before + 5
+    for bb, hs in outs.items():
+        torch.testing.assert_close(hs, outs[1], atol=0, rtol=0, msg=f"gru_scan_int8 block_b={bb}")
+    want = gru_scan_int8_reference(*q_ops[:7], ops[6], *serving_tables())
+    torch.testing.assert_close(outs[1], want, **INT8_TOL)
+    hs_fp = gru_scan_cuda(*ops, flow=False, block_b=1)
+    assert (outs[1] - hs_fp).abs().max().item() >= QUANT_GAP
+
+
+def test_gru_scan_int8_refuses_a_width_past_the_warp_cell(dev):
+    """A lane holds at most 8 units, so H = 264 is refused before any launch."""
+    ops = _gru_int8_operands(_operands(2, 3, 2, 264, 16, 4, dev)[:7])
+    before = gru_scan_int8_cuda.launches
+    with pytest.raises(ValueError, match="H=264"):
+        gru_scan_int8_cuda(*ops, block_b=1)
+    assert gru_scan_int8_cuda.launches == before
 
 
 # the serve geometry spreads a slot's 17 windows over a cluster of 3 blocks, the

@@ -2,9 +2,10 @@
 
 ``csrc/mr_step.cu``, ``mr_step_ltc.cu``, ``mr_step_node.cu``, the bare scan
 ``gru_scan.cu``, the int8/PWL stages ``mr_step_int8.cu`` and
-``mr_step_ltc_int8.cu`` and the banked ticks ``mr_tick.cu`` and
-``mr_tick_int8.cu`` run one warp a window and sum in another order than the
-plain versions: each matvec output in four partial sums over k mod 4,
+``mr_step_ltc_int8.cu``, the int8/PWL scan ``gru_scan_int8.cu`` and the
+banked ticks ``mr_tick.cu`` and ``mr_tick_int8.cu`` run one warp a window and
+sum in another order than the plain versions: each matvec output in four
+partial sums over k mod 4,
 combined as (p0 + p1) + (p2 + p3); x_t . Wx + b (GRU), the drive
 x_t . W_in + bias (LTC) and x_t . W_in + b_in (NODE) computed ahead of the
 chain, x.W summed over d first and the bias added after; the flow gate's
@@ -12,8 +13,8 @@ phi(t) * alpha computed ahead as well; the LTC update's numerator and
 denominator each one FMA, then the division; the head's RMS sum and layer 2
 summed per lane (units j = lane + 32u) and reduced over the lanes by a
 shuffle butterfly; the tick's readout summing the windows' outputs in
-window order. The int8/PWL cell of ``mr_tick_int8.cu`` and
-``mr_step_int8.cu`` dequantizes each weight once (``float(q) * scale``),
+window order. The int8/PWL cell of ``mr_tick_int8.cu``, ``mr_step_int8.cu``
+and ``gru_scan_int8.cu`` dequantizes each weight once (``float(q) * scale``),
 keeps x.Wx alone ahead of the chain and adds the bias after the matvec,
 ``(x.Wx + h.Wh) + b``, and evaluates the PWL tables with a true division; the
 int8/PWL LTC substep of ``mr_step_ltc_int8.cu`` rounds every operation apart:
@@ -29,7 +30,8 @@ interpret=True)``, ``tests/test_tick.py:79``), within 1e-4: the bound the
 card tests hold the fused kernels to; the int8 tick and stages within the
 JAX int8 tick tests' 1e-5 (``tests/test_tick.py:111``), against JAX's int8
 oracles and, on tables saturating where they do, its int8 Pallas kernels
-(``repro.kernels.mr_step.ops.mr_step_int8(..., interpret=True)``). Inputs
+(``repro.kernels.mr_step.ops.mr_step_int8(..., interpret=True)``,
+``repro.kernels.gru_scan.ops.gru_scan_int8(..., interpret=True)``). Inputs
 are made with numpy from a seed.
 
 The carve functions of ``kernels/mr_step/tiling.py`` are held against the
@@ -52,6 +54,7 @@ from repro.core.merinda import MRConfig as JMRConfig
 from repro.core.merinda import init_mr as jinit_mr
 from repro.core.neural_flow import GRUParams as JGRUParams
 from repro.kernels.gru_scan.ops import gru_scan as jgru_scan
+from repro.kernels.gru_scan.ops import gru_scan_int8 as jgru_scan_int8
 from repro.kernels.mr_step.ops import mr_step as jmr_step
 from repro.kernels.mr_step.ops import mr_step_int8 as jmr_step_int8
 from repro.kernels.mr_step.tick import mr_tick as jmr_tick
@@ -60,7 +63,7 @@ from repro_torch.core.ltc import ltc_sub_dt
 from repro_torch.core.merinda import RMS_EPS, MRConfig
 from repro_torch.core.neural_flow import INV_LIPSCHITZ_ALPHA, softplus
 from repro_torch.core.node_mr import node_sub_dt
-from repro_torch.core.quant import PWL_FLOATS, pwl_width, serving_tables
+from repro_torch.core.quant import PWL_FLOATS, pwl_width, quantize_int8, serving_tables
 from repro_torch.core.stream import StreamConfig
 from repro_torch.data.windows import window_views
 from repro_torch.kernels.mr_step import tiling
@@ -159,23 +162,31 @@ def _pwl(table, x):
     return torch.where(x > table.x_max, torch.full_like(y, table.right), y)
 
 
-def _gru_q_cell_emulation(xs, wx, wh, b, w1, b1, w2, b2, tables):
-    """warp_cell.cuh's Int8Cell and Int8Head on dequantized weights (each
-    float(q) * scale, one rounding): x.Wx ahead of the chain without the
-    bias, (x.Wx + h.Wh) + b, PWL sigmoid and tanh, the update's products
-    rounded apart; the head's biases after each layer's sum."""
+def _gru_q_scan_emulation(xs, h0, wx, wh, b, tables):
+    """warp_cell.cuh's Int8Cell on dequantized weights (each float(q) *
+    scale, one rounding), gru_scan_int8.cu's every step's h [B, T, H]: x.Wx
+    ahead of the chain without the bias, (x.Wx + h.Wh) + b, PWL sigmoid and
+    tanh, the update's products rounded apart."""
     sig, tanh = tables
-    B, T, _ = xs.shape
     H = wh.shape[0]
-    h = torch.zeros(B, H)
-    for t in range(T):
+    h, hs = h0, []
+    for t in range(xs.shape[1]):
         gx = _xw(xs[:, t], wx)  # ahead of the chain: x.Wx alone
         a = _matvec4(h, wh[:, : 2 * H])
         r = _pwl(sig, (gx[:, :H] + a[:, :H]) + b[:H])
         z = _pwl(sig, (gx[:, H : 2 * H] + a[:, H:]) + b[H : 2 * H])
         c = _pwl(tanh, (gx[:, 2 * H :] + _matvec4(r * h, wh[:, 2 * H :])) + b[2 * H :])
         h = (1.0 - z) * c + z * h
-    return _head(h, w1, b1, w2, b2)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _gru_q_cell_emulation(xs, wx, wh, b, w1, b1, w2, b2, tables):
+    """The int8 scan from h0 = 0, then Int8Head: the head's biases after
+    each layer's sum."""
+    h0 = torch.zeros(xs.shape[0], wh.shape[0])
+    hs = _gru_q_scan_emulation(xs, h0, wx, wh, b, tables)
+    return _head(hs[:, -1], w1, b1, w2, b2)
 
 
 def _ltc_q_cell_emulation(xs, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, sub_dt, n_sub, sig):
@@ -400,6 +411,26 @@ def _asymptote_tables():
     return sig._replace(left=0.0, right=1.0), tanh._replace(left=-1.0, right=1.0)
 
 
+@pytest.mark.parametrize("dispatch", ["reference", "interpret"])
+@pytest.mark.parametrize("label,B,T,n,m,H,Dh", SHAPES, ids=[s[0] for s in SHAPES])
+def test_int8_scan_order_matches_jax_kernel(label, B, T, n, m, H, Dh, dispatch):
+    """gru_scan_int8.cu's hs at every step, from a non-zero h0, against JAX's
+    int8 scan: its oracle (``force_reference``) on the serving tables, its
+    Pallas kernel (``interpret``) on the tables saturating where that kernel
+    does; within 1e-5."""
+    D = n + m
+    (w, b, ts), xs, h0, _ = _gru_operands(B, T, D, H, seed=14)
+    kw = dict(force_reference=True) if dispatch == "reference" else dict(interpret=True)
+    _, want = jgru_scan_int8(JGRUParams(*map(jnp.asarray, (w, b, ts))), jnp.asarray(xs),
+                             jnp.asarray(h0), **kw)  # fmt: skip
+    tables = serving_tables() if dispatch == "reference" else _asymptote_tables()
+    w, b, xs, h0 = map(torch.from_numpy, (w, b, xs, h0))
+    wx, wh = (q.values.float() * q.scale for q in (quantize_int8(w[:D]), quantize_int8(w[D:])))
+    with torch.no_grad():
+        got = _gru_q_scan_emulation(xs, h0, wx, wh, b, tables)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
 # tests/test_torch_int8.py's sweep (m, slots a bank) at the JAX tick tests'
 # geometry and width, and serve_mr's geometry (N=17 windows of T=32, H=32, m=1)
 INT8_TICK_CASES = [(0, 1, TICK_TEST, 8, 16), (2, 2, TICK_TEST, 8, 16), (1, 1, {}, 32, 64)]
@@ -529,6 +560,12 @@ def test_cell_carves_match_the_header(D, H, Dh, K, bb):
     q = tiling.ltc_int8_smem_bytes(D, H, Dh, K, bb)
     assert q == _header_carve("LtcQLayout", D, H, Dh, K, bb)
     assert q == tiling.family_smem_bytes("ltc", D, H, Dh, K, bb, int8=True)
+    # gru_scan_int8 carves mr_step_int8's layout with no head
+    q = tiling.gru_scan_int8_smem_bytes(D, H, bb)
+    assert q == _header_carve("GruQLayout", D, H, 0, 0, bb)
+    assert q == tiling.family_smem_bytes("gru_scan", D, H, Dh, K, bb, int8=True)
+    text = HEADER.read_text()
+    assert int(re.search(r"constexpr int kMaxUnits = (\d+);", text).group(1)) == tiling.CELL_MAX_UNITS
     assert tiling.cell_warps(bb) == min(bb, 8)
     S = tiling.col_stride(H)  # whole float4s, 4 mod 8: conflict-free float4 reads
     assert S % 4 == 0 and S % 8 == 4 and S >= H
