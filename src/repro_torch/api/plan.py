@@ -11,9 +11,14 @@ Modes: ``offline`` trains one system (``run_offline``, ``readout``);
 ``batch`` recovers a fleet of systems as one stacked program (``run_batch``);
 ``stream`` builds the online service (``make_service``) on the host control
 plane, its tick composite or banked (the ``mr_tick`` kernel). Batch and
-stream train through ``torch.func.vmap`` of the plain loss, which cannot
-enter the kernels' autograd Functions, so ``fused=True`` and the
-``*_kernel`` rows are refused there (not yet ported: a slot-axis ``mr_step``).
+stream train every system or slot at once through ``torch.func.vmap`` of
+the loss (``engine.stacked_train_step``), as JAX maps the Pallas stages with
+``jax.vmap``: ``fused=True`` and the ``*_kernel`` rows launch the slot-axis
+form of their kernel (``mr_step``, ``mr_step_ltc``, ``mr_step_node`` or
+``gru_scan``) once a step for all slots, and the plain versions on the CPU.
+The fused tile is resolved against the compile-time batch, as
+``repro/api/plan.py`` ``_compile_time_batch``: a stream's windows a slot,
+else ``batch_size``; in stream mode over the ``n_slots`` slots.
 
 ``precision="int8_pwl"`` (``Lowering.quant_serving``) serves through the
 fixed-point fused stage: ``readout`` and every eviction of the service read
@@ -190,6 +195,16 @@ class RecoveryPlan:
         return theta
 
 
+def _compile_time_batch(spec: RecoverySpec) -> int | None:
+    """The fused stage's batch knowable at compile time
+    (``repro/api/plan.py:385-395``): a stream's windows a slot (the tick's
+    readout batch), else the optimizer minibatch (None: all windows, unknown
+    until the call)."""
+    if spec.mode == "stream":
+        return spec.stream_config().n_windows
+    return spec.batch_size
+
+
 def _quant_tick(quant_serving: bool, scfg) -> bool:
     """The int8 tick is engaged only for pure serve ticks (K = 0) under
     int8_pwl serving, as ``repro/api/plan.py:353-363``."""
@@ -237,12 +252,6 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
             f"the families with a PWL activation mapping ({encoders.int8_names()}); got "
             f"{spec.encoder!r}"
         )
-    if spec.mode in ("batch", "stream") and (spec.fused or row.kernel):
-        raise ValueError(
-            f"mode={spec.mode!r} with fused=True or a *_kernel row (got encoder="
-            f"{spec.encoder!r}, fused={spec.fused}) is not yet ported to repro_torch: the "
-            f"stacked train step vmaps the plain loss, which cannot enter the kernels"
-        )
     if spec.qat is not None and row.flow is None:
         raise ValueError(
             f"qat (fixed-point fake-quant) is implemented for the GRU families, "
@@ -251,10 +260,12 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
     rt.pin_fp32_matmul()
     block_b, smem, budget = None, None, None
     if spec.fused:
-        batch = spec.batch_size
+        batch = _compile_time_batch(spec)
         if spec.block_b == "auto":
             budget = spec.smem_budget_bytes or tiling.SMEM_BUDGET_BYTES
-            block_b = tiling.auto_block_b(spec.to_mr_config(), row.family, batch, budget)
+            slots = spec.n_slots if spec.mode == "stream" else 1
+            block_b = tiling.auto_block_b(spec.to_mr_config(), row.family, batch, budget,
+                                          slots=slots)  # fmt: skip
         elif isinstance(spec.block_b, int):
             if batch is not None and batch % spec.block_b:
                 raise ValueError(

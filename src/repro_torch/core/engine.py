@@ -10,8 +10,9 @@ when they are stacked: the loop makes no host readback.
 Batch mode recovers many systems at once, and the streaming service trains
 all its slots at once: both are ``jax.vmap`` of the train step in the JAX
 package. Their counterpart here is ``stacked_train_step``: every leaf carries
-a leading system (or slot) axis, ``torch.func.vmap`` runs the plain
-``mr_loss`` over it, and one ``torch.autograd.grad`` of the summed losses
+a leading system (or slot) axis, ``torch.func.vmap`` runs ``mr_loss`` over
+it (a kernel row's kernel as its slot-axis form, one launch for all slots),
+and one ``torch.autograd.grad`` of the summed losses
 gives every slot its own gradient (the slots share no parameter). Clip and
 AdamW then act per slot, each with its own step count and learning rate.
 ``recover_many`` is the batch-mode program ``RecoveryPlan.run_batch`` runs;
@@ -125,9 +126,12 @@ def stacked_train_step(
 ):
     """``mr_train_step`` of every slot at once (``jax.vmap(mr_train_step)``).
 
-    Returns (params, opt_state, metrics) with metrics of shape [S]. The plain
-    ``mr_loss`` runs under ``torch.func.vmap``, so the rows that launch a
-    kernel inside autograd (fused, ``*_kernel``) cannot take this path.
+    Returns (params, opt_state, metrics) with metrics of shape [S].
+    ``mr_loss`` runs under ``torch.func.vmap``: on the card the rows that
+    launch a kernel (fused, ``*_kernel``) launch its slot-axis form once for
+    all slots, through the kernel Function's vmap rule
+    (``kernels/runtime.kernel_function``), and the one ``torch.autograd.grad``
+    below pulls the gradients back through its stacked plain recompute.
     """
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     in_dims = (0, 0, None if us is None else 0)
@@ -145,7 +149,8 @@ def stacked_train_step(
 
 @torch.no_grad()
 def stacked_theta(params: MRParams, cfg: MRConfig, ys: torch.Tensor, us: torch.Tensor | None):
-    """Mean-over-windows Theta of every slot: ys [S, N, T, n] -> [S, n_terms, n]."""
+    """Mean-over-windows Theta of every slot: ys [S, N, T, n] -> [S, n_terms, n]
+    (one slot-axis launch on the card for a fused or ``*_kernel`` row)."""
     in_dims = (0, 0, None if us is None else 0)
     return torch.func.vmap(lambda p, y, u: mr_forward(p, cfg, y, u)[0].mean(dim=0), in_dims)(
         params, ys, us

@@ -7,7 +7,9 @@ A fleet of dynamical-system streams shares S service slots:
   slot axis;
 - every tick rolls a fresh observation chunk into each slot's buffer,
   re-windows it with the normalization frozen at admission, runs K
-  optimizer steps of every slot at once (``engine.stacked_train_step``),
+  optimizer steps of every slot at once (``engine.stacked_train_step``; a
+  fused or ``*_kernel`` row launches its kernel's slot-axis form once a
+  step for all slots),
   and reads out each slot's coefficients (EMA-smoothed) with their
   tick-over-tick relative delta;
 - a slot whose delta falls below ``delta_tol`` (after ``min_steps``), or

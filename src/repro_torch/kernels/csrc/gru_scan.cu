@@ -18,6 +18,12 @@
 // hs write (B*T*H floats, 256 KB there) is the only sizeable traffic: each
 // step the lanes store their own units of h, one coalesced 128-byte row a
 // unit, and the store does not hold up the chain.
+//
+// One launch runs S scans (the batching rule jax.vmap gives gru_scan_pallas),
+// each on its own windows and weights, grid (B / bb, S), hs [S, B, T, H]; a
+// single call is S = 1. Every operand has a slot stride, 0 for one shared by
+// all slots (h0, dts); block (x, s) offsets the pointers by slot s
+// (wc::slot_at) and runs the body above unchanged.
 #include "warp_cell.cuh"
 
 namespace repro {
@@ -28,25 +34,35 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
     gru_scan_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
                     const float* __restrict__ wx, const float* __restrict__ wh,
                     const float* __restrict__ b, const float* __restrict__ time_scale,
-                    const float* __restrict__ dts, float* __restrict__ hs, int T, int D, int H_rt,
-                    int bb) {
-  const wc::GruArgs args{wx, wh, b, time_scale, dts, nullptr, nullptr, nullptr, nullptr};
-  wc::gru_windows<N, FLOW, true>(xs, h0, args, hs, T, D, H_rt, 0, 0, bb, 0, -1);
+                    const float* __restrict__ dts, float* __restrict__ hs, wc::SlotStrides<8> st,
+                    int T, int D, int H_rt, int bb) {
+  const wc::GruArgs args{wc::slot_at(wx, st.v[2]),
+                         wc::slot_at(wh, st.v[3]),
+                         wc::slot_at(b, st.v[4]),
+                         wc::slot_at(time_scale, st.v[5]),
+                         wc::slot_at(dts, st.v[6]),
+                         nullptr,
+                         nullptr,
+                         nullptr,
+                         nullptr};
+  wc::gru_windows<N, FLOW, true>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]), args,
+                                 wc::slot_at(hs, st.v[7]), T, D, H_rt, 0, 0, bb, 0, -1);
 }
 
 // static: internal linkage, so each library keeps its own `allowed` record
 template <int N, bool FLOW>
 static cudaError_t launch_gru_scan(const float* xs, const float* h0, const float* wx,
                                    const float* wh, const float* b, const float* time_scale,
-                                   const float* dts, float* hs, int B, int T, int D, int H, int bb,
+                                   const float* dts, float* hs, const wc::SlotStrides<8>& st,
+                                   int S, int B, int T, int D, int H, int bb,
                                    cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
   const size_t smem = wc::GruLayout(D, H, 0, 0, bb).total * sizeof(float);
   auto kernel = &gru_scan_kernel<N, FLOW>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  kernel<<<B / bb, 32 * wc::warps_for(bb), smem, stream>>>(xs, h0, wx, wh, b, time_scale, dts, hs,
-                                                           T, D, H, bb);
+  kernel<<<dim3(B / bb, S), 32 * wc::warps_for(bb), smem, stream>>>(
+      xs, h0, wx, wh, b, time_scale, dts, hs, st, T, D, H, bb);
   return cudaGetLastError();
 }
 
@@ -54,9 +70,10 @@ template <bool FLOW>
 static cudaError_t launch_gru_scan_width(const float* xs, const float* h0, const float* wx,
                                          const float* wh, const float* b,
                                          const float* time_scale, const float* dts, float* hs,
-                                         int B, int T, int D, int H, int bb, cudaStream_t stream) {
-#define REPRO_GRU_SCAN(N) \
-  launch_gru_scan<N, FLOW>(xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, bb, stream)
+                                         const wc::SlotStrides<8>& st, int S, int B, int T, int D,
+                                         int H, int bb, cudaStream_t stream) {
+#define REPRO_GRU_SCAN(N)                                                                        \
+  launch_gru_scan<N, FLOW>(xs, h0, wx, wh, b, time_scale, dts, hs, st, S, B, T, D, H, bb, stream)
   switch (H) {
     case 8: return REPRO_GRU_SCAN(8);
     case 32: return REPRO_GRU_SCAN(32);
@@ -68,12 +85,20 @@ static cudaError_t launch_gru_scan_width(const float* xs, const float* h0, const
 
 }  // namespace repro
 
+// Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
+// shared by every slot), hs [S, B, T, H].
 extern "C" int gru_scan_launch(const float* xs, const float* h0, const float* wx,
                                const float* wh, const float* b, const float* time_scale,
-                               const float* dts, float* hs, int B, int T, int D, int H, int bb,
-                               int flow, void* stream) {
-  if (bb < 1 || B % bb != 0 || T < 1 || H < 1 || H > 32 * repro::wc::kMaxUnits)
+                               const float* dts, float* hs, long long s_xs, long long s_h0,
+                               long long s_wx, long long s_wh, long long s_b,
+                               long long s_time_scale, long long s_dts, int S, int B, int T, int D,
+                               int H, int bb, int flow, void* stream) {
+  if (S < 1 || S > repro::wc::kMaxSlots || bb < 1 || B % bb != 0 || T < 1 || H < 1 ||
+      H > 32 * repro::wc::kMaxUnits)
     return (int)cudaErrorInvalidValue;
+  const repro::wc::SlotStrides<8> st{
+      {s_xs, s_h0, s_wx, s_wh, s_b, s_time_scale, s_dts, (long long)B * T * H}};
   auto launch = flow ? &repro::launch_gru_scan_width<true> : &repro::launch_gru_scan_width<false>;
-  return (int)launch(xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, bb, (cudaStream_t)stream);
+  return (int)launch(xs, h0, wx, wh, b, time_scale, dts, hs, st, S, B, T, D, H, bb,
+                     (cudaStream_t)stream);
 }

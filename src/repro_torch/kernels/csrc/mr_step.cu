@@ -20,6 +20,12 @@
 //
 // The candidate gate is tanh(x.Wx_c + (r*h).Wh_c + b_c), as in the JAX
 // package, not torch.nn.GRU's r*(h.Wh_c).
+//
+// One launch runs S stages (the batching rule jax.vmap gives mr_step_pallas: a
+// leading slot axis of its grid), each on its own windows and weights, grid
+// (B / bb, S); a single call is S = 1. Every operand has a slot stride, 0 for
+// one shared by all slots (h0, dts); block (x, s) offsets the pointers by slot
+// s (wc::slot_at) and runs the body above unchanged.
 #include "warp_cell.cuh"
 
 namespace repro {
@@ -33,10 +39,16 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                    const float* __restrict__ b, const float* __restrict__ time_scale,
                    const float* __restrict__ dts, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, float* __restrict__ out, int T, int D, int H_rt,
-                   int Dh, int K, int bb, int act_int, int act_frac) {
-  const wc::GruArgs args{wx, wh, b, time_scale, dts, w1, b1, w2, b2};
-  wc::gru_windows<N, FLOW, false>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, act_int, act_frac);
+                   const float* __restrict__ b2, float* __restrict__ out, wc::SlotStrides<12> st,
+                   int T, int D, int H_rt, int Dh, int K, int bb, int act_int, int act_frac) {
+  const wc::GruArgs args{wc::slot_at(wx, st.v[2]),  wc::slot_at(wh, st.v[3]),
+                         wc::slot_at(b, st.v[4]),   wc::slot_at(time_scale, st.v[5]),
+                         wc::slot_at(dts, st.v[6]), wc::slot_at(w1, st.v[7]),
+                         wc::slot_at(b1, st.v[8]),  wc::slot_at(w2, st.v[9]),
+                         wc::slot_at(b2, st.v[10])};
+  wc::gru_windows<N, FLOW, false>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]), args,
+                                  wc::slot_at(out, st.v[11]), T, D, H_rt, Dh, K, bb, act_int,
+                                  act_frac);
 }
 
 // static: internal linkage, so each library keeps its own `allowed` record
@@ -44,16 +56,17 @@ template <int N, bool FLOW>
 static cudaError_t launch_mr_step(const float* xs, const float* h0, const float* wx,
                                   const float* wh, const float* b, const float* time_scale,
                                   const float* dts, const float* w1, const float* b1,
-                                  const float* w2, const float* b2, float* out, int B, int T,
-                                  int D, int H, int Dh, int K, int bb, int act_int, int act_frac,
+                                  const float* w2, const float* b2, float* out,
+                                  const wc::SlotStrides<12>& st, int S, int B, int T, int D, int H,
+                                  int Dh, int K, int bb, int act_int, int act_frac,
                                   cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
   const size_t smem = wc::GruLayout(D, H, Dh, K, bb).total * sizeof(float);
   auto kernel = &mr_step_kernel<N, FLOW>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  kernel<<<B / bb, 32 * wc::warps_for(bb), smem, stream>>>(
-      xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, T, D, H, Dh, K, bb, act_int,
+  kernel<<<dim3(B / bb, S), 32 * wc::warps_for(bb), smem, stream>>>(
+      xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, st, T, D, H, Dh, K, bb, act_int,
       act_frac);
   return cudaGetLastError();
 }
@@ -63,12 +76,13 @@ static cudaError_t launch_mr_step_width(const float* xs, const float* h0, const 
                                         const float* wh, const float* b,
                                         const float* time_scale, const float* dts,
                                         const float* w1, const float* b1, const float* w2,
-                                        const float* b2, float* out, int B, int T, int D, int H,
-                                        int Dh, int K, int bb, int act_int, int act_frac,
+                                        const float* b2, float* out,
+                                        const wc::SlotStrides<12>& st, int S, int B, int T, int D,
+                                        int H, int Dh, int K, int bb, int act_int, int act_frac,
                                         cudaStream_t stream) {
-#define REPRO_MR_STEP(N)                                                                       \
-  launch_mr_step<N, FLOW>(xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, B, T, D, H, \
-                          Dh, K, bb, act_int, act_frac, stream)
+#define REPRO_MR_STEP(N)                                                                        \
+  launch_mr_step<N, FLOW>(xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, st, S, B, T, \
+                          D, H, Dh, K, bb, act_int, act_frac, stream)
   switch (H) {
     case 8: return REPRO_MR_STEP(8);
     case 32: return REPRO_MR_STEP(32);
@@ -80,14 +94,22 @@ static cudaError_t launch_mr_step_width(const float* xs, const float* h0, const 
 
 }  // namespace repro
 
+// Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
+// shared by every slot), out [S, B, K].
 extern "C" int mr_step_launch(const float* xs, const float* h0, const float* wx, const float* wh,
                               const float* b, const float* time_scale, const float* dts,
                               const float* w1, const float* b1, const float* w2, const float* b2,
-                              float* out, int B, int T, int D, int H, int Dh, int K, int bb,
-                              int flow, int act_int, int act_frac, void* stream) {
-  if (bb < 1 || B % bb != 0 || T < 1 || H < 1 || H > 32 * repro::wc::kMaxUnits)
+                              float* out, long long s_xs, long long s_h0, long long s_wx,
+                              long long s_wh, long long s_b, long long s_time_scale,
+                              long long s_dts, long long s_w1, long long s_b1, long long s_w2,
+                              long long s_b2, int S, int B, int T, int D, int H, int Dh, int K,
+                              int bb, int flow, int act_int, int act_frac, void* stream) {
+  if (S < 1 || S > repro::wc::kMaxSlots || bb < 1 || B % bb != 0 || T < 1 || H < 1 ||
+      H > 32 * repro::wc::kMaxUnits)
     return (int)cudaErrorInvalidValue;
+  const repro::wc::SlotStrides<12> st{{s_xs, s_h0, s_wx, s_wh, s_b, s_time_scale, s_dts, s_w1,
+                                       s_b1, s_w2, s_b2, (long long)B * K}};
   auto launch = flow ? &repro::launch_mr_step_width<true> : &repro::launch_mr_step_width<false>;
-  return (int)launch(xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, B, T, D, H, Dh, K,
-                     bb, act_int, act_frac, (cudaStream_t)stream);
+  return (int)launch(xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, st, S, B, T, D, H,
+                     Dh, K, bb, act_int, act_frac, (cudaStream_t)stream);
 }

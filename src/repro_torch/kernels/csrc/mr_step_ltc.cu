@@ -27,6 +27,12 @@
 // the quickstart), each an H x H matvec a window: ~31 MFLOP at B=64, T=32,
 // H=32, K=6, about half a microsecond of the card's float32 rate. The only
 // device-memory traffic is x in and the head output out.
+//
+// One launch runs S stages (the batching rule jax.vmap gives
+// mr_step_ltc_pallas), each on its own windows and weights, grid (B / bb, S);
+// a single call is S = 1. Every operand has a slot stride, 0 for one shared by
+// all slots (h0); block (x, s) offsets the pointers by slot s (wc::slot_at)
+// and runs the body above unchanged.
 #include "warp_cell.cuh"
 
 namespace repro {
@@ -40,12 +46,17 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                        const float* __restrict__ bias, const float* __restrict__ a,
                        const float* __restrict__ inv_tau, const float* __restrict__ w1,
                        const float* __restrict__ b1, const float* __restrict__ w2,
-                       const float* __restrict__ b2, float* __restrict__ out, int T, int D,
-                       int H_rt, int Dh, int K, int bb, int n_substeps, float sub_dt,
-                       int act_int, int act_frac) {
-  const wc::LtcArgs args{w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2};
-  wc::ltc_windows<N>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, n_substeps, sub_dt, act_int,
-                     act_frac);
+                       const float* __restrict__ b2, float* __restrict__ out,
+                       wc::SlotStrides<12> st, int T, int D, int H_rt, int Dh, int K, int bb,
+                       int n_substeps, float sub_dt, int act_int, int act_frac) {
+  const wc::LtcArgs args{wc::slot_at(w_in, st.v[2]),    wc::slot_at(w_rec, st.v[3]),
+                         wc::slot_at(bias, st.v[4]),    wc::slot_at(a, st.v[5]),
+                         wc::slot_at(inv_tau, st.v[6]), wc::slot_at(w1, st.v[7]),
+                         wc::slot_at(b1, st.v[8]),      wc::slot_at(w2, st.v[9]),
+                         wc::slot_at(b2, st.v[10])};
+  wc::ltc_windows<N>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]), args,
+                     wc::slot_at(out, st.v[11]), T, D, H_rt, Dh, K, bb, n_substeps, sub_dt,
+                     act_int, act_frac);
 }
 
 // static: internal linkage, so each library keeps its own `allowed` record
@@ -53,34 +64,44 @@ template <int N>
 static cudaError_t launch_ltc(const float* xs, const float* h0, const float* w_in,
                               const float* w_rec, const float* bias, const float* a,
                               const float* inv_tau, const float* w1, const float* b1,
-                              const float* w2, const float* b2, float* out, int B, int T, int D,
-                              int H, int Dh, int K, int bb, int n_substeps, float sub_dt,
-                              int act_int, int act_frac, cudaStream_t stream) {
+                              const float* w2, const float* b2, float* out,
+                              const wc::SlotStrides<12>& st, int S, int B, int T, int D, int H,
+                              int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
+                              int act_frac, cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
   const size_t smem = wc::LtcLayout(D, H, Dh, K, bb).total * sizeof(float);
   auto kernel = &mr_step_ltc_kernel<N>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  kernel<<<B / bb, 32 * wc::warps_for(bb), smem, stream>>>(
-      xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, T, D, H, Dh, K, bb,
+  kernel<<<dim3(B / bb, S), 32 * wc::warps_for(bb), smem, stream>>>(
+      xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, st, T, D, H, Dh, K, bb,
       n_substeps, sub_dt, act_int, act_frac);
   return cudaGetLastError();
 }
 
 }  // namespace repro
 
+// Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
+// shared by every slot), out [S, B, K].
 extern "C" int mr_step_ltc_launch(const float* xs, const float* h0, const float* w_in,
                                   const float* w_rec, const float* bias, const float* a,
                                   const float* inv_tau, const float* w1, const float* b1,
-                                  const float* w2, const float* b2, float* out, int B, int T,
-                                  int D, int H, int Dh, int K, int bb, int n_substeps,
-                                  int act_int, int act_frac, float sub_dt, void* stream) {
-  if (bb < 1 || B % bb != 0 || T < 1 || n_substeps < 1 || H < 1 ||
-      H > 32 * repro::wc::kMaxUnits)
+                                  const float* w2, const float* b2, float* out, long long s_xs,
+                                  long long s_h0, long long s_w_in, long long s_w_rec,
+                                  long long s_bias, long long s_a, long long s_inv_tau,
+                                  long long s_w1, long long s_b1, long long s_w2, long long s_b2,
+                                  int S, int B, int T, int D, int H, int Dh, int K, int bb,
+                                  int n_substeps, int act_int, int act_frac, float sub_dt,
+                                  void* stream) {
+  if (S < 1 || S > repro::wc::kMaxSlots || bb < 1 || B % bb != 0 || T < 1 || n_substeps < 1 ||
+      H < 1 || H > 32 * repro::wc::kMaxUnits)
     return (int)cudaErrorInvalidValue;
-#define REPRO_LTC(N)                                                                           \
-  repro::launch_ltc<N>(xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, B, T, D, H, \
-                       Dh, K, bb, n_substeps, sub_dt, act_int, act_frac, (cudaStream_t)stream)
+  const repro::wc::SlotStrides<12> st{{s_xs, s_h0, s_w_in, s_w_rec, s_bias, s_a, s_inv_tau, s_w1,
+                                       s_b1, s_w2, s_b2, (long long)B * K}};
+#define REPRO_LTC(N)                                                                          \
+  repro::launch_ltc<N>(xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, st, S, B, T, \
+                       D, H, Dh, K, bb, n_substeps, sub_dt, act_int, act_frac,                  \
+                       (cudaStream_t)stream)
   switch (H) {
     case 8: return (int)REPRO_LTC(8);
     case 32: return (int)REPRO_LTC(32);

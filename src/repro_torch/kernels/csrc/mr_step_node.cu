@@ -24,22 +24,26 @@
 // the quickstart), each two H x H matvecs a window: ~54 MFLOP at B=64, T=32,
 // H=32, K=6, under a microsecond of the card's float32 rate. The only
 // device-memory traffic is x in and the head output out.
+//
+// One launch runs S stages (the batching rule jax.vmap gives
+// mr_step_node_pallas), each on its own windows and weights, grid (B / bb, S);
+// a single call is S = 1. Every operand has a slot stride, 0 for one shared by
+// all slots (h0); block (x, s) offsets the pointers by slot s (wc::slot_at)
+// and runs node_windows, the body, unchanged.
 #include "warp_cell.cuh"
 
 namespace repro {
 
+// Block blockIdx.x's windows of one call: the kernel's body.
 template <int N>
-// minBlocksPerSM = 1: without it ptxas holds the H=64 instantiations to
-// 64-128 registers and issues each shared load just ahead of its FMAs
-__global__ void __launch_bounds__(wc::kWarps * 32, 1)
-    mr_step_node_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
-                        const float* __restrict__ w_f1, const float* __restrict__ b_f1,
-                        const float* __restrict__ w_f2, const float* __restrict__ b_f2,
-                        const float* __restrict__ w_in, const float* __restrict__ b_in,
-                        const float* __restrict__ w1, const float* __restrict__ b1,
-                        const float* __restrict__ w2, const float* __restrict__ b2,
-                        float* __restrict__ out, int T, int D, int H_rt, int Dh, int K, int bb,
-                        int n_substeps, float sub_dt, int act_int, int act_frac) {
+__device__ __forceinline__ void node_windows(
+    const float* __restrict__ xs, const float* __restrict__ h0, const float* __restrict__ w_f1,
+    const float* __restrict__ b_f1, const float* __restrict__ w_f2,
+    const float* __restrict__ b_f2, const float* __restrict__ w_in,
+    const float* __restrict__ b_in, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2, float* __restrict__ out, int T,
+    int D, int H_rt, int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
+    int act_frac) {
   constexpr int U = N > 0 ? (N + 31) / 32 : wc::kMaxUnits;
   constexpr bool REG = N > 0 && N <= 32;  // the field's columns fit in registers
   constexpr int kC = wc::kChunk;
@@ -185,40 +189,68 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
   }
 }
 
+template <int N>
+// minBlocksPerSM = 1: without it ptxas holds the H=64 instantiations to
+// 64-128 registers and issues each shared load just ahead of its FMAs
+__global__ void __launch_bounds__(wc::kWarps * 32, 1)
+    mr_step_node_kernel(const float* __restrict__ xs, const float* __restrict__ h0,
+                        const float* __restrict__ w_f1, const float* __restrict__ b_f1,
+                        const float* __restrict__ w_f2, const float* __restrict__ b_f2,
+                        const float* __restrict__ w_in, const float* __restrict__ b_in,
+                        const float* __restrict__ w1, const float* __restrict__ b1,
+                        const float* __restrict__ w2, const float* __restrict__ b2,
+                        float* __restrict__ out, wc::SlotStrides<13> st, int T, int D, int H_rt,
+                        int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
+                        int act_frac) {
+  node_windows<N>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]),
+                  wc::slot_at(w_f1, st.v[2]), wc::slot_at(b_f1, st.v[3]),
+                  wc::slot_at(w_f2, st.v[4]), wc::slot_at(b_f2, st.v[5]),
+                  wc::slot_at(w_in, st.v[6]), wc::slot_at(b_in, st.v[7]),
+                  wc::slot_at(w1, st.v[8]), wc::slot_at(b1, st.v[9]), wc::slot_at(w2, st.v[10]),
+                  wc::slot_at(b2, st.v[11]), wc::slot_at(out, st.v[12]), T, D, H_rt, Dh, K, bb,
+                  n_substeps, sub_dt, act_int, act_frac);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
 template <int N>
 static cudaError_t launch_node(const float* xs, const float* h0, const float* w_f1,
                                const float* b_f1, const float* w_f2, const float* b_f2,
                                const float* w_in, const float* b_in, const float* w1,
                                const float* b1, const float* w2, const float* b2, float* out,
-                               int B, int T, int D, int H, int Dh, int K, int bb, int n_substeps,
-                               float sub_dt, int act_int, int act_frac, cudaStream_t stream) {
+                               const wc::SlotStrides<13>& st, int S, int B, int T, int D, int H,
+                               int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
+                               int act_frac, cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
   const size_t smem = wc::NodeLayout(D, H, Dh, K, bb).total * sizeof(float);
   auto kernel = &mr_step_node_kernel<N>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  kernel<<<B / bb, 32 * wc::warps_for(bb), smem, stream>>>(
-      xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, T, D, H, Dh, K, bb,
+  kernel<<<dim3(B / bb, S), 32 * wc::warps_for(bb), smem, stream>>>(
+      xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, st, T, D, H, Dh, K, bb,
       n_substeps, sub_dt, act_int, act_frac);
   return cudaGetLastError();
 }
 
 }  // namespace repro
 
-extern "C" int mr_step_node_launch(const float* xs, const float* h0, const float* w_f1,
-                                   const float* b_f1, const float* w_f2, const float* b_f2,
-                                   const float* w_in, const float* b_in, const float* w1,
-                                   const float* b1, const float* w2, const float* b2, float* out,
-                                   int B, int T, int D, int H, int Dh, int K, int bb,
-                                   int n_substeps, int act_int, int act_frac, float sub_dt,
-                                   void* stream) {
-  if (bb < 1 || B % bb != 0 || T < 1 || n_substeps < 1 || H < 1 ||
-      H > 32 * repro::wc::kMaxUnits)
+// Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
+// shared by every slot), out [S, B, K].
+extern "C" int mr_step_node_launch(
+    const float* xs, const float* h0, const float* w_f1, const float* b_f1, const float* w_f2,
+    const float* b_f2, const float* w_in, const float* b_in, const float* w1, const float* b1,
+    const float* w2, const float* b2, float* out, long long s_xs, long long s_h0,
+    long long s_w_f1, long long s_b_f1, long long s_w_f2, long long s_b_f2, long long s_w_in,
+    long long s_b_in, long long s_w1, long long s_b1, long long s_w2, long long s_b2, int S,
+    int B, int T, int D, int H, int Dh, int K, int bb, int n_substeps, int act_int, int act_frac,
+    float sub_dt, void* stream) {
+  if (S < 1 || S > repro::wc::kMaxSlots || bb < 1 || B % bb != 0 || T < 1 || n_substeps < 1 ||
+      H < 1 || H > 32 * repro::wc::kMaxUnits)
     return (int)cudaErrorInvalidValue;
-#define REPRO_NODE(N)                                                                          \
-  repro::launch_node<N>(xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, B, T, \
-                        D, H, Dh, K, bb, n_substeps, sub_dt, act_int, act_frac,                \
+  const repro::wc::SlotStrides<13> st{{s_xs, s_h0, s_w_f1, s_b_f1, s_w_f2, s_b_f2, s_w_in, s_b_in,
+                                       s_w1, s_b1, s_w2, s_b2, (long long)B * K}};
+#define REPRO_NODE(N)                                                                         \
+  repro::launch_node<N>(xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, st, S, \
+                        B, T, D, H, Dh, K, bb, n_substeps, sub_dt, act_int, act_frac,         \
                         (cudaStream_t)stream)
   switch (H) {
     case 8: return (int)REPRO_NODE(8);

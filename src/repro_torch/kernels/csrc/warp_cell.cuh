@@ -1215,5 +1215,21 @@ inline cudaError_t allow_shared_once(Kernel kernel, size_t bytes, size_t (&allow
   return err;
 }
 
+// The slot axis of mr_step, gru_scan, mr_step_ltc and mr_step_node: S
+// independent calls in one launch, grid (B / bb, S), one call S = 1. Block
+// (x, s) runs slot s: each operand at its base plus s times its own slot
+// stride in elements (0: one operand shared by every slot), the output at
+// s times one call's output. The offset is taken in the __global__ entry, so
+// the bodies run as for one call and a slot's bits are that call's.
+constexpr int kMaxSlots = 65535;  // gridDim.y
+template <int M>
+struct SlotStrides {
+  long long v[M];
+};
+template <class P>
+__device__ __forceinline__ P* slot_at(P* p, long long stride) {
+  return p + (long long)blockIdx.y * stride;
+}
+
 }  // namespace wc
 }  // namespace repro

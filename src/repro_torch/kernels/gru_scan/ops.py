@@ -7,6 +7,12 @@ hand-written kernel (``csrc/gru_scan.cu``, which replaces
 ``force_reference`` takes the plain version (``ref.py``). The gradient
 recomputes the plain version, as ``repro/kernels/gru_scan/ops.py:39-53``
 does: the JAX package has no backward kernel, and neither has the port.
+Under ``torch.func.vmap`` (the ``*_kernel`` rows in batch and stream mode)
+the Function's vmap rule (``runtime.kernel_function``) launches the
+slot-axis form ``gru_scan_slots_cuda`` once for all slots. The source has one
+kernel, which takes a slot axis (grid (B / block_b, S); one call is S = 1),
+so each slot is bit for bit the per-call wrapper on its slice; the two
+wrappers count their launches apart.
 
 ``gru_scan_int8`` is the serving scan (``ops.py:92-136``): the standard GRU
 with int8 weights quantized on the fly per output channel and PWL
@@ -26,16 +32,15 @@ from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_r
 from repro_torch.kernels.mr_step import tiling
 
 
-def gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool, block_b: int):
-    """Launch the CUDA scan on the current stream: returns hs [B, T, H].
-
-    Counts its launches in ``gru_scan_cuda.launches``.
-    """
-    B, T, D = xs.shape
+def _launch_gru_scan(name, xs, h0, wx, wh, b, time_scale, dts, *, in_dims, flow: bool,
+                     block_b: int | None):  # fmt: skip
+    """One launch of ``csrc/gru_scan.cu``: hs [S, B, T, H] (see ``gru_scan_slots_cuda``)."""
+    B, T, D = xs.shape[-3:]
     H = h0.shape[-1]
-    rt.check_operands(
-        "gru_scan",
+    S, strides = rt.slot_strides(
+        name,
         xs.device,
+        in_dims,
         xs=(xs, (B, T, D)),
         h0=(h0, (B, H)),
         wx=(wx, (D, 3 * H)),
@@ -44,55 +49,57 @@ def gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool, block_b: in
         time_scale=(time_scale, (H,)),
         dts=(dts, (T,)),
     )
+    block_b = block_b or tiling.fit_block_b("gru_scan", B, D, H, slots=S)
     if T < 1 or block_b < 1 or B % block_b:
-        raise ValueError(f"gru_scan: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
+        raise ValueError(f"{name}: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
     smem = tiling.gru_scan_smem_bytes(D, H, block_b)
     if smem > tiling.SMEM_BUDGET_BYTES:
-        raise ValueError(f"gru_scan: {smem} bytes of shared memory exceed one block's budget")
-    hs = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
+        raise ValueError(f"{name}: {smem} bytes of shared memory exceed one block's budget")
+    hs = torch.empty((S, B, T, H), dtype=torch.float32, device=xs.device)
     err = rt.load_library().gru_scan_launch(
-        xs.data_ptr(),
-        h0.data_ptr(),
-        wx.data_ptr(),
-        wh.data_ptr(),
-        b.data_ptr(),
-        time_scale.data_ptr(),
-        dts.data_ptr(),
-        hs.data_ptr(),
-        B,
-        T,
-        D,
-        H,
-        block_b,
-        int(flow),
-        rt.current_stream(xs.device),
-    )
-    rt.check_launch("gru_scan", err)
+        *(t.data_ptr() for t in (xs, h0, wx, wh, b, time_scale, dts, hs)),
+        *strides, S, B, T, D, H, block_b, int(flow), rt.current_stream(xs.device),
+    )  # fmt: skip
+    rt.check_launch(name, err)
+    return hs
+
+
+def gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool, block_b: int | None = None):
+    """Launch the CUDA scan on the current stream: returns hs [B, T, H].
+
+    One slot of ``csrc/gru_scan.cu``. ``block_b=None`` fits the tile to B.
+    Counts its launches in ``gru_scan_cuda.launches``.
+    """
+    hs = _launch_gru_scan("gru_scan", xs[None], h0, wx, wh, b, time_scale, dts,
+                          in_dims=(0,) + (None,) * 6, flow=flow, block_b=block_b)[0]  # fmt: skip
     gru_scan_cuda.launches += 1
     return hs
 
 
+def gru_scan_slots_cuda(
+    xs, h0, wx, wh, b, time_scale, dts, *, in_dims, flow: bool, block_b: int | None = None
+):
+    """Launch S scans as one kernel on the current stream: hs [S, B, T, H],
+    slot s equal bit for bit to ``gru_scan_cuda`` on slot s's operands.
+
+    Operand i is [S, ...] (``in_dims[i] == 0``) or one operand shared by every
+    slot (``None``: slot stride 0). ``block_b=None`` fits the tile to the
+    S * B windows. Counts its launches in ``gru_scan_slots_cuda.launches``.
+    """
+    hs = _launch_gru_scan("gru_scan_slots", xs, h0, wx, wh, b, time_scale, dts, in_dims=in_dims,
+                          flow=flow, block_b=block_b)  # fmt: skip
+    gru_scan_slots_cuda.launches += 1
+    return hs
+
+
 gru_scan_cuda.launches = 0
+gru_scan_slots_cuda.launches = 0
 
-
-class _GRUScanFn(torch.autograd.Function):
-    """The CUDA forward; the backward recomputes the plain version."""
-
-    @staticmethod
-    def forward(ctx, xs, h0, wx, wh, b, time_scale, dts, flow, block_b):
-        ctx.flow = flow
-        ctx.save_for_backward(xs, h0, wx, wh, b, time_scale, dts)
-        return gru_scan_cuda(xs, h0, wx, wh, b, time_scale, dts, flow=flow, block_b=block_b)
-
-    @staticmethod
-    def backward(ctx, grad_hs):
-        grads = rt.reference_vjp(
-            lambda *a: gru_scan_reference(*a, flow=ctx.flow),
-            ctx.saved_tensors,
-            ctx.needs_input_grad[:7],
-            grad_hs,
-        )
-        return (*grads, None, None)
+# apply(kernel_kw, ref_kw, xs, h0, wx, wh, b, time_scale, dts): one launch a
+# call, one slot-axis launch a call under torch.func.vmap
+_GRUScanFn = rt.kernel_function(
+    "_GRUScanFn", gru_scan_cuda, gru_scan_slots_cuda, gru_scan_reference
+)
 
 
 def gru_scan(
@@ -112,11 +119,10 @@ def gru_scan(
     wx, wh = params.w[:D], params.w[D:]
     if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
         hs = gru_scan_reference(xs, h0, wx, wh, params.b, params.time_scale, dts, flow=flow)
-    else:
-        bb = tiling.legal_block_b(block_b, B) or tiling.fit_block_b("gru_scan", B, D, H)
-        hs = _GRUScanFn.apply(
-            xs.contiguous(), h0.contiguous(), wx, wh, params.b, params.time_scale, dts, flow, bb
-        )
+    else:  # an illegal tile is dropped: the launch fits its own (to B, or S * B under vmap)
+        kernel_kw = dict(flow=flow, block_b=tiling.legal_block_b(block_b, B))
+        hs = _GRUScanFn.apply(kernel_kw, dict(flow=flow), xs.contiguous(), h0.contiguous(), wx,
+                              wh, params.b, params.time_scale, dts)  # fmt: skip
     return hs[:, -1, :], hs
 
 

@@ -2,10 +2,12 @@
 
 ``gru_scan_reference`` delegates to ``core.neural_flow.gru_scan_ref``, the one
 source of the fp32 step math; the CUDA kernel (``csrc/gru_scan.cu``) is held
-against it. ``gru_q_step`` is the int8/PWL serving cell (the standard GRU with
-dequantized int8 weights and PWL activations), shared by every int8 plain
-version as ``_gru_q_step_math`` is shared in the JAX package;
-``gru_scan_int8_reference`` scans it (``csrc/gru_scan_int8.cu``).
+against it, and ``runtime.over_slots(gru_scan_reference, in_dims)``, its
+``torch.func.vmap`` over a leading slot axis, is the plain slot-axis version
+(``gru_scan_slots_cuda``). ``gru_q_step`` is the int8/PWL serving cell (the
+standard GRU with dequantized int8 weights and PWL activations), shared by
+every int8 plain version as ``_gru_q_step_math`` is shared in the JAX
+package; ``gru_scan_int8_reference`` scans it (``csrc/gru_scan_int8.cu``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,16 @@ backward recomputes the plain version under ``torch.enable_grad()``, as
 ``_mr_bwd``, ``_ltc_bwd`` and ``_node_bwd`` do (``ops.py:60-62, 100-107,
 146-153``): the JAX package has no backward kernel, and neither has the port.
 
+Batch and stream mode run the stage under ``torch.func.vmap`` (the stacked
+train step and readout, where JAX maps the Pallas stages with ``jax.vmap``).
+There each Function's vmap rule (``runtime.kernel_function``) launches the
+slot-axis form once for all slots: ``mr_step_slots_cuda``,
+``mr_step_ltc_slots_cuda`` and ``mr_step_node_slots_cuda``. Each source has
+one kernel, which takes a slot axis (grid (B / block_b, S); one call is
+S = 1), so each slot is bit for bit the per-call wrapper on its slice. The
+slot wrappers count their launches apart from the per-call wrappers', so a
+path shows which form it ran.
+
 QAT (``cfg.quant``): the head weights get ``qat_weight`` on every family, the
 encoder weights on the GRU families only, and the kernels' head quantizes its
 RMS-normalized input (``act_bits``). The straight-through weight treatment
@@ -68,24 +78,28 @@ def _check_tile(kernel: str, B: int, T: int, block_b: int, smem: int) -> None:
 
 
 def _head_operands(H: int, w1, b1, w2, b2) -> dict:
-    Dh, K = w2.shape
+    Dh, K = w2.shape[-2:]  # a slot's, under a slot axis
     return dict(w1=(w1, (H, Dh)), b1=(b1, (Dh,)), w2=(w2, (Dh, K)), b2=(b2, (K,)))
 
 
-def mr_step_cuda(
-    xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, *, flow: bool, block_b: int,
-    act_bits: tuple[int, int] | None = None,
-):  # fmt: skip
-    """Launch the fused GRU(-flow) stage on the current stream: out [B, K].
+def _one_call(n_operands: int) -> tuple:
+    """``in_dims`` of one call through a slot-axis launcher: xs given a slot
+    axis of 1, every other operand shared."""
+    return (0,) + (None,) * (n_operands - 1)
 
-    Counts its launches in ``mr_step_cuda.launches``.
-    """
-    B, T, D = xs.shape
+
+def _launch_mr_step(
+    name, xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, *, in_dims, flow: bool,
+    block_b: int | None, act_bits: tuple[int, int] | None,
+):  # fmt: skip
+    """One launch of ``csrc/mr_step.cu``: out [S, B, K] (see ``mr_step_slots_cuda``)."""
+    B, T, D = xs.shape[-3:]
     H = h0.shape[-1]
-    Dh, K = w2.shape
-    rt.check_operands(
-        "mr_step",
+    Dh, K = w2.shape[-2:]
+    S, strides = rt.slot_strides(
+        name,
         xs.device,
+        in_dims,
         xs=(xs, (B, T, D)),
         h0=(h0, (B, H)),
         wx=(wx, (D, 3 * H)),
@@ -95,33 +109,30 @@ def mr_step_cuda(
         dts=(dts, (T,)),
         **_head_operands(H, w1, b1, w2, b2),
     )
-    _check_tile("mr_step", B, T, block_b, tiling.mr_step_smem_bytes(D, H, Dh, K, block_b))
-    out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
+    block_b = block_b or tiling.fit_block_b("gru", B, D, H, Dh, K, slots=S)
+    _check_tile(name, B, T, block_b, tiling.mr_step_smem_bytes(D, H, Dh, K, block_b))
+    out = torch.empty((S, B, K), dtype=torch.float32, device=xs.device)
     err = rt.load_library().mr_step_launch(
         *(t.data_ptr() for t in (xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out)),
-        B, T, D, H, Dh, K, block_b, int(flow), *(act_bits or NO_ACT_BITS),
+        *strides, S, B, T, D, H, Dh, K, block_b, int(flow), *(act_bits or NO_ACT_BITS),
         rt.current_stream(xs.device),
     )  # fmt: skip
-    rt.check_launch("mr_step", err)
-    mr_step_cuda.launches += 1
+    rt.check_launch(name, err)
     return out
 
 
-def mr_step_ltc_cuda(
-    xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, *, sub_dt: float,
-    n_substeps: int, block_b: int, act_bits: tuple[int, int] | None = None,
+def _launch_ltc(
+    name, xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, *, in_dims, sub_dt: float,
+    n_substeps: int, block_b: int | None, act_bits: tuple[int, int] | None,
 ):  # fmt: skip
-    """Launch the fused LTC stage on the current stream: out [B, K].
-
-    ``sub_dt`` is ``dt / n_substeps`` in float32 (``core.ltc.ltc_sub_dt``).
-    Counts its launches in ``mr_step_ltc_cuda.launches``.
-    """
-    B, T, D = xs.shape
+    """One launch of ``csrc/mr_step_ltc.cu``: out [S, B, K]."""
+    B, T, D = xs.shape[-3:]
     H = h0.shape[-1]
-    Dh, K = w2.shape
-    rt.check_operands(
-        "mr_step_ltc",
+    Dh, K = w2.shape[-2:]
+    S, strides = rt.slot_strides(
+        name,
         xs.device,
+        in_dims,
         xs=(xs, (B, T, D)),
         h0=(h0, (B, H)),
         w_in=(w_in, (D, H)),
@@ -131,35 +142,32 @@ def mr_step_ltc_cuda(
         inv_tau=(inv_tau, (H,)),
         **_head_operands(H, w1, b1, w2, b2),
     )
-    _check_tile("mr_step_ltc", B, T, block_b, tiling.ltc_smem_bytes(D, H, Dh, K, block_b))
+    block_b = block_b or tiling.fit_block_b("ltc", B, D, H, Dh, K, slots=S)
+    _check_tile(name, B, T, block_b, tiling.ltc_smem_bytes(D, H, Dh, K, block_b))
     if n_substeps < 1:
-        raise ValueError(f"mr_step_ltc: n_substeps={n_substeps} must be >= 1")
-    out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
+        raise ValueError(f"{name}: n_substeps={n_substeps} must be >= 1")
+    out = torch.empty((S, B, K), dtype=torch.float32, device=xs.device)
     err = rt.load_library().mr_step_ltc_launch(
         *(t.data_ptr() for t in (xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out)),
-        B, T, D, H, Dh, K, block_b, n_substeps, *(act_bits or NO_ACT_BITS), sub_dt,
+        *strides, S, B, T, D, H, Dh, K, block_b, n_substeps, *(act_bits or NO_ACT_BITS), sub_dt,
         rt.current_stream(xs.device),
     )  # fmt: skip
-    rt.check_launch("mr_step_ltc", err)
-    mr_step_ltc_cuda.launches += 1
+    rt.check_launch(name, err)
     return out
 
 
-def mr_step_node_cuda(
-    xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, *, sub_dt: float,
-    n_substeps: int, block_b: int, act_bits: tuple[int, int] | None = None,
+def _launch_node(
+    name, xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, *, in_dims,
+    sub_dt: float, n_substeps: int, block_b: int | None, act_bits: tuple[int, int] | None,
 ):  # fmt: skip
-    """Launch the fused NODE stage on the current stream: out [B, K].
-
-    ``sub_dt`` is the Euler substep (``core.node_mr.node_sub_dt``). Counts its
-    launches in ``mr_step_node_cuda.launches``.
-    """
-    B, T, D = xs.shape
+    """One launch of ``csrc/mr_step_node.cu``: out [S, B, K]."""
+    B, T, D = xs.shape[-3:]
     H = h0.shape[-1]
-    Dh, K = w2.shape
-    rt.check_operands(
-        "mr_step_node",
+    Dh, K = w2.shape[-2:]
+    S, strides = rt.slot_strides(
+        name,
         xs.device,
+        in_dims,
         xs=(xs, (B, T, D)),
         h0=(h0, (B, H)),
         w_f1=(w_f1, (H, H)),
@@ -170,18 +178,116 @@ def mr_step_node_cuda(
         b_in=(b_in, (H,)),
         **_head_operands(H, w1, b1, w2, b2),
     )
-    _check_tile("mr_step_node", B, T, block_b, tiling.node_smem_bytes(D, H, Dh, K, block_b))
+    block_b = block_b or tiling.fit_block_b("node", B, D, H, Dh, K, slots=S)
+    _check_tile(name, B, T, block_b, tiling.node_smem_bytes(D, H, Dh, K, block_b))
     if n_substeps < 1:
-        raise ValueError(f"mr_step_node: n_substeps={n_substeps} must be >= 1")
-    out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
+        raise ValueError(f"{name}: n_substeps={n_substeps} must be >= 1")
+    out = torch.empty((S, B, K), dtype=torch.float32, device=xs.device)
     tensors = (xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out)
     err = rt.load_library().mr_step_node_launch(
         *(t.data_ptr() for t in tensors),
-        B, T, D, H, Dh, K, block_b, n_substeps, *(act_bits or NO_ACT_BITS), sub_dt,
+        *strides, S, B, T, D, H, Dh, K, block_b, n_substeps, *(act_bits or NO_ACT_BITS), sub_dt,
         rt.current_stream(xs.device),
     )  # fmt: skip
-    rt.check_launch("mr_step_node", err)
+    rt.check_launch(name, err)
+    return out
+
+
+def mr_step_cuda(
+    xs, *ops, flow: bool, block_b: int | None = None, act_bits: tuple[int, int] | None = None
+):
+    """Launch the fused GRU(-flow) stage on the current stream: out [B, K].
+
+    ``ops`` are h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2; one slot of
+    ``csrc/mr_step.cu``. ``block_b=None`` fits the tile to B
+    (``tiling.fit_block_b``). Counts its launches in ``mr_step_cuda.launches``.
+    """
+    out = _launch_mr_step("mr_step", xs[None], *ops, in_dims=_one_call(1 + len(ops)), flow=flow,
+                          block_b=block_b, act_bits=act_bits)[0]  # fmt: skip
+    mr_step_cuda.launches += 1
+    return out
+
+
+def mr_step_ltc_cuda(
+    xs, *ops, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    act_bits: tuple[int, int] | None = None,
+):  # fmt: skip
+    """Launch the fused LTC stage on the current stream: out [B, K].
+
+    ``ops`` are h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2; ``sub_dt``
+    is ``dt / n_substeps`` in float32 (``core.ltc.ltc_sub_dt``);
+    ``block_b=None`` fits the tile to B. Counts its launches in
+    ``mr_step_ltc_cuda.launches``.
+    """
+    out = _launch_ltc("mr_step_ltc", xs[None], *ops, in_dims=_one_call(1 + len(ops)),
+                      sub_dt=sub_dt, n_substeps=n_substeps, block_b=block_b,
+                      act_bits=act_bits)[0]  # fmt: skip
+    mr_step_ltc_cuda.launches += 1
+    return out
+
+
+def mr_step_node_cuda(
+    xs, *ops, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    act_bits: tuple[int, int] | None = None,
+):  # fmt: skip
+    """Launch the fused NODE stage on the current stream: out [B, K].
+
+    ``ops`` are h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2;
+    ``sub_dt`` is the Euler substep (``core.node_mr.node_sub_dt``);
+    ``block_b=None`` fits the tile to B. Counts its launches in
+    ``mr_step_node_cuda.launches``.
+    """
+    out = _launch_node("mr_step_node", xs[None], *ops, in_dims=_one_call(1 + len(ops)),
+                       sub_dt=sub_dt, n_substeps=n_substeps, block_b=block_b,
+                       act_bits=act_bits)[0]  # fmt: skip
     mr_step_node_cuda.launches += 1
+    return out
+
+
+def mr_step_slots_cuda(
+    *ops, in_dims, flow: bool, block_b: int | None = None,
+    act_bits: tuple[int, int] | None = None,
+):  # fmt: skip
+    """Launch S fused GRU(-flow) stages as one kernel on the current stream:
+    out [S, B, K], slot s equal bit for bit to ``mr_step_cuda`` on slot s's
+    operands (the operands of ``mr_step_cuda``).
+
+    Operand i is [S, ...] (``in_dims[i] == 0``) or one operand shared by every
+    slot (``None``: slot stride 0). ``block_b=None`` fits the tile to the S * B
+    windows (``tiling.fit_block_b(..., slots=S)``). Counts its launches in
+    ``mr_step_slots_cuda.launches``.
+    """
+    out = _launch_mr_step("mr_step_slots", *ops, in_dims=in_dims, flow=flow, block_b=block_b,
+                          act_bits=act_bits)  # fmt: skip
+    mr_step_slots_cuda.launches += 1
+    return out
+
+
+def mr_step_ltc_slots_cuda(
+    *ops, in_dims, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    act_bits: tuple[int, int] | None = None,
+):  # fmt: skip
+    """Launch S fused LTC stages as one kernel: out [S, B, K], each slot
+    ``mr_step_ltc_cuda``'s bits on its operands; the slot operands as in
+    ``mr_step_slots_cuda``. Counts its launches in
+    ``mr_step_ltc_slots_cuda.launches``."""
+    out = _launch_ltc("mr_step_ltc_slots", *ops, in_dims=in_dims, sub_dt=sub_dt,
+                      n_substeps=n_substeps, block_b=block_b, act_bits=act_bits)  # fmt: skip
+    mr_step_ltc_slots_cuda.launches += 1
+    return out
+
+
+def mr_step_node_slots_cuda(
+    *ops, in_dims, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    act_bits: tuple[int, int] | None = None,
+):  # fmt: skip
+    """Launch S fused NODE stages as one kernel: out [S, B, K], each slot
+    ``mr_step_node_cuda``'s bits on its operands; the slot operands as in
+    ``mr_step_slots_cuda``. Counts its launches in
+    ``mr_step_node_slots_cuda.launches``."""
+    out = _launch_node("mr_step_node_slots", *ops, in_dims=in_dims, sub_dt=sub_dt,
+                       n_substeps=n_substeps, block_b=block_b, act_bits=act_bits)  # fmt: skip
+    mr_step_node_slots_cuda.launches += 1
     return out
 
 
@@ -274,38 +380,21 @@ def mr_step_ltc_int8_cuda(
 mr_step_cuda.launches = 0
 mr_step_ltc_cuda.launches = 0
 mr_step_node_cuda.launches = 0
+mr_step_slots_cuda.launches = 0
+mr_step_ltc_slots_cuda.launches = 0
+mr_step_node_slots_cuda.launches = 0
 mr_step_int8_cuda.launches = 0
 mr_step_ltc_int8_cuda.launches = 0
 
-
-def _fused_fn(name: str, kernel, reference) -> type:
-    """An autograd Function: ``kernel`` forward, backward through ``reference``.
-
-    ``apply(kernel_kw, ref_kw, *tensors)``: the keyword arguments each side
-    takes besides the tensors.
-    """
-
-    def forward(ctx, kernel_kw, ref_kw, *tensors):
-        ctx.ref_kw = ref_kw
-        ctx.save_for_backward(*tensors)
-        return kernel(*tensors, **kernel_kw)
-
-    def backward(ctx, grad_out):
-        grads = rt.reference_vjp(
-            lambda *a: reference(*a, **ctx.ref_kw),
-            ctx.saved_tensors,
-            ctx.needs_input_grad[2:],
-            grad_out,
-        )
-        return (None, None, *grads)
-
-    attrs = dict(forward=staticmethod(forward), backward=staticmethod(backward))
-    return type(name, (torch.autograd.Function,), attrs)
-
-
-_MRStepFn = _fused_fn("_MRStepFn", mr_step_cuda, mr_step_reference)
-_MRStepLTCFn = _fused_fn("_MRStepLTCFn", mr_step_ltc_cuda, mr_step_ltc_reference)
-_MRStepNodeFn = _fused_fn("_MRStepNodeFn", mr_step_node_cuda, mr_step_node_reference)
+# apply(kernel_kw, ref_kw, *tensors): one launch a call, one slot-axis launch a
+# call under torch.func.vmap (runtime.kernel_function)
+_MRStepFn = rt.kernel_function("_MRStepFn", mr_step_cuda, mr_step_slots_cuda, mr_step_reference)
+_MRStepLTCFn = rt.kernel_function(
+    "_MRStepLTCFn", mr_step_ltc_cuda, mr_step_ltc_slots_cuda, mr_step_ltc_reference
+)
+_MRStepNodeFn = rt.kernel_function(
+    "_MRStepNodeFn", mr_step_node_cuda, mr_step_node_slots_cuda, mr_step_node_reference
+)
 
 
 def _split_gru(params, cfg) -> tuple:
@@ -378,8 +467,10 @@ def mr_step(
         ref_kw = kernel_kw = dict(flow=spec.flow, act_bits=ab)
     if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
         return split_out(reference(*tensors, **ref_kw), cfg)
-    bb = tiling.legal_block_b(block_b, B) or tiling.auto_block_b(cfg, spec.family, B)
-    out = fn.apply(dict(kernel_kw, block_b=bb), ref_kw, xs.contiguous(), *tensors[1:])
+    # a tile the batch does not take is dropped: the launch then fits its own
+    # (to B, or to S * B under vmap)
+    kernel_kw = dict(kernel_kw, block_b=tiling.legal_block_b(block_b, B))
+    out = fn.apply(kernel_kw, ref_kw, xs.contiguous(), *tensors[1:])
     return split_out(out, cfg)
 
 

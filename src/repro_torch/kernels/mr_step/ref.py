@@ -11,6 +11,11 @@ held against the stage sequence itself.
 streaming window helpers of ``data/windows.py``, ``mr_step_reference`` per
 slot, then the EMA blend and the coefficient delta.
 
+The plain slot-axis version of each fused stage (the ``*_slots_cuda``
+wrappers: S calls in one launch) is ``runtime.over_slots(reference, in_dims)``:
+``torch.func.vmap`` of the plain version over a leading slot axis, an
+operand shared by every slot unbatched.
+
 The int8/PWL serving twins (``repro/kernels/mr_step/ref.py:110-220, 286``)
 dequantize their int8 weights (``values * scale``, one rounding) and compute
 in float32: ``mr_step_int8_reference`` (``csrc/mr_step_int8.cu``),

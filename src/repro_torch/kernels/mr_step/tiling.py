@@ -7,7 +7,8 @@ stages the cell's weights, the head weights and the tile's state in its own
 shared memory, at most 227 KB a block. Blocks also run in parallel on 132
 SMs, so the tile is kept small enough that the grid has at least
 ``min(B, 132)`` blocks: one large tile would put the whole batch's scan on one
-SM.
+SM. The slot-axis forms (S calls in one launch, grid (B / tile, S)) keep
+``min(S * B, 132)`` (``slots=S``).
 
 ``mr_step``, ``mr_step_ltc``, ``mr_step_node`` and the bare scan
 ``gru_scan`` are warp-per-window recurrences (``csrc/warp_cell.cuh``): a block
@@ -215,10 +216,13 @@ def fit_block_b(
     *,
     smem_budget_bytes: int | None = None,
     int8: bool = False,
+    slots: int = 1,
 ) -> int:
     """Largest tile that divides ``batch``, fits the shared-memory budget and
-    leaves at least ``min(batch, N_SMS)`` blocks in the grid. ``int8`` fits
-    the family's int8 serving kernel.
+    leaves at least ``min(slots * batch, N_SMS)`` blocks in the grid. ``int8``
+    fits the family's int8 serving kernel; ``slots`` the slot-axis form, whose
+    grid holds ``slots * batch / tile`` blocks (a block stages one slot's
+    weights, so its carve is the unbatched kernel's).
 
     Raises when not even one window fits the budget: the weights alone
     overflow a block.
@@ -228,9 +232,9 @@ def fit_block_b(
     def nbytes(bb: int) -> int:
         return family_smem_bytes(family, D, H, Dh, K, bb, int8=int8)
 
-    min_blocks = min(batch, N_SMS)
+    min_blocks = min(slots * batch, N_SMS)
     for bb in block_b_candidates(batch):
-        if batch // bb >= min_blocks and nbytes(bb) <= budget:
+        if slots * batch // bb >= min_blocks and nbytes(bb) <= budget:
             return bb
     raise ValueError(
         f"no batch tile fits {budget} bytes of shared memory: one window needs "
@@ -239,15 +243,21 @@ def fit_block_b(
 
 
 def auto_block_b(
-    cfg, family: str, batch: int | None, smem_budget_bytes: int | None = None, int8: bool = False
+    cfg,
+    family: str,
+    batch: int | None,
+    smem_budget_bytes: int | None = None,
+    int8: bool = False,
+    slots: int = 1,
 ) -> int | None:
     """``fit_block_b`` of the fused kernel of one ``MRConfig`` whose encoder
-    row is of ``family``; ``None`` when the batch is unknown at compile time
-    (the kernel wrapper then fits the batch it is given)."""
+    row is of ``family`` (over ``slots`` slots); ``None`` when the batch is
+    unknown at compile time (the kernel wrapper then fits the batch it is
+    given)."""
     if batch is None:
         return None
     return fit_block_b(
-        family, batch, *_shape(cfg), smem_budget_bytes=smem_budget_bytes, int8=int8
+        family, batch, *_shape(cfg), smem_budget_bytes=smem_budget_bytes, int8=int8, slots=slots
     )
 
 

@@ -1,6 +1,6 @@
 """Kernel runtime: the dispatch decision and the CUDA library build.
 
-Counterpart of ``repro/kernels/runtime.py:99-132``. Two things live here:
+Counterpart of ``repro/kernels/runtime.py:99-132``. Three things live here:
 
 - ``resolve_dispatch``: where a kernel-family call executes. A CUDA tensor
   takes the hand-written kernel, a CPU tensor takes the plain PyTorch
@@ -13,6 +13,11 @@ Counterpart of ``repro/kernels/runtime.py:99-132``. Two things live here:
   ``build/repro_torch/`` at the repository root, and loads it with
   ``ctypes``. A missing ``nvcc`` or a failed build raises; nothing falls
   back to the plain version.
+- ``kernel_function``: the autograd Function around a kernel (backward: the
+  plain version recomputed) with the vmap rule that sends a
+  ``torch.func.vmap`` call to the kernel's slot-axis form, one launch for
+  all slots (``slot_strides`` checks its operands; ``over_slots`` is the
+  plain slot-axis version).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import ctypes
 import enum
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -43,19 +49,23 @@ NVCC_FLAGS = (
 
 # every extern "C" launcher: name -> argument types (pointers and the stream
 # as c_void_p so ctypes never truncates them to 32 bits)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 LAUNCHERS = {
-    # xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out,
-    # B, T, D, H, Dh, K, block_b, flow, act_int, act_frac, stream
-    "mr_step_launch": [_P] * 12 + [_I] * 10 + [_P],
-    # xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out,
-    # B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
-    "mr_step_ltc_launch": [_P] * 12 + [_I] * 10 + [_F, _P],
-    # xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out,
-    # B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
-    "mr_step_node_launch": [_P] * 13 + [_I] * 10 + [_F, _P],
-    # xs, h0, wx, wh, b, time_scale, dts, hs, B, T, D, H, block_b, flow, stream
-    "gru_scan_launch": [_P] * 8 + [_I] * 6 + [_P],
+    # the fused stages and the scan take a slot axis (S calls in one launch; one
+    # call is S = 1): the operands, then one int64 slot stride in elements per
+    # input operand (0: shared by every slot), then S and the ints
+    # xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out, 11 strides,
+    # S, B, T, D, H, Dh, K, block_b, flow, act_int, act_frac, stream
+    "mr_step_launch": [_P] * 12 + [_L] * 11 + [_I] * 11 + [_P],
+    # xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, 11 strides,
+    # S, B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
+    "mr_step_ltc_launch": [_P] * 12 + [_L] * 11 + [_I] * 11 + [_F, _P],
+    # xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, 12 strides,
+    # S, B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
+    "mr_step_node_launch": [_P] * 13 + [_L] * 12 + [_I] * 11 + [_F, _P],
+    # xs, h0, wx, wh, b, time_scale, dts, hs, 7 strides, S, B, T, D, H, block_b, flow,
+    # stream
+    "gru_scan_launch": [_P] * 8 + [_L] * 7 + [_I] * 7 + [_P],
     # buf_y, new_y, mean, scale, theta0, seed, active, wx, wh, b, time_scale, w1, b1,
     # w2, b2, h0, buf_u, new_u, buf_y_out, theta_out, delta_out, buf_u_out,
     # S, L, n, m, C, T, stride, H, Dh, Ko, Kc, bank, flow, ema, one_minus_ema, stream
@@ -191,6 +201,36 @@ def check_operands(kernel: str, device: torch.device, **operands) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+MAX_SLOTS = 65535  # csrc/warp_cell.cuh kMaxSlots: the slot axis is the grid's y
+
+
+def slot_strides(kernel: str, device: torch.device, in_dims, **operands) -> tuple[int, list[int]]:
+    """Check a slot-axis launch's operands: (S, each operand's slot stride).
+
+    ``operands`` maps a name to ``(tensor, one slot's shape[, dtype])`` as in
+    ``check_operands``. Operand i with ``in_dims[i] == 0`` is [S, *shape], its
+    slot stride the elements of one slot; with ``None`` it is one operand of
+    ``shape`` shared by every slot, slot stride 0. Raises on anything else and
+    on a slot count the grid cannot hold.
+    """
+    dims = tuple(in_dims)
+    if len(dims) != len(operands) or any(d not in (0, None) for d in dims):
+        raise ValueError(f"{kernel}: in_dims {dims} must give 0 or None for each of "
+                         f"{len(operands)} operands")  # fmt: skip
+    batched = [t.shape[0] for (t, *_), d in zip(operands.values(), dims) if d == 0 and t.dim()]
+    if not batched:
+        raise ValueError(f"{kernel}: no operand has a slot axis")
+    S = batched[0]
+    if not 1 <= S <= MAX_SLOTS:
+        raise ValueError(f"{kernel}: {S} slots; the slot axis takes 1 to {MAX_SLOTS}")
+    checked, strides = {}, []
+    for (name, (t, shape, *dtype)), d in zip(operands.items(), dims):
+        checked[name] = (t, (S, *shape) if d == 0 else shape, *dtype)
+        strides.append(math.prod(shape) if d == 0 else 0)
+    check_operands(kernel, device, **checked)
+    return S, strides
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise when a launcher returned a CUDA error (refused or failed launch)."""
     if err != 0:
@@ -211,6 +251,82 @@ def resolve_device(device, who: str) -> torch.device:
 
 def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def over_slots(fn, in_dims, **kw):
+    """``fn`` over a slot axis: ``torch.func.vmap`` with operand i batched
+    along ``in_dims[i]`` (``None``: one operand shared by every slot) and the
+    keyword arguments ``kw``. The plain slot-axis version of every kernel."""
+    return torch.func.vmap(functools.partial(fn, **kw), in_dims=tuple(in_dims))
+
+
+def kernel_function(name: str, kernel, slot_kernel, reference) -> type:
+    """A ``torch.autograd.Function`` around a kernel, with a vmap rule.
+
+    ``apply(kernel_kw, ref_kw, *tensors)``: forward ``kernel(*tensors,
+    **kernel_kw)``; backward ``reference(*tensors, **ref_kw)`` recomputed
+    (``reference_vjp``). Under ``torch.func.vmap`` (the stacked train step of
+    batch and stream mode) the rule moves each batched operand's slot dim to 0
+    and calls a second Function, whose forward is ONE launch of
+    ``slot_kernel(*tensors, in_dims=..., **kernel_kw)`` (``in_dims`` 0 for a
+    batched operand, ``None`` for one shared by every slot, slot stride 0)
+    and whose backward recomputes ``reference`` vmapped over the slots
+    (``over_slots``). A second vmap level raises: there is one slot axis.
+    The kernels are arguments so a test can build the same Function with
+    plain versions in both places.
+    """
+
+    def slot_forward(kernel_kw, ref_kw, in_dims, *tensors):
+        return slot_kernel(*tensors, in_dims=in_dims, **kernel_kw)
+
+    def slot_setup_context(ctx, inputs, output):
+        ctx.ref_kw, ctx.in_dims = inputs[1], inputs[2]
+        ctx.save_for_backward(*inputs[3:])
+
+    def slot_backward(ctx, grad_out):
+        grads = reference_vjp(
+            over_slots(reference, ctx.in_dims, **ctx.ref_kw),
+            ctx.saved_tensors,
+            ctx.needs_input_grad[3:],
+            grad_out,
+        )
+        return (None, None, None, *grads)
+
+    def slot_vmap(info, in_dims, *args):
+        raise ValueError(f"{name}: the kernels take one slot axis; a nested vmap has two")
+
+    slot_fn = type(f"{name}Slots", (torch.autograd.Function,), dict(
+        forward=staticmethod(slot_forward), setup_context=staticmethod(slot_setup_context),
+        backward=staticmethod(slot_backward), vmap=staticmethod(slot_vmap),
+    ))  # fmt: skip
+
+    def forward(kernel_kw, ref_kw, *tensors):
+        return kernel(*tensors, **kernel_kw)
+
+    def setup_context(ctx, inputs, output):
+        ctx.ref_kw = inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    def backward(ctx, grad_out):
+        grads = reference_vjp(
+            functools.partial(reference, **ctx.ref_kw),
+            ctx.saved_tensors,
+            ctx.needs_input_grad[2:],
+            grad_out,
+        )
+        return (None, None, *grads)
+
+    def vmap(info, in_dims, kernel_kw, ref_kw, *tensors):
+        dims = in_dims[2:]
+        moved = [t if d is None else t.movedim(d, 0) for t, d in zip(tensors, dims)]
+        slot_dims = tuple(None if d is None else 0 for d in dims)
+        out = slot_fn.apply(kernel_kw, ref_kw, slot_dims, *(t.contiguous() for t in moved))
+        return out, 0
+
+    return type(name, (torch.autograd.Function,), dict(
+        forward=staticmethod(forward), setup_context=staticmethod(setup_context),
+        backward=staticmethod(backward), vmap=staticmethod(vmap),
+    ))  # fmt: skip
 
 
 def reference_vjp(fn, inputs, needs_grad, grad_out) -> tuple:

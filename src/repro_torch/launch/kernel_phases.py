@@ -25,7 +25,10 @@ switched-off phase left unset, so it checks nothing). The unmodified build
 is also held against the plain versions, timed at 1, 2 and 4 windows a
 block (the tiles ``kernels/mr_step/tiling.py`` chooses between; for the tick
 1, 2 and 4 slots a bank) and, with ``--baseline`` (the ``csrc`` directory of
-another tree, such as the parent commit unpacked with ``git archive``),
+another tree with the same launchers, such as the parent commit unpacked with
+``git archive``; ``mr_step``, ``mr_step_ltc``, ``mr_step_node`` and
+``gru_scan`` take a slot axis since the fused and ``*_kernel`` rows' batch and
+stream slice, so a tree from before it cannot serve for them),
 timed in turns with the same kernels built from there: baseline, current,
 current, baseline, and the largest difference between the two builds'
 outputs on the same operands printed (0 where a change keeps the arithmetic).
@@ -59,6 +62,8 @@ SOURCES = ("mr_step.cu", "mr_step_ltc.cu", "mr_step_node.cu", "gru_scan.cu", "mr
 KERNELS = ("mr_step", "mr_step_ltc", "mr_step_node", "gru_scan", "mr_step_int8",
            "mr_step_ltc_int8", "gru_scan_int8")  # then the ticks
 SCANS = ("gru_scan", "gru_scan_int8")  # no head: each step's h written
+# launchers that take a slot axis (the operands' slot strides, then S): one call is S = 1
+SLOTTED = ("mr_step", "mr_step_ltc", "mr_step_node", "gru_scan")
 TICKS = ("mr_tick", "mr_tick_int8")
 # (label, B, T, D, H, Dh, K)
 SHAPES = [("quickstart", 64, 32, 2, 32, 64, 12), ("bench_cycles", 64, 200, 8, 64, 128, 12)]
@@ -240,9 +245,10 @@ def launcher(lib, kernel, ops, tile: int):
             sub_dt = (ltc_sub_dt if kernel == "mr_step_ltc" else node_sub_dt)(DT, SUBSTEPS)
             args += (SUBSTEPS, 0, -1, sub_dt)
     fn = getattr(lib, f"{kernel}_launch")
+    slot = (0,) * (len(ptrs) - len(outs)) + (1,) if kernel in SLOTTED else ()
 
     def launch():
-        err = fn(*ptrs, *args, torch.cuda.current_stream().cuda_stream)
+        err = fn(*ptrs, *slot, *args, torch.cuda.current_stream().cuda_stream)
         rt.check_launch(kernel, err)
         return outs
 

@@ -25,6 +25,15 @@ and the same scenario with the plain versions on the CPU: ``--device cpu``.
 ``--quant`` serves with ``precision="int8_pwl"``: every evicted stream's
 coefficients are read out through the fixed-point fused stage (the
 ``mr_step_int8`` kernel: int8 gate and head weights, PWL activations).
+
+``--fused`` runs every tick's recovery steps (and the composite tick's
+readout) through the stage-fused step, one launch of the slot-axis form of
+``mr_step`` (``mr_step_ltc``, ``mr_step_node`` for ``--encoder ltc`` or
+``node``) a step for all slots; the one-shot baseline is fused too. The
+paper's headline LTC baseline runs the acceptance scenario fused:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_mr --fused --encoder ltc \
+        --streams 12 --slots 4
 """
 
 from __future__ import annotations
@@ -131,7 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--encoder",
         default="gru",
-        help="an unfused core/encoders.py row: gru, gru_flow, ltc or node",
+        help="a core/encoders.py row: gru, gru_flow, ltc, node, gru_kernel or gru_flow_kernel; "
+        "with --fused the multi-substep families take their fused-solver kernels/mr_step "
+        "variants",
     )
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--noise", type=float, default=0.01)
@@ -154,6 +165,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--tol-abs", type=float, default=0.05)
     ap.add_argument("--quant", action="store_true", help="int8/PWL kernel readout at eviction")
+    ap.add_argument(
+        "--fused",
+        action="store_true",
+        help="stage-fused per-window recovery step (kernels/mr_step) in every tick",
+    )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)"
@@ -207,6 +223,7 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         dt=specs[0].dt,
         encoder=args.encoder,
         precision="int8_pwl" if args.quant else "fp32",
+        fused=args.fused,
         mode="stream",
         lr=args.lr,
         seed=args.seed,
@@ -221,8 +238,8 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
     log(
         f"[serve_mr] streams={args.streams} slots={args.slots} K={args.steps_per_tick} "
         f"windows/slot={scfg.n_windows} library={cfg.n_terms}x{cfg.state_dim} "
-        f"encoder={args.encoder} tick={plan.lowering.tick_kernel} quant={args.quant} "
-        f"device={args.device}",
+        f"encoder={args.encoder} fused={args.fused} tick={plan.lowering.tick_kernel} "
+        f"quant={args.quant} device={args.device}",
         flush=True,
     )
     stats = run_service(service, ys, us, args.max_ticks, verbose=verbose)

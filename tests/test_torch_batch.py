@@ -11,7 +11,7 @@
 - ``recover_many`` against ``recover_one`` system by system, ``stack_systems``
   against JAX's, and ``run_batch`` learning each system (as
   ``tests/test_engine.py:102``), at JAX's own test sizes.
-- What batch mode refuses.
+- What batch mode builds (the fused and ``*_kernel`` rows) and refuses.
 """
 
 from __future__ import annotations
@@ -225,10 +225,14 @@ def test_run_batch_learns_each_system():
 
 
 def test_batch_mode_refuses_what_is_not_ported():
+    """The fused and ``*_kernel`` rows build (their slot-axis kernels are
+    ported); what is not ported, or has no int8 stage, still raises."""
     base = dict(state_dim=3, mode="batch")
-    for kw in (dict(fused=True), dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):
-        with pytest.raises(ValueError, match="not yet ported"):
-            api.compile_plan(api.RecoverySpec(**base, **kw), device="cpu")
+    for kw in (dict(fused=True), dict(fused=True, encoder="gru"), dict(fused=True, encoder="ltc"),
+               dict(fused=True, encoder="node"), dict(encoder="gru_kernel"),
+               dict(encoder="gru_flow_kernel")):  # fmt: skip
+        low = api.compile_plan(api.RecoverySpec(**base, **kw), device="cpu").lowering
+        assert (low.fused, low.kernel) == (kw.get("fused", False), "kernel" in low.encoder), kw
     # int8 serving is ported, but the default gru_flow row has no int8 stage
     with pytest.raises(ValueError, match="int8_pwl"):
         api.compile_plan(api.RecoverySpec(**base, precision="int8_pwl"), device="cpu")

@@ -49,7 +49,14 @@ from repro_torch.core.neural_flow import GRUParams
 from repro_torch.core.node_mr import NodeEncoderParams, node_scan, node_sub_dt
 from repro_torch.core.quant import QuantConfig, quantize_int8, serving_packs, serving_tables
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.gru_scan.ops import gru_scan, gru_scan_cuda, gru_scan_int8, gru_scan_int8_cuda
+from repro_torch.core import engine
+from repro_torch.kernels.gru_scan.ops import (
+    gru_scan,
+    gru_scan_cuda,
+    gru_scan_int8,
+    gru_scan_int8_cuda,
+    gru_scan_slots_cuda,
+)
 from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
 from repro_torch.kernels.mr_step.ops import (
     mr_step,
@@ -58,14 +65,19 @@ from repro_torch.kernels.mr_step.ops import (
     mr_step_int8_cuda,
     mr_step_ltc_cuda,
     mr_step_ltc_int8_cuda,
+    mr_step_ltc_slots_cuda,
     mr_step_node_cuda,
+    mr_step_node_slots_cuda,
+    mr_step_slots_cuda,
 )
+from repro_torch.kernels.mr_step import tiling
 from repro_torch.kernels.mr_step.ref import (
     mr_step_ltc_reference,
     mr_step_node_reference,
     mr_step_reference,
 )
 from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda, mr_tick_int8_cuda
+from repro_torch.optim import adamw_init
 from repro_torch.tree import tree_leaves, tree_stack, tree_unflatten
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_cuda
@@ -332,6 +344,161 @@ def test_dispatch_launches_the_kernel_on_a_cuda_tensor(dev):
             mr_step(sub_params, sub, xs)
             mr_step(sub_params, sub, xs, force_reference=True)
         assert kernel.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the slot-axis forms: S calls in one launch (batch and stream mode)
+# ---------------------------------------------------------------------------
+SLOT_DT, SLOT_SUBSTEPS = 0.05, 6
+# form -> (slot kernel, per-call kernel, plain version, kernel kw, plain kw, the
+# operands shared by every slot in the "shared" case besides h0 (and dts))
+SLOT_FORMS = {
+    "mr_step": (mr_step_slots_cuda, mr_step_cuda, mr_step_reference, dict(flow=True),
+                dict(flow=True), (1, 6, 10)),  # h0, dts, b2
+    "gru_scan": (gru_scan_slots_cuda, gru_scan_cuda, gru_scan_reference, dict(flow=False),
+                 dict(flow=False), (1, 6, 2)),  # h0, dts, wx
+    "mr_step_ltc": (mr_step_ltc_slots_cuda, mr_step_ltc_cuda, mr_step_ltc_reference,
+                    dict(sub_dt=ltc_sub_dt(SLOT_DT, SLOT_SUBSTEPS), n_substeps=SLOT_SUBSTEPS),
+                    dict(dt=SLOT_DT, n_substeps=SLOT_SUBSTEPS), (1, 5)),  # h0, a
+    "mr_step_node": (mr_step_node_slots_cuda, mr_step_node_cuda, mr_step_node_reference,
+                     dict(sub_dt=node_sub_dt(SLOT_DT, SLOT_SUBSTEPS), n_substeps=SLOT_SUBSTEPS),
+                     dict(dt=SLOT_DT, n_substeps=SLOT_SUBSTEPS), (1, 6)),  # h0, w_in
+}  # fmt: skip
+SLOT_FAMILY = {"mr_step": "gru", "gru_scan": "gru_scan", "mr_step_ltc": "ltc", "mr_step_node": "node"}
+
+
+def _slot_operands(form, S, B, T, D, H, Dh, K, dev, shared):
+    """Each slot's operands from its own seed; the ``shared`` indices once for
+    all slots (slot 0's). Returns (operands, in_dims, slot s's operands)."""
+    if form in ("mr_step", "gru_scan"):
+        per = [_operands(B, T, D, H, Dh, K, dev, seed=20 + s) for s in range(S)]
+        if form == "gru_scan":
+            per = [ops[:7] for ops in per]
+    else:
+        family = form.removeprefix("mr_step_")
+        per = [_substep_operands(family, B, T, D, H, Dh, K, dev, seed=20 + s) for s in range(S)]
+    in_dims = tuple(None if i in shared else 0 for i in range(len(per[0])))
+    ops = tuple(per[0][i] if d is None else torch.stack([p[i] for p in per])
+                for i, d in enumerate(in_dims))  # fmt: skip
+    slot = lambda s: tuple(per[0][i] if d is None else per[s][i] for i, d in enumerate(in_dims))
+    return ops, in_dims, slot
+
+
+@pytest.mark.parametrize("shared", ["per_slot", "shared"])
+@pytest.mark.parametrize("H", [8, 32, 48, 64])
+@pytest.mark.parametrize("S", [1, 3, 4])
+@pytest.mark.parametrize("form", list(SLOT_FORMS))
+def test_slot_forms_match_the_per_call_kernel_bit_for_bit(dev, form, S, H, shared):
+    """Each slot of one slot-axis launch equals the per-call kernel on its
+    slice bit for bit (two windows a block, and the tile the slot form fits
+    for S * B windows), and the vmapped plain version within 1e-4. "per_slot":
+    every operand has its slot (h0 non-zero and its own); "shared": h0, a
+    weight (and gru's dts) given once, slot stride 0. H=48 is the generic
+    instantiation."""
+    slot_kernel, kernel, reference, kw, ref_kw, shared_ix = SLOT_FORMS[form]
+    B, T, D, Dh, K = 8, 13, 3, 40, 7
+    ops, in_dims, slot = _slot_operands(form, S, B, T, D, H, Dh, K, dev,
+                                        shared_ix if shared == "shared" else ())  # fmt: skip
+    for bb in (2, None):
+        before = (slot_kernel.launches, kernel.launches)
+        out = slot_kernel(*ops, in_dims=in_dims, **kw, block_b=bb)
+        assert (slot_kernel.launches, kernel.launches) == (before[0] + 1, before[1])
+        fitted = bb or tiling.fit_block_b(SLOT_FAMILY[form], B, D, H, Dh, K, slots=S)
+        for s in range(S):
+            one = kernel(*slot(s), **kw, block_b=fitted)
+            assert torch.equal(out[s], one), f"{form} slot {s} of {S}, block_b={bb}"
+    want = rt.over_slots(reference, in_dims, **ref_kw)(*ops)
+    torch.testing.assert_close(out, want, **TOL)
+
+
+def test_slot_forms_take_batched_operands_at_any_dim(dev):
+    """The vmap rule moves a batched operand's slot dim to 0 (here xs batched
+    along its window dim, the weights along dim 0): the same launch."""
+    B, T, D, H, Dh, K, S = 8, 13, 3, 32, 40, 7, 3
+    ops, in_dims, _ = _slot_operands("mr_step", S, B, T, D, H, Dh, K, dev, (1, 6))
+    cfg_kw = dict(flow=True, act_bits=None)
+    reference = lambda *t: mr_step_reference(*t, **cfg_kw)
+    fn = rt.kernel_function("_T", mr_step_cuda, mr_step_slots_cuda, mr_step_reference)
+    xs_t = ops[0].transpose(0, 1)  # [B, S, T, D]: slots along dim 1
+    run = lambda x, *w: fn.apply(dict(cfg_kw, block_b=None), cfg_kw, x, *w)
+    dims = (1, *in_dims[1:])
+    before = (mr_step_slots_cuda.launches, mr_step_cuda.launches)
+    out = torch.func.vmap(run, in_dims=dims)(xs_t, *ops[1:])
+    assert (mr_step_slots_cuda.launches, mr_step_cuda.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(out, torch.func.vmap(reference, in_dims=dims)(xs_t, *ops[1:]), **TOL)
+    with pytest.raises(ValueError, match="nested"):
+        torch.func.vmap(torch.func.vmap(run, in_dims=dims), in_dims=(0,) + (None,) * 10)(
+            xs_t[None], *ops[1:]
+        )
+
+
+SLOT_ROWS = [  # encoder, fused, quant, the slot kernel it must launch
+    ("gru_flow", True, None, mr_step_slots_cuda),
+    ("gru", True, None, mr_step_slots_cuda),
+    ("gru_flow", True, QuantConfig(4, 10, 2, 12), mr_step_slots_cuda),
+    ("ltc", True, None, mr_step_ltc_slots_cuda),
+    ("node", True, None, mr_step_node_slots_cuda),
+    ("gru_kernel", False, None, gru_scan_slots_cuda),
+    ("gru_flow_kernel", False, None, gru_scan_slots_cuda),
+]
+PER_CALL = (mr_step_cuda, mr_step_ltc_cuda, mr_step_node_cuda, gru_scan_cuda)
+SLOT_KERNELS = (mr_step_slots_cuda, mr_step_ltc_slots_cuda, mr_step_node_slots_cuda,
+                gru_scan_slots_cuda)  # fmt: skip
+
+
+@pytest.mark.parametrize("encoder,fused,quant,slot_kernel", SLOT_ROWS,
+                         ids=[f"{r[0]}{'+qat' if r[2] else ''}" for r in SLOT_ROWS])  # fmt: skip
+def test_stacked_step_launches_the_slot_form_once(dev, encoder, fused, quant, slot_kernel):
+    """One stacked train step of three slots: one launch of the row's slot
+    form and none of any per-call kernel; its loss and gradients (the stacked
+    plain recompute) within 1e-4 of the same step with ``force_reference``."""
+    cfg = merinda.MRConfig(state_dim=3, input_dim=1, order=2, hidden=32, dense_hidden=64,
+                           dt=0.01, encoder=encoder, fused=fused, quant=quant)  # fmt: skip
+    per = [merinda.init_mr(torch.Generator(device=dev).manual_seed(s), cfg, dev) for s in range(3)]
+    params = tree_stack(per)
+    g = torch.Generator().manual_seed(2)
+    ys, us = torch.randn(3, 16, 12, 3, generator=g).to(dev), torch.randn(3, 16, 12, 1, generator=g).to(dev)
+    results = []
+    for force in (False, True):
+        counts = [k.launches for k in (*SLOT_KERNELS, *PER_CALL)]
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        loss, _ = torch.func.vmap(
+            lambda p, y, u: merinda.mr_loss(p, cfg, y, u, force_reference=force)
+        )(p, ys, us)
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        moved = [k.launches - c for k, c in zip((*SLOT_KERNELS, *PER_CALL), counts)]
+        want = [int(not force and k is slot_kernel) for k in (*SLOT_KERNELS, *PER_CALL)]
+        assert moved == want, (force, moved)
+        results.append([loss, *grads])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, **TOL)
+    before = slot_kernel.launches
+    opt = tree_stack([adamw_init(q) for q in per])
+    engine.stacked_train_step(params, opt, cfg, ys, us, torch.tensor([1e-3, 2e-3, 3e-3], device=dev))
+    engine.stacked_theta(params, cfg, ys, us)
+    assert slot_kernel.launches == before + 2
+
+
+def test_fused_batch_plan_runs_the_slot_form(dev, monkeypatch):
+    """run_batch of a fused plan on the card: steps + 1 slot launches (the
+    readout too), no per-call launch, each system's Theta within 1e-3 of the
+    same run through the plain versions on the card (the same generators).
+    The warmup keeps 5 steps' moves under 1e-3 even where a gradient near 0
+    flips its sign between the two summation orders."""
+    ys = torch.randn(3, 16, 12, 3, generator=torch.Generator().manual_seed(3))
+    spec = api.RecoverySpec(state_dim=3, order=2, hidden=32, dense_hidden=64, dt=0.01,
+                            encoder="ltc", fused=True, mode="batch", steps=5, seed=1)  # fmt: skip
+    plan = api.compile_plan(spec)
+    assert plan.lowering.fused and plan.lowering.dispatch == "cuda"
+    counts = [k.launches for k in (*SLOT_KERNELS, *PER_CALL)]
+    theta = plan.run_batch(ys.numpy())
+    torch.cuda.synchronize()
+    moved = [k.launches - c for k, c in zip((*SLOT_KERNELS, *PER_CALL), counts)]
+    assert moved == [0, 6, 0, 0, 0, 0, 0, 0]
+    monkeypatch.setattr(rt, "resolve_dispatch", lambda t, force=False: rt.Dispatch.REFERENCE)
+    torch.testing.assert_close(theta, plan.run_batch(ys.numpy()), atol=1e-3, rtol=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,8 @@ At the JAX tests' own sizes (H=8; ``tests/test_tick.py`` TCFG and CCFG,
   slot maps, steps and eviction reasons equal, theta within 1e-3;
 - host-plane priority preemption and the bounded warm LRU;
 - every refusal of what is not yet ported (and of int8 serving on a flow
-  row), the tick's shared-memory model, and
-  ``serve_mr`` end to end at a small size on the CPU.
+  row), the fused and ``*_kernel`` plans that now build, the tick's
+  shared-memory model, and ``serve_mr`` end to end at a small size on the CPU.
 """
 
 from __future__ import annotations
@@ -346,9 +346,14 @@ def test_stream_plans_resolve_the_tick_kernel():
 
 
 def test_stream_mode_refuses_what_is_not_ported():
-    for kw in (dict(fused=True), dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):
-        with pytest.raises(ValueError, match="not yet ported"):
-            api.compile_plan(_spec(**kw), device="cpu")
+    """The fused and ``*_kernel`` rows build (their slot-axis kernels are
+    ported); the mesh, the device control plane, checkpoints and int8 on a
+    flow row still raise."""
+    for kw in (dict(fused=True), dict(fused=True, encoder="gru_flow"),
+               dict(fused=True, encoder="ltc"), dict(fused=True, encoder="node"),
+               dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):  # fmt: skip
+        low = api.compile_plan(_spec(**kw), device="cpu").lowering
+        assert (low.fused, low.kernel) == (kw.get("fused", False), "kernel" in low.encoder), kw
     # int8 serving is ported, but not on a flow row (no int8 stage)
     with pytest.raises(ValueError, match="int8_pwl"):
         api.compile_plan(_spec(precision="int8_pwl", encoder="gru_flow"), device="cpu")
