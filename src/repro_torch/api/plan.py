@@ -9,8 +9,11 @@ CPU, as the tests do.
 
 Modes: ``offline`` trains one system (``run_offline``, ``readout``);
 ``batch`` recovers a fleet of systems as one stacked program (``run_batch``);
-``stream`` builds the online service (``make_service``) on the host control
-plane, its tick composite or banked (the ``mr_tick`` kernel). Batch and
+``stream`` builds the online service (``make_service``) on the host or the
+device-resident control plane (``TickSpec.control``; the device plane's tick
+is ``control.tick_device`` around the same tick body), its tick composite or
+banked (the ``mr_tick`` kernel), with a ``ServiceCheckpointer`` attached when
+the TickSpec asks for periodic snapshots. Batch and
 stream train every system or slot at once through ``torch.func.vmap`` of
 the loss (``engine.stacked_train_step``), as JAX maps the Pallas stages with
 ``jax.vmap``: ``fused=True`` and the ``*_kernel`` rows launch the slot-axis
@@ -69,9 +72,16 @@ class Lowering:
     # -- stream mode (None elsewhere) ------------------------------------------
     tick_kernel: str | None = None  # "banked" | "composite"
     tick_slots_per_bank: int | None = None  # mr_tick's slots per block (banked)
-    control_plane: str | None = None  # "host"
-    warm_capacity: int | None = None  # warm-start LRU entries
-    overflow_capacity: int | None = None  # the device plane's spill bound (recorded only)
+    # the control plane ("host" | "device") and the capacities baked into the
+    # control state's shapes (queue and snapshot fields None on the host plane)
+    control_plane: str | None = None
+    tick_queue_capacity: int | None = None
+    tick_snapshot_period: int | None = None
+    warm_capacity: int | None = None  # warm-start LRU entries (a shard's warm ring)
+    # service snapshots (0 / None: off) and the device plane's overflow bound
+    checkpoint_period: int | None = None
+    checkpoint_dir: str | None = None
+    overflow_capacity: int | None = None
 
 
 class RecoveryPlan:
@@ -153,19 +163,60 @@ class RecoveryPlan:
             )
         return functools.partial(stream_mod.tick, cfg=self.cfg, scfg=self.scfg)
 
-    def make_service(self) -> stream_mod.RecoveryService:
-        """The online multi-tenant service on the host control plane."""
+    @property
+    def control_plane(self):
+        """The device control plane's programs and capacities
+        (``control.ControlPlane``), or None on the host plane."""
         self._require_mode("stream")
-        return stream_mod.RecoveryService(
+        low = self.lowering
+        if low.control_plane != "device":
+            return None
+        from repro_torch.core import control as control_mod
+
+        shards = self.spec.mesh_slots
+        return control_mod.ControlPlane(
+            queue_capacity=low.tick_queue_capacity,
+            snapshot_period=low.tick_snapshot_period,
+            warm_capacity=low.warm_capacity,
+            shards=shards,
+            tick=functools.partial(
+                control_mod.tick_device,
+                cfg=self.cfg,
+                scfg=self.scfg,
+                kernel=low.tick_kernel,
+                quant=_quant_tick(low.quant_serving, self.scfg),
+                slots_per_bank=low.tick_slots_per_bank or 1,
+                shards=shards,
+            ),
+            enqueue=control_mod.enqueue,
+            pump=functools.partial(control_mod.pump, shards=shards),
+            drain=control_mod.drain_events,
+        )
+
+    def make_service(self) -> stream_mod.RecoveryService:
+        """The online multi-tenant service on the spec's control plane, with
+        a ``ServiceCheckpointer`` attached when the TickSpec asks for
+        periodic snapshots."""
+        self._require_mode("stream")
+        low = self.lowering
+        service = stream_mod.RecoveryService(
             self.cfg,
             self.scfg,
             self.spec.n_slots,
             seed=self.spec.seed,
             device=self.device,
             tick_program=self.tick,
-            warm_capacity=self.lowering.warm_capacity,
-            quant=self.lowering.quant_serving,
+            warm_capacity=low.warm_capacity,
+            quant=low.quant_serving,
+            control=self.control_plane,
+            overflow_capacity=low.overflow_capacity,
         )
+        if low.checkpoint_period and low.checkpoint_dir:
+            from repro_torch.runtime.resilience import ServiceCheckpointer
+
+            service.checkpointer = ServiceCheckpointer(low.checkpoint_dir,
+                                                       period=low.checkpoint_period)  # fmt: skip
+        return service
 
     @torch.no_grad()
     def readout(
@@ -280,11 +331,16 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
         quant_tick = _quant_tick(quant_serving, spec.stream_config())
         tick_kernel, spb = _resolve_tick_kernel(spec, spec.to_mr_config(), quant_tick)
         tspec = spec.tick_spec()
+        device_plane = tspec.control == "device"
         stream_fields = dict(
             tick_kernel=tick_kernel,
             tick_slots_per_bank=spb,
             control_plane=tspec.control,
+            tick_queue_capacity=tspec.queue_capacity if device_plane else None,
+            tick_snapshot_period=tspec.snapshot_period if device_plane else None,
             warm_capacity=tspec.warm_capacity,
+            checkpoint_period=tspec.checkpoint_period,
+            checkpoint_dir=tspec.checkpoint_dir,
             overflow_capacity=tspec.overflow_capacity,
         )
     lowering = Lowering(

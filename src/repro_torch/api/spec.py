@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/api/spec.py``: the offline, batch and stream modes, QAT
 and int8/PWL serving (``precision="int8_pwl"``) included, and the service
-tick's ``TickSpec``. Not yet ported, and refused when the spec is built: the
-device-resident control plane (``TickSpec(control="device")``), service
-checkpoints (``checkpoint_period > 0``) and a slot mesh (``mesh_slots > 1``).
+tick's ``TickSpec`` with both control planes (``control="device"``: the
+device-resident one, ``core/control.py``) and periodic service checkpoints
+(``checkpoint_period > 0``, ``runtime/resilience.py``). Not yet ported, and
+refused when the spec is built: a slot mesh (``mesh_slots > 1``).
 """
 
 from __future__ import annotations
@@ -30,17 +31,32 @@ class TickSpec:
     packed for one readback, ``"auto"`` takes banked where the encoder row and
     the kernel's shared memory allow (``compile_plan`` records the choice in
     ``plan.lowering``). ``steps_per_tick=0`` is a pure serve tick.
-    ``warm_capacity`` bounds the warm-start LRU. ``control="host"`` is the
-    only ported control plane.
+    ``warm_capacity`` bounds the warm-start LRU (and the device plane's warm
+    ring).
+
+    ``control="device"`` keeps the admission queues, the eviction mask, slot
+    refill and warm-start lookup on the card (``core/control.py``), so a
+    steady tick reads nothing back. Its capacities, the per-shard
+    ``queue_capacity`` and the host's ``snapshot_period`` (drain the status
+    and the eviction events every N ticks), are baked into the control
+    state's shapes and recorded in ``plan.lowering``. ``checkpoint_period >
+    0`` snapshots the service (SlotState, ControlState, warm LRU) every N
+    ticks into ``checkpoint_dir``, async and atomic; 0 (the default) turns
+    snapshots off, since staging one reads the state back.
     """
 
     steps_per_tick: int = 8  # K optimizer steps per slot per tick (0 = serve-only)
     ema_decay: float = 0.9  # smoothing for the per-tick Theta readout
     tick_kernel: str = "composite"  # "banked" | "composite" | "auto"
-    control: str = "host"  # "host" ("device" is not yet ported)
-    warm_capacity: int = 32  # warm-start registry entries
-    checkpoint_period: int = 0  # ticks between service snapshots (not yet ported)
-    overflow_capacity: int = 16  # the device plane's host spill bound (recorded only)
+    control: str = "host"  # "host" | "device" (device-resident control plane)
+    queue_capacity: int = 8  # pending admissions a shard (device plane)
+    snapshot_period: int = 1  # ticks between host status/event drains (device plane)
+    warm_capacity: int = 32  # warm-start entries (a shard's warm ring on the device plane)
+    checkpoint_period: int = 0  # ticks between service snapshots (0 = off)
+    checkpoint_dir: str | None = None  # where the snapshots go
+    # the device plane's bounded host overflow queue behind submit()'s typed
+    # backpressure: OVERFLOW up to this many streams, REJECTED beyond
+    overflow_capacity: int = 16
 
     def __post_init__(self):
         if self.tick_kernel not in TICK_KERNELS:
@@ -51,14 +67,16 @@ class TickSpec:
             raise ValueError(f"ema_decay must be in [0, 1), got {self.ema_decay}")
         if self.control not in CONTROL_PLANES:
             raise ValueError(f"control must be one of {CONTROL_PLANES}, got {self.control!r}")
-        if self.control == "device":
-            raise ValueError("control='device' is not yet ported to repro_torch")
+        if self.queue_capacity < 1:
+            raise ValueError(f"queue_capacity must be >= 1, got {self.queue_capacity}")
+        if self.snapshot_period < 1:
+            raise ValueError(f"snapshot_period must be >= 1, got {self.snapshot_period}")
         if self.warm_capacity < 1:
             raise ValueError(f"warm_capacity must be >= 1, got {self.warm_capacity}")
         if self.checkpoint_period < 0:
             raise ValueError(f"checkpoint_period must be >= 0, got {self.checkpoint_period}")
-        if self.checkpoint_period > 0:
-            raise ValueError("checkpoint_period > 0 is not yet ported to repro_torch")
+        if self.checkpoint_period > 0 and not self.checkpoint_dir:
+            raise ValueError("checkpoint_period > 0 requires checkpoint_dir")
         if self.overflow_capacity < 0:
             raise ValueError(f"overflow_capacity must be >= 0, got {self.overflow_capacity}")
 

@@ -13,6 +13,12 @@ the same way. Every function is shape-agnostic, so a slot-stacked tree
 (leading slot or system axis on every leaf, what ``jax.vmap`` builds) crosses
 as it is.
 
+``control_from_numpy`` and ``control_to_numpy`` carry the device control
+plane's ``ControlState`` (its ``q_params`` and ``w_params`` are MRParams
+trees with leading shard and queue or ring axes), and
+``pinn_params_from_numpy`` and ``pinn_params_to_numpy`` the PINN-SR baseline's
+``PinnSRParams``, the same way.
+
 ``lm_params_from_numpy`` and ``lm_params_to_numpy`` carry a language model's nested dict
 of parameters, or of its cache, the same way: a bfloat16 leaf crosses as
 float32, which holds every bfloat16 value exactly, and is cast back to
@@ -24,10 +30,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.control import ControlState
 from repro_torch.core.ltc import LTCParams
 from repro_torch.core.merinda import MRParams
 from repro_torch.core.neural_flow import GRUParams
 from repro_torch.core.node_mr import NodeEncoderParams
+from repro_torch.core.pinn_sr import PinnSRParams
 from repro_torch.optim import AdamWState
 from repro_torch.tree import tree_map
 
@@ -80,3 +88,31 @@ def lm_params_to_numpy(tree):
 
 def opt_to_numpy(o: AdamWState) -> AdamWState:
     return AdamWState(o.step.cpu().numpy(), params_to_numpy(o.m), params_to_numpy(o.v))
+
+
+def control_from_numpy(c, device: torch.device | str = "cpu") -> ControlState:
+    """The JAX package's ``ControlState`` (numpy leaves) as the port's."""
+
+    def as_t(name):
+        x = np.asarray(getattr(c, name))
+        dtype = np.int32 if x.dtype.kind in "iu" else np.float32
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+    fields = {name: as_t(name) for name in ControlState._fields if not name.endswith("_params")}
+    return ControlState(**fields, q_params=params_from_numpy(c.q_params, device),
+                        w_params=params_from_numpy(c.w_params, device))  # fmt: skip
+
+
+def control_to_numpy(c: ControlState) -> ControlState:
+    return tree_map(lambda t: t.detach().cpu().numpy(), c)
+
+
+def pinn_params_from_numpy(p, device: torch.device | str = "cpu") -> PinnSRParams:
+    """The JAX package's ``PinnSRParams`` (numpy leaves) as the port's."""
+    as_t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return PinnSRParams(mlp=[(as_t(w), as_t(b)) for w, b in p.mlp], xi=as_t(p.xi),
+                        xi_mask=as_t(p.xi_mask))  # fmt: skip
+
+
+def pinn_params_to_numpy(p: PinnSRParams) -> PinnSRParams:
+    return tree_map(lambda t: t.detach().cpu().numpy(), p)

@@ -65,14 +65,21 @@ def polynomial_features(x: torch.Tensor, n_vars: int, order: int) -> torch.Tenso
     Grad-safe: d/dx x**0 = 0 * x**-1 is NaN at x == 0, and one ``where``
     does not stop a NaN cotangent, so the zero exponents go through the
     double-``where`` guard of ``repro/core/library.py:70-75``.
+
+    The product over the variables is a chain of multiplies, left to right,
+    over ``unbind``: ``torch.prod``'s backward reads back whether any factor
+    is zero, which would make every training step wait for the card.
     """
     table = _exponents(n_vars, order, x.dtype, x.device)
     xb = x[..., None, :]
     is_zero = table == 0
     ones = torch.ones_like(xb)
     x_safe = torch.where(is_zero, ones, xb)
-    powered = torch.where(is_zero, ones, x_safe**table)
-    return torch.prod(powered, dim=-1)
+    factors = torch.where(is_zero, ones, x_safe**table).unbind(-1)
+    out = factors[0]
+    for factor in factors[1:]:
+        out = out * factor
+    return out
 
 
 def normalization_transform(

@@ -22,11 +22,20 @@ is one launch of the ``mr_tick`` kernel, and the per-slot status comes back
 packed in one [S, 4] array). Their training segments are the same code, so
 their parameters agree bit for bit.
 
-``RecoveryService`` is the host control plane (the JAX package's reference
-plane): a priority queue, admission, eviction, preemption of cold slots and
-the warm LRU, moving O(slots) scalars across the host boundary a tick and
-counting every device-to-host readback (``counters``, ``sync_log``). The
-device-resident control plane, the slot mesh and checkpointing are not ported.
+``RecoveryService`` runs one of two control planes, counting every
+device-to-host readback (``counters``, ``sync_log``):
+
+- the host plane (the JAX package's reference plane): a priority queue,
+  admission, eviction, preemption of cold slots and the warm LRU, moving
+  O(slots) scalars across the host boundary a tick;
+- the device plane (``control=``, a ``core/control.ControlPlane``): the
+  queues, the eviction mask, the refill and the warm-start lookup run on the
+  card inside ``control.tick_device``, and the host reads the packed status
+  and the event log back only every ``snapshot_period`` ticks.
+
+A ``ServiceCheckpointer`` (``runtime/resilience.py``), when attached,
+snapshots the service every ``checkpoint_period`` ticks. The slot mesh is
+not ported.
 
 Under ``precision="int8_pwl"`` (``quant=True``) every eviction reads the
 stream's coefficients out through the fixed-point fused stage
@@ -350,8 +359,15 @@ class StreamResult(NamedTuple):
 
 
 class SubmitStatus(enum.Enum):
-    """What ``submit`` did. The host plane queues every stream (ENQUEUED);
-    OVERFLOW and REJECTED belong to the device plane's bounded rings."""
+    """What ``submit`` did, a typed backpressure signal.
+
+    ENQUEUED: queued (the host deque, or a device queue) and admitted as
+    capacity frees. OVERFLOW: every device queue was full; the stream waits
+    in the bounded host overflow queue and moves into a device queue at the
+    next snapshot or fill with room. REJECTED: the overflow queue is full as
+    well; nothing was kept and the caller must retry. ``submit`` never raises
+    on pressure.
+    """
 
     ENQUEUED = "enqueued"
     OVERFLOW = "overflow"
@@ -371,14 +387,25 @@ class SubmitResult(NamedTuple):
 
 
 class RecoveryService:
-    """Host control plane: admission queue, eviction policy, warm-start registry.
+    """The service: admission queue, eviction policy, warm-start registry.
 
     All numerics run in the tick program (``tick`` or ``tick_banked``, bound
-    by the plan); this class moves O(slots) scalars across the host boundary
-    a tick. ``counters["host_syncs"]`` counts every device-to-host readback
-    and ``sync_log`` holds each tick's count: the banked tick reads the packed
-    status once, the composite tick reads delta, steps, active and loss
-    separately, and each eviction reads the evicted slot's record.
+    by the plan). ``counters["host_syncs"]`` counts every device-to-host
+    readback and ``sync_log`` holds each tick's count.
+
+    Two control planes (``control=``, a ``core/control.ControlPlane`` built by
+    the plan, selects the device one):
+
+    - **host**: admission pops a deque, the eviction scan reads the per-slot
+      status back each tick (the banked tick's packed status once; the
+      composite tick delta, steps, active and loss separately) and each
+      eviction reads the evicted slot's record.
+    - **device**: the queue, the eviction mask, the refill and the warm-start
+      lookup run on the card (``control.tick_device``); the host only
+      enqueues arrivals and drains the packed status and the event log every
+      ``snapshot_period`` ticks (two readbacks). A tick between arrivals and
+      snapshots reads nothing back: host-to-device copies are made from
+      pinned memory without waiting, so no tick waits for the card.
 
     ``device=None`` is the card (raising when none is visible); the CPU runs
     only when the caller passes ``device="cpu"``. ``quant`` reads every
@@ -395,6 +422,8 @@ class RecoveryService:
         tick_program=None,
         warm_capacity: int = 32,
         quant: bool = False,
+        control=None,
+        overflow_capacity: int = 16,
     ):
         encoders.validate_config(cfg)
         self.cfg, self.scfg, self.n_slots = cfg, scfg, n_slots
@@ -432,12 +461,46 @@ class RecoveryService:
         self.registry = HeartbeatRegistry()
         self.stragglers = StragglerDetector(self.registry)
         self.straggler_flags: list[str] = []
+        # attached by RecoveryPlan.make_service when the TickSpec asks for
+        # periodic snapshots (runtime/resilience.py)
+        self.checkpointer = None
+        # bounded host-side spill of device-plane arrivals when every device
+        # queue is full; drains into the queues as room frees (fill_slots,
+        # snapshots). Beyond it, submit() REJECTs.
+        self.overflow: collections.deque = collections.deque()
+        self.overflow_capacity = int(overflow_capacity)
+        # -- device-resident control plane (core/control.py) ---------------
+        self.control_plane = control
+        self.control = None
+        self._pending: set[int] = set()  # submitted, no result yet
+        self._seen_done: set[int] = set()  # completed since the last resubmission
+        self._inflight: list[set[int]] = []  # per shard: enqueued, not yet admitted
+        self._ticks_since_snapshot = 0
+        if control is not None:
+            from repro_torch.core import control as control_mod
+
+            self.control = control_mod.init_control(
+                cfg, scfg, n_slots, shards=control.shards, queue_capacity=control.queue_capacity,
+                warm_capacity=control.warm_capacity, snapshot_period=control.snapshot_period,
+                device=self.device,
+            )  # fmt: skip
+            self._inflight = [set() for _ in range(control.shards)]
 
     def _host_read(self, leaf: torch.Tensor) -> np.ndarray:
         """Counted device-to-host readback (one host-sync point), as a copy: a
         CPU tensor's numpy view would follow the slot's later in-place writes."""
         self.counters["host_syncs"] += 1
         return leaf.detach().cpu().numpy().copy()
+
+    def _to_device(self, x) -> torch.Tensor:
+        """Host data as float32 on the service's device. On the card the copy
+        goes through pinned memory without waiting (the caching host allocator
+        keeps the pinned block until the copy has run), so it never stalls a
+        tick."""
+        t = torch.as_tensor(np.asarray(x), dtype=torch.float32)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     # -- warm-start registry (bounded LRU) ----------------------------------
     def _warm_put(self, stream_id: int, params: MRParams):
@@ -468,6 +531,11 @@ class RecoveryService:
 
         ``priority`` is the admission tier (0 = default; higher pops first and
         may preempt a cold lower-tier slot under pressure).
+
+        On the device plane the history and a cold-start params tree (the
+        warm ring overrides it on a hit) go straight into the least-loaded
+        shard's device queue; a full queue spills into the bounded overflow
+        queue (OVERFLOW), and a full overflow queue REJECTs.
         """
         L, m = self.scfg.buf_len, self.cfg.input_dim
         if history_y.shape != (L, self.cfg.state_dim):
@@ -478,8 +546,42 @@ class RecoveryService:
             history_u = np.zeros((L, m), np.float32)
         sid = int(stream_id)
         self._prio_of[sid] = int(priority)
-        self.queue.append((sid, np.asarray(history_y), np.asarray(history_u), int(priority)))
-        return SubmitResult(SubmitStatus.ENQUEUED, sid)
+        entry = (sid, np.asarray(history_y), np.asarray(history_u), int(priority))
+        if self.control_plane is None:
+            self.queue.append(entry)
+            return SubmitResult(SubmitStatus.ENQUEUED, sid)
+        shard = self._enqueue_device(*entry)
+        if shard is not None:
+            return SubmitResult(SubmitStatus.ENQUEUED, sid, shard)
+        if len(self.overflow) >= self.overflow_capacity:
+            self._prio_of.pop(sid, None)
+            return SubmitResult(SubmitStatus.REJECTED, sid)
+        self.overflow.append(entry)
+        self._pending.add(sid)
+        self._seen_done.discard(sid)
+        return SubmitResult(SubmitStatus.OVERFLOW, sid)
+
+    def _enqueue_device(self, sid, history_y, history_u, priority) -> int | None:
+        """Append one arrival into the least-loaded shard's queue; None when
+        all are full. ``_inflight`` counts ids enqueued and not yet admitted,
+        and victims preempted back into a queue (re-added at snapshots), so
+        the device queue never overflows."""
+        cp = self.control_plane
+        shard = min(range(cp.shards), key=lambda i: (len(self._inflight[i]), i))
+        if len(self._inflight[shard]) >= cp.queue_capacity:
+            return None
+        params, _ = cold_start(self.seed, sid, self.cfg, self.device)
+        self.control = cp.enqueue(self.control, shard, sid, self._to_device(history_y),
+                                  self._to_device(history_u), params, priority)  # fmt: skip
+        self._inflight[shard].add(sid)
+        self._pending.add(sid)
+        self._seen_done.discard(sid)
+        return shard
+
+    def _drain_overflow(self) -> None:
+        """Move overflowed arrivals into the device queues while room lasts."""
+        while self.overflow and self._enqueue_device(*self.overflow[0]) is not None:
+            self.overflow.popleft()
 
     def _queue_pop(self) -> tuple[int, np.ndarray, np.ndarray, int]:
         """Pop the entry with the highest tier, FIFO within a tier (``max``
@@ -544,7 +646,17 @@ class RecoveryService:
             self._admit_into(victim)
 
     def fill_slots(self) -> list[int]:
-        """Admit queued streams into every empty slot."""
+        """Admit queued streams into every empty slot.
+
+        Device plane: one ``pump`` drains the device queues into every idle
+        slot, then a snapshot refreshes the host views.
+        """
+        if self.control_plane is not None:
+            self._drain_overflow()
+            before = {int(i) for i in self._slot_view if i >= 0}
+            self.state, self.control, status = self.control_plane.pump(self.state, self.control)
+            self._snapshot(status)
+            return [int(i) for i in self._slot_view if i >= 0 and int(i) not in before]
         admitted = []
         active = self._host_read(self.state.active)
         self._active_view = np.asarray(active, bool).copy()
@@ -557,7 +669,13 @@ class RecoveryService:
 
     # -- the tick loop ------------------------------------------------------
     def slot_streams(self) -> list[int]:
-        """stream_id per slot (-1 = empty); the caller routes chunks by this."""
+        """stream_id per slot (-1 = empty); the caller routes chunks by this.
+
+        Host plane: a readback. Device plane: the last snapshot's view, no
+        readback (as fresh as the last snapshot tick).
+        """
+        if self.control_plane is not None:
+            return [int(i) for i in self._slot_view]
         return [int(i) for i in self._host_read(self.state.stream_id)]
 
     def _evict(self, slot: int, reason: str) -> StreamResult:
@@ -582,15 +700,92 @@ class RecoveryService:
         self._warm_put(sid, self._slot_params(slot))
         return res
 
+    def _snapshot(self, status: torch.Tensor) -> list[StreamResult]:
+        """Device plane: refresh the host views from the packed [S, 5] status
+        and drain the event log into StreamResults: the device plane's only
+        readbacks, two a snapshot."""
+        from repro_torch.core import control as control_mod
+
+        cp = self.control_plane
+        prev_slots = self._slot_view.copy()
+        snap = self._host_read(status)
+        self._delta_view = snap[:, 0].copy()
+        self._loss_view = snap[:, 1].copy()
+        self._steps_view = snap[:, 2].astype(np.int64)
+        self._active_view = snap[:, 3] > 0
+        self._slot_view = snap[:, 4].astype(np.int64)
+        for s in range(self.n_slots):
+            sid = int(self._slot_view[s])
+            self._prio_view[s] = self._prio_of.get(sid, 0) if sid >= 0 else 0
+        self.control, events = cp.drain(self.control)
+        new_results = []
+        for sid, steps, code, theta, mean, scale in control_mod.decode_events(
+            self._host_read(events), self.cfg
+        ):
+            res = StreamResult(stream_id=sid, theta=theta, mean=mean, scale=scale, steps=steps,
+                               reason="converged" if code == 1 else "budget")  # fmt: skip
+            self.results[sid] = res
+            self._undrained.append(res)
+            self._pending.discard(sid)
+            self._seen_done.add(sid)
+            new_results.append(res)
+        # an enqueued id leaves its shard's in-flight set once a snapshot shows
+        # it admitted (slot view) or completed (event log); an id that WAS
+        # resident and is neither now was preempted back into its shard's
+        # queue, so it counts as in flight again
+        resident = {int(i) for i in self._slot_view if i >= 0}
+        slots_per_shard = self.n_slots // cp.shards
+        for s in range(self.n_slots):
+            sid = int(prev_slots[s])
+            if sid >= 0 and sid not in resident and sid not in self._seen_done:
+                self._inflight[s // slots_per_shard].add(sid)
+        settled = resident | self._seen_done
+        for shard_ids in self._inflight:
+            shard_ids.difference_update(settled)
+        self._ticks_since_snapshot = 0
+        self._drain_overflow()
+        return new_results
+
     def tick_once(self, chunks_y: np.ndarray, chunks_u: np.ndarray | None = None) -> dict:
-        """Advance the service one tick; returns an info dict of host scalars."""
+        """Advance the service one tick; returns an info dict of host scalars.
+
+        Device plane: ``tick_device`` runs the tick, the eviction mask, the
+        refill and the warm-start gather; the host reads nothing back except
+        at snapshot ticks (every ``snapshot_period``), so ``sync_log`` records
+        0 for a steady tick, and the info dict serves the last snapshot's
+        views between them.
+        """
         t0 = time.perf_counter()
         syncs0 = self.counters["host_syncs"]
         S, C, m = self.n_slots, self.scfg.chunk, self.cfg.input_dim
         if chunks_u is None:
             chunks_u = np.zeros((S, C, m), np.float32)
-        as_dev = lambda x: torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        out = self._tick(self.state, as_dev(chunks_y), as_dev(chunks_u), self.generator)
+        new_y, new_u = self._to_device(chunks_y), self._to_device(chunks_u)
+        if self.control_plane is not None:
+            cp = self.control_plane
+            self.state, self.control, status = cp.tick(self.state, self.control, new_y, new_u,
+                                                       self.generator)  # fmt: skip
+            self.ticks += 1
+            self._ticks_since_snapshot += 1
+            evicted: list[StreamResult] = []
+            if self._ticks_since_snapshot >= cp.snapshot_period:
+                evicted = self._snapshot(status)
+            info = {
+                "tick": self.ticks,
+                "evicted": evicted,
+                "active": int(self._active_view.sum()),
+                "delta": self._delta_view,
+                "loss": self._loss_view,
+                "steps": self._steps_view,
+            }
+            # checkpoint before closing the tick's sync count, so a snapshot
+            # tick's staging readback lands in this tick's sync_log entry
+            if self.checkpointer is not None:
+                self.checkpointer.after_tick(self)
+            self._finish_tick(t0)
+            self.sync_log.append(self.counters["host_syncs"] - syncs0)
+            return info
+        out = self._tick(self.state, new_y, new_u, self.generator)
         self.ticks += 1
         # the banked tick returns (state, status[S, 4]): one readback for the
         # whole eviction scan; the composite tick reads each leaf separately
@@ -632,6 +827,8 @@ class RecoveryService:
             "loss": self._loss_view,
             "steps": steps,
         }
+        if self.checkpointer is not None:
+            self.checkpointer.after_tick(self)
         self._finish_tick(t0)
         self.sync_log.append(self.counters["host_syncs"] - syncs0)
         return info
@@ -650,5 +847,9 @@ class RecoveryService:
 
     @property
     def done(self) -> bool:
-        """True when no stream is queued or running (from the host views)."""
+        """True when no stream is queued, running or awaiting its result:
+        from the host views (host plane) or the pending set (device plane),
+        never a readback."""
+        if self.control_plane is not None:
+            return not self._pending
         return not self.queue and not bool(self._active_view.any())

@@ -13,6 +13,8 @@ Two families, as in the JAX package:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -50,18 +52,50 @@ def roll_buffer(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     return torch.cat([buf[..., new.shape[-2] :, :], new], dim=-2)
 
 
+@functools.lru_cache(maxsize=32)
+def _window_index(buf_len: int, window: int, stride: int, device: torch.device) -> torch.Tensor:
+    """The [N, T] gather index of ``window_views``, made once per device: a
+    fresh host-to-device copy every tick would wait for the card."""
+    n_win = n_buffer_windows(buf_len, window, stride)
+    idx = np.arange(n_win)[:, None] * stride + np.arange(window)[None, :]
+    return torch.as_tensor(idx, device=device)
+
+
 def window_views(buf: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     """Sliding windows over the time axis, [..., L, n] -> [..., N, T, n]: one
     advanced-index gather, the same slices as ``make_windows``."""
-    n_win = n_buffer_windows(buf.shape[-2], window, stride)
-    idx = np.arange(n_win)[:, None] * stride + np.arange(window)[None, :]
-    return buf[..., torch.as_tensor(idx, device=buf.device), :]
+    return buf[..., _window_index(buf.shape[-2], window, stride, buf.device), :]
 
 
 def buffer_stats(buf: torch.Tensor, eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-dimension (mean, scale) over the time axis of ``buf`` [..., L, n],
     each [..., 1, n]. The population std, as ``jnp.std``; a (near-)constant
-    channel, such as a zero-padded state of a mixed fleet, keeps scale 1."""
-    mean = buf.mean(dim=-2, keepdim=True)
-    std = buf.std(dim=-2, correction=0, keepdim=True)
-    return mean, torch.where(std < eps, torch.ones_like(std), std)
+    channel, such as a zero-padded state of a mixed fleet, keeps scale 1.
+
+    On the card: two reductions. On the CPU the arithmetic is spelled out in
+    the JAX package's order (XLA's on the CPU, at L <= 32; longer buffers
+    split the sum there, within an ulp of this), so the CPU tests hold the
+    admission statistics bit for bit: a sequential float32 sum over time,
+    divided by L; a sequential multiply-add of the centred squares (XLA
+    contracts it into a fused multiply-add), divided by L; the square root
+    correctly rounded, through float64 (PyTorch's float32 square root on the
+    CPU is not). The host and device control planes share this function, so
+    on either device they agree bit for bit.
+    """
+    if buf.device.type != "cpu":
+        mean = buf.mean(dim=-2, keepdim=True)
+        std = buf.std(dim=-2, correction=0, keepdim=True)
+        return mean, torch.where(std < eps, torch.ones_like(std), std)
+    L = buf.shape[-2]
+    total = buf[..., 0, :]
+    for t in range(1, L):
+        total = total + buf[..., t, :]
+    count = torch.full_like(total, L)  # a true division, not a reciprocal product
+    mean = total / count
+    centred = buf - mean.unsqueeze(-2)
+    sq = torch.zeros_like(total)
+    for t in range(L):
+        sq = torch.addcmul(sq, centred[..., t, :], centred[..., t, :])
+    std = (sq / count).double().sqrt().to(buf.dtype)
+    std = torch.where(std < eps, torch.ones_like(std), std)
+    return mean.unsqueeze(-2), std.unsqueeze(-2)

@@ -12,7 +12,7 @@ physical units (``data/dynamics.embed_true_coef``) and must stay within
 baseline (a batch plan over each stream's initial history, the same step
 budget) plus ``--tol-abs``: streaming ingestion must not cost recovery
 quality. The service is built through the plan API (``RecoverySpec`` ->
-``compile_plan`` -> ``make_service``) on the host control plane.
+``compile_plan`` -> ``make_service``).
 
 On the card (the default ``--device cuda``), with the serving segment of every
 tick as one launch of the ``mr_tick`` kernel:
@@ -25,6 +25,20 @@ and the same scenario with the plain versions on the CPU: ``--device cpu``.
 ``--quant`` serves with ``precision="int8_pwl"``: every evicted stream's
 coefficients are read out through the fixed-point fused stage (the
 ``mr_step_int8`` kernel: int8 gate and head weights, PWL activations).
+
+``--control device`` serves through the device-resident control plane
+(``core/control.py``): admission waits in queues on the card, and eviction,
+refill and the warm-start gather run there every tick; the host reads the
+packed status and the event log back only every ``--snapshot-period`` ticks,
+so a tick between snapshots reads nothing back. This driver routes each
+stream's chunks by the last snapshot's slot map (a slot freed since then
+takes zeros; a stream admitted since then waits for the next snapshot's map).
+``--checkpoint-dir`` with ``--checkpoint-period N`` snapshots the service
+(SlotState, ControlState, warm cache) there every N ticks, async and atomic:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_mr --tick-kernel banked \
+        --control device --snapshot-period 4 --checkpoint-dir /tmp/serve_mr_ckpt \
+        --checkpoint-period 8 --streams 12 --slots 4
 
 ``--fused`` runs every tick's recovery steps (and the composite tick's
 readout) through the stage-fused step, one launch of the slot-axis form of
@@ -158,6 +172,42 @@ def build_parser() -> argparse.ArgumentParser:
         "(csrc/mr_tick.cu), 'auto' = banked where the encoder and shared memory allow",
     )
     ap.add_argument(
+        "--control",
+        choices=("host", "device"),
+        default="host",
+        help="service control plane: 'device' keeps the admission queues, eviction and the "
+        "warm-start lookup on the card (core/control.py), so ticks between snapshots read "
+        "nothing back",
+    )
+    ap.add_argument(
+        "--snapshot-period",
+        type=int,
+        default=1,
+        help="device control plane: ticks between status/event-log snapshots. This driver "
+        "routes per-stream chunks from the snapshot's slot map, so the default is 1 (every "
+        "tick); above it a slot's routing may be N-1 ticks old",
+    )
+    ap.add_argument(
+        "--queue-capacity",
+        type=int,
+        default=0,
+        help="device control plane: the admission queue's capacity a shard (0 = auto, sized "
+        "so every stream can wait at once)",
+    )
+    ap.add_argument(
+        "--checkpoint-dir",
+        default=None,
+        help="service snapshot directory (runtime/resilience.py); with --checkpoint-period > 0 "
+        "the service snapshots SlotState, ControlState and the warm cache there, async and "
+        "atomic",
+    )
+    ap.add_argument(
+        "--checkpoint-period",
+        type=int,
+        default=0,
+        help="ticks between service snapshots (0 = off; requires --checkpoint-dir)",
+    )
+    ap.add_argument(
         "--tol-factor",
         type=float,
         default=3.0,
@@ -229,7 +279,15 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         seed=args.seed,
         n_slots=args.slots,
         stream=scfg,
-        tick=api.TickSpec(steps_per_tick=args.steps_per_tick, tick_kernel=args.tick_kernel),
+        tick=api.TickSpec(
+            steps_per_tick=args.steps_per_tick,
+            tick_kernel=args.tick_kernel,
+            control=args.control,
+            queue_capacity=args.queue_capacity or max(args.streams, 1),
+            snapshot_period=args.snapshot_period,
+            checkpoint_period=args.checkpoint_period,
+            checkpoint_dir=args.checkpoint_dir,
+        ),
     )
     plan = api.compile_plan(spec, device=args.device)
     service = plan.make_service()
@@ -239,10 +297,12 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         f"[serve_mr] streams={args.streams} slots={args.slots} K={args.steps_per_tick} "
         f"windows/slot={scfg.n_windows} library={cfg.n_terms}x{cfg.state_dim} "
         f"encoder={args.encoder} fused={args.fused} tick={plan.lowering.tick_kernel} "
-        f"quant={args.quant} device={args.device}",
+        f"control={args.control} quant={args.quant} device={args.device}",
         flush=True,
     )
     stats = run_service(service, ys, us, args.max_ticks, verbose=verbose)
+    if service.checkpointer is not None:
+        service.checkpointer.wait()
     results = service.results
     n_done = len(results)
     out = dict(plan=plan, service=service, stats=stats, rows=[], baseline_s=None, theta_base=None)
@@ -259,7 +319,7 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         )
     if service.sync_log:
         log(
-            f"[serve_mr] host boundary (host control plane): "
+            f"[serve_mr] host boundary ({args.control} control plane): "
             f"{service.counters['host_syncs']} syncs; "
             f"median {float(np.median(service.sync_log)):.1f} syncs/tick"
         )

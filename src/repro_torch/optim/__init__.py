@@ -1,2 +1,3 @@
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.schedules import cosine_schedule, linear_warmup_cosine

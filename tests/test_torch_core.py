@@ -206,9 +206,9 @@ def test_encoder_registry_has_the_gru_rows_and_refuses_the_rest():
 
 
 def test_unported_options_raise():
-    """QAT, the ltc/node encoders, the batch and stream modes and int8
-    serving are ported; a slot mesh, the device control plane and service
-    checkpoints are not."""
+    """QAT, the ltc/node encoders, the batch and stream modes, int8 serving,
+    the device control plane and service checkpoints are ported; a slot mesh
+    is not."""
     cfg = MRConfig(state_dim=2, encoder="ltc", quant=QuantConfig(4, 10, 2, 12))
     assert cfg.quant.act_bits == 14 and cfg.ltc_substeps == 6
     assert RecoverySpec(state_dim=2, encoder="node", qat=QuantConfig()).to_mr_config().quant
@@ -217,9 +217,8 @@ def test_unported_options_raise():
     assert RecoverySpec(state_dim=2, encoder="gru", precision="int8_pwl").precision == "int8_pwl"
     with pytest.raises(ValueError, match="not yet ported"):
         RecoverySpec(state_dim=2, mode="stream", mesh_slots=2)
-    for kw in (dict(control="device"), dict(checkpoint_period=1)):
-        with pytest.raises(ValueError, match="not yet ported"):
-            TickSpec(**kw)
+    assert TickSpec(control="device").control == "device"
+    assert TickSpec(checkpoint_period=1, checkpoint_dir="snapshots").checkpoint_period == 1
 
 
 def test_tiling_fits_shared_memory_and_fills_the_card():

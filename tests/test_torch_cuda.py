@@ -10,6 +10,13 @@ The banked service tick (``mr_tick``) is held to its plain version as the
 JAX tick tests hold theirs: rolled buffers bit for bit, theta and delta
 within 1e-5, and a banked service in lockstep with a composite one.
 
+The device-resident control plane runs the banked tick's kernels on a new
+path: its ticks between snapshots (an arrival's enqueue, evictions and
+refills included) run under ``torch.cuda.set_sync_debug_mode("error")``, so
+any wait for the card fails them; its outcomes equal the host plane's, and a
+service snapshot restores into a fresh service on the card bit for bit. The
+SR baselines (SINDy, PINN-SR) on the card agree with the CPU port.
+
 The LM zoo's kernels: ``ssd_scan`` against ``ssd_chunked`` within 5e-5 in
 float32 (``tests/test_kernels_ssd.py:48``), and on bf16 inputs against
 ``ssd_chunked`` on float32 copies (what the Pallas kernel computes) within one
@@ -1110,3 +1117,144 @@ def test_flash_attention_gradient_recomputes_the_oracle(dev):
     want = torch.autograd.grad((flash_attention(q, k, v, force_reference=True) ** 2).sum(), (q, k, v))
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# the device control plane, service snapshots and the SR baselines on the card
+# ---------------------------------------------------------------------------
+PLANE_SCFG = StreamConfig(buf_len=32, window=8, stride=8, chunk=8, steps_per_tick=2, min_steps=4,
+                          max_steps=4, delta_tol=0.0)  # fmt: skip
+
+
+def _plane_service(dev, control, steps_per_tick=2, precision="fp32", **tick_kw):
+    scfg = StreamConfig(**{**PLANE_SCFG.__dict__, "steps_per_tick": steps_per_tick})
+    spec = api.RecoverySpec(
+        mode="stream", n_slots=2, stream=scfg, encoder="gru", seed=0, precision=precision,
+        tick=api.TickSpec(steps_per_tick=steps_per_tick, tick_kernel="banked", control=control,
+                          **tick_kw),
+        **TICK_BASE,
+    )  # fmt: skip
+    return api.compile_plan(spec, device=dev).make_service()
+
+
+def _plane_data(n=7):
+    rng = np.random.default_rng(3)
+    return np.cumsum(rng.standard_normal((n, 200, 3)).astype(np.float32) * 0.1, axis=1)
+
+
+@pytest.mark.parametrize("steps_per_tick,precision,kernel",
+                         [(2, "fp32", mr_tick_cuda), (0, "int8_pwl", mr_tick_int8_cuda)])  # fmt: skip
+def test_device_plane_ticks_between_snapshots_never_wait_for_the_card(dev, steps_per_tick,
+                                                                     precision, kernel):
+    """Snapshot every 4 ticks; after a first tick, every tick but the
+    snapshot ticks, and an arrival during one, under sync-debug mode "error":
+    no readback, and the tick kernel once a tick (K = 0 with int8_pwl: the
+    int8 monitor's ``mr_tick_int8``)."""
+    data = _plane_data()
+    svc = _plane_service(dev, "device", steps_per_tick, precision, snapshot_period=4)
+    for sid in range(4):
+        svc.submit(sid, data[sid, :32])
+    svc.fill_slots()
+    # the first tick makes the once-a-device constants (the library's exponent
+    # table, the window index) on the card; the JAX test skips it too
+    svc.tick_once(np.stack([data[s, 32:40] for s in (0, 1)]))
+    before, quiet = kernel.launches, []
+    for t in range(1, 13):
+        snapshot = svc._ticks_since_snapshot + 1 >= 4
+        chunk = np.stack([data[max(s, 0), 32 + 8 * t : 40 + 8 * t] for s in svc.slot_streams()])
+        torch.cuda.set_sync_debug_mode(0 if snapshot else "error")
+        try:
+            if t == 2:
+                assert svc.submit(6, data[6, :32]).accepted
+            svc.tick_once(chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not snapshot:
+            quiet.append(svc.sync_log[-1])
+    assert len(quiet) == 9 and not any(quiet)
+    assert svc.sync_log[3::4] == [2, 2, 2]
+    assert kernel.launches - before == 12
+    if steps_per_tick:  # 2 ticks a stream: all 5 recovered
+        assert set(svc.results) == {0, 1, 2, 3, 6}
+
+
+def test_device_plane_matches_the_host_plane_on_the_card(dev):
+    """Six streams arriving over the first ticks into 2 slots: slot maps and
+    eviction records equal, theta within 1e-5."""
+    data = _plane_data()
+    arrivals = {0: [0, 1, 2], 2: [3], 3: [4], 5: [5]}
+    traces, services = {}, {}
+    for control in ("host", "device"):
+        svc = _plane_service(dev, control)
+        cursors, trace = dict.fromkeys(range(6), 32), []
+        svc.fill_slots()
+        t = 0
+        while (not svc.done or t in arrivals) and t < 30:
+            for sid in arrivals.get(t, ()):
+                svc.submit(sid, data[sid, :32])
+                svc.fill_slots()
+            chunk = np.zeros((2, 8, 3), np.float32)
+            for s, sid in enumerate(svc.slot_streams()):
+                if sid >= 0:
+                    chunk[s] = data[sid, cursors[sid] : cursors[sid] + 8]
+                    cursors[sid] += 8
+            info = svc.tick_once(chunk)
+            trace.append((tuple(svc.slot_streams()), [(r.stream_id, r.steps) for r in info["evicted"]]))
+            t += 1
+        traces[control], services[control] = trace, svc
+    assert traces["device"] == traces["host"]
+    for sid in range(6):
+        np.testing.assert_allclose(services["device"].results[sid].theta,
+                                   services["host"].results[sid].theta, atol=1e-5, rtol=0)  # fmt: skip
+
+
+def test_service_snapshot_restores_bit_for_bit_on_the_card(dev, tmp_path):
+    data = _plane_data()
+    kw = dict(snapshot_period=1, checkpoint_period=2, checkpoint_dir=str(tmp_path))
+    svc = _plane_service(dev, "device", **kw)
+    for sid in range(4):
+        svc.submit(sid, data[sid, :32])
+    svc.fill_slots()
+    chunks = [np.stack([data[s, 32 + 8 * t : 40 + 8 * t] for s in (0, 1)]) for t in range(4)]
+    for t in range(2):
+        svc.tick_once(chunks[t])
+    svc.checkpointer.wait()
+    svc.checkpointer.period = 0
+    fresh = _plane_service(dev, "device", **kw)
+    info = fresh.checkpointer.restore_into(fresh)
+    assert info["step"] == 2 and fresh.state.buf_y.is_cuda and fresh.control.q_ids.is_cuda
+    for t in range(2, 4):
+        for a, b in zip(tree_leaves((svc.state, svc.control)), tree_leaves((fresh.state, fresh.control))):
+            assert torch.equal(a, b)
+        svc.tick_once(chunks[t])
+        fresh.tick_once(chunks[t])
+
+
+def test_sr_baselines_on_the_card_match_the_cpu(dev):
+    """SINDy on Lorenz and (in float64, as ``recover_aid`` fits it) on AID:
+    the same active set, coefficients within 1e-4 of the fit's scale; 50
+    PINN-SR steps from one initial parameter set: Xi within 1e-4."""
+    from repro_torch.core import pinn_sr, sindy
+    from repro_torch.data.dynamics import generate_trajectory
+    from repro_torch.launch import recover_aid
+    from repro_torch.tree import tree_map
+
+    (card, _, _), (host, _, _) = (recover_aid.fit_aid_sindy(d) for d in (dev, "cpu"))
+    assert torch.equal(card.mask.cpu(), host.mask)
+    assert (card.coef.cpu() - host.coef).abs().max() <= 1e-4 * max(1.0, host.coef.abs().max().item())
+
+    ts, ys, _ = generate_trajectory("lorenz")
+    fits = {d: sindy.fit_sindy(torch.as_tensor(ys).to(d), dt=0.01, order=2, threshold=0.1)
+            for d in (dev, "cpu")}  # fmt: skip
+    assert torch.equal(fits[dev].mask.cpu(), fits["cpu"].mask)
+    coef = fits["cpu"].coef
+    assert (fits[dev].coef.cpu() - coef).abs().max() <= 1e-4 * max(1.0, coef.abs().max().item())
+    cfg = pinn_sr.PinnSRConfig(state_dim=3, width=32, fourier_k=8)
+    start = pinn_sr.init_pinn_sr(torch.Generator().manual_seed(0), cfg, "cpu")
+    z = ((ys - ys.mean(0)) / ys.std(0)).astype(np.float32)
+    xi = {}
+    for d in (dev, "cpu"):
+        p, _ = pinn_sr.train_pinn_sr(cfg, torch.as_tensor(ts).to(d), torch.as_tensor(z).to(d),
+                                     steps=50, lr=1e-3, params=tree_map(lambda t: t.to(d), start))  # fmt: skip
+        xi[str(d)] = pinn_sr.recovered_xi(p).cpu()
+    assert (xi[str(dev)] - xi["cpu"]).abs().max() <= 1e-4

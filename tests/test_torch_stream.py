@@ -345,10 +345,10 @@ def test_stream_plans_resolve_the_tick_kernel():
         api.compile_plan(_spec(mode="offline", tick=None), device="cpu").tick
 
 
-def test_stream_mode_refuses_what_is_not_ported():
+def test_stream_mode_refuses_what_is_not_ported(tmp_path):
     """The fused and ``*_kernel`` rows build (their slot-axis kernels are
-    ported); the mesh, the device control plane, checkpoints and int8 on a
-    flow row still raise."""
+    ported), and so do the device control plane and service checkpoints; the
+    mesh and int8 on a flow row still raise."""
     for kw in (dict(fused=True), dict(fused=True, encoder="gru_flow"),
                dict(fused=True, encoder="ltc"), dict(fused=True, encoder="node"),
                dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):  # fmt: skip
@@ -359,10 +359,11 @@ def test_stream_mode_refuses_what_is_not_ported():
         api.compile_plan(_spec(precision="int8_pwl", encoder="gru_flow"), device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         _spec(mesh_slots=2)
-    with pytest.raises(ValueError, match="not yet ported"):
-        api.TickSpec(control="device")
-    with pytest.raises(ValueError, match="not yet ported"):
-        api.TickSpec(checkpoint_period=2)
+    tick = dict(control="device", checkpoint_period=2, checkpoint_dir=str(tmp_path))
+    plan = api.compile_plan(_spec(tick), device="cpu")
+    assert (plan.lowering.control_plane, plan.lowering.checkpoint_period) == ("device", 2)
+    svc = plan.make_service()
+    assert svc.control is not None and svc.checkpointer.period == 2
     with pytest.raises(ValueError, match="conflict"):
         _spec(tick=api.TickSpec(steps_per_tick=3))
     with pytest.raises(ValueError, match="chunk"):
