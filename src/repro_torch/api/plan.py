@@ -2,10 +2,15 @@
 
 Every execution decision (encoder backend, fusion, QAT, int8/PWL serving,
 the ``block_b`` tile, the service tick's kernel and bank size, where the
-kernels run) is resolved once, into one :class:`Lowering` record. Plans run
-on the card: ``compile_plan(spec)`` resolves the device to ``"cuda"`` and raises when no
-card is visible. ``device="cpu"`` runs every kernel's plain version on the
-CPU, as the tests do.
+kernels run, the slot mesh) is resolved once, into one :class:`Lowering`
+record. Plans run on the card: ``compile_plan(spec)`` resolves the device to
+``"cuda"`` and raises when no card is visible. ``device="cpu"`` runs every
+kernel's plain version on the CPU, as the tests do.
+
+A stream spec with ``mesh_slots > 1`` shards its service's slots over the
+first ``mesh_slots`` of ``devices`` (default: every visible card, or the CPU
+under ``device="cpu"``); a device may repeat, so ``devices=["cpu", "cpu"]``
+(or one card listed twice) holds a mesh of 2 (``runtime/elastic.py``).
 
 Modes: ``offline`` trains one system (``run_offline``, ``readout``);
 ``batch`` recovers a fleet of systems as one stacked program (``run_batch``);
@@ -69,6 +74,7 @@ class Lowering:
     smem_bytes: int | None  # the row family's fused kernel's shared memory per block
     smem_budget_bytes: int | None  # the budget the "auto" tile fit into
     device: str
+    mesh_shape: tuple[int, ...] = ()  # device mesh over the slot axis (stream mode)
     # -- stream mode (None elsewhere) ------------------------------------------
     tick_kernel: str | None = None  # "banked" | "composite"
     tick_slots_per_bank: int | None = None  # mr_tick's slots per block (banked)
@@ -87,12 +93,13 @@ class Lowering:
 class RecoveryPlan:
     """A compiled recovery: spec + lowering, and the entry points of its mode."""
 
-    def __init__(self, spec: RecoverySpec, cfg: MRConfig, lowering: Lowering):
+    def __init__(self, spec: RecoverySpec, cfg: MRConfig, lowering: Lowering, mesh=None):
         self.spec = spec
         self.cfg = cfg
         self.scfg = spec.stream_config() if spec.mode == "stream" else None
         self.lowering = lowering
         self.device = torch.device(lowering.device)
+        self.mesh = mesh  # runtime/elastic.SlotMesh over ("slots",), or None (one device)
 
     def _require_mode(self, mode: str) -> None:
         if self.spec.mode != mode:
@@ -150,7 +157,7 @@ class RecoveryPlan:
     @property
     def tick(self):
         """The tick program (stream mode), cfg/scfg/kernel bound:
-        ``(state, new_y, new_u, generator)``. Composite returns the next
+        ``(state, new_y, new_u, batch_idx)``. Composite returns the next
         SlotState; banked returns ``(state, status [S, 4])``."""
         self._require_mode("stream")
         if self.lowering.tick_kernel == "banked":
@@ -173,12 +180,13 @@ class RecoveryPlan:
             return None
         from repro_torch.core import control as control_mod
 
-        shards = self.spec.mesh_slots
+        # one ControlState row a shard of the mesh; the service runs tick and
+        # pump once a shard, on that shard's rows
         return control_mod.ControlPlane(
             queue_capacity=low.tick_queue_capacity,
             snapshot_period=low.tick_snapshot_period,
             warm_capacity=low.warm_capacity,
-            shards=shards,
+            shards=self.spec.mesh_slots,
             tick=functools.partial(
                 control_mod.tick_device,
                 cfg=self.cfg,
@@ -186,10 +194,9 @@ class RecoveryPlan:
                 kernel=low.tick_kernel,
                 quant=_quant_tick(low.quant_serving, self.scfg),
                 slots_per_bank=low.tick_slots_per_bank or 1,
-                shards=shards,
             ),
             enqueue=control_mod.enqueue,
-            pump=functools.partial(control_mod.pump, shards=shards),
+            pump=control_mod.pump,
             drain=control_mod.drain_events,
         )
 
@@ -210,6 +217,7 @@ class RecoveryPlan:
             quant=low.quant_serving,
             control=self.control_plane,
             overflow_capacity=low.overflow_capacity,
+            mesh=self.mesh,
         )
         if low.checkpoint_period and low.checkpoint_dir:
             from repro_torch.runtime.resilience import ServiceCheckpointer
@@ -286,15 +294,44 @@ def _resolve_tick_kernel(
                 f"encoder={spec.encoder!r} int8={quant_tick} — use 'composite' or 'auto'"
             )
         return "composite", None
-    spb = tiling.auto_slots_per_bank(cfg, spec.stream_config(), spec.n_slots, int8=quant_tick)
+    # a divisor of a shard's slots: each tick launch banks one shard's S/M slots
+    local_slots = spec.n_slots // spec.mesh_slots
+    spb = tiling.auto_slots_per_bank(cfg, spec.stream_config(), local_slots, int8=quant_tick)
     if spb < 1:
         return ("banked", 1) if requested == "banked" else ("composite", None)
     return "banked", spb
 
 
-def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -> RecoveryPlan:
-    """Validate and lower a RecoverySpec; see the module docstring."""
+def _slot_mesh(spec: RecoverySpec, device: torch.device, devices):
+    """The stream plan's slot mesh over ``devices`` (None at ``mesh_slots=1``);
+    more shards than devices raises, as ``repro/api/plan.py:457-466``."""
+    from repro_torch.runtime.elastic import MeshPlan, build_mesh, visible_devices
+
+    if spec.mode != "stream" or spec.mesh_slots == 1:
+        return None
+    if devices is None:
+        devices = visible_devices() if device.type == "cuda" else [device]
+    if spec.mesh_slots > len(devices):
+        raise ValueError(
+            f"mesh_slots={spec.mesh_slots} exceeds the {len(devices)} given device(s); pass "
+            f"devices= with one entry a shard (a device may repeat: serve_mr --virtual-devices)"
+        )
+    return build_mesh(MeshPlan((spec.mesh_slots,), ("slots",)), devices)
+
+
+def compile_plan(
+    spec: RecoverySpec, device: str | torch.device | None = None, devices=None
+) -> RecoveryPlan:
+    """Validate and lower a RecoverySpec; see the module docstring. ``devices``
+    lists the devices a slot mesh may take (its first one is the plan's
+    device when ``device`` is not given)."""
+    if devices is not None:
+        devices = [rt.resolve_device(d, "compile_plan") for d in devices]
+        device = devices[0] if device is None else device
     device = rt.resolve_device(device, "compile_plan")
+    mesh = _slot_mesh(spec, device, devices)
+    if mesh is not None:
+        device = mesh.devices[0]
     row = encoders.validate_config(spec.to_mr_config())  # unknown name, unfusable row
     quant_serving = spec.precision == "int8_pwl"
     if quant_serving and not row.int8:
@@ -314,7 +351,7 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
         batch = _compile_time_batch(spec)
         if spec.block_b == "auto":
             budget = spec.smem_budget_bytes or tiling.SMEM_BUDGET_BYTES
-            slots = spec.n_slots if spec.mode == "stream" else 1
+            slots = spec.n_slots // spec.mesh_slots if spec.mode == "stream" else 1
             block_b = tiling.auto_block_b(spec.to_mr_config(), row.family, batch, budget,
                                           slots=slots)  # fmt: skip
         elif isinstance(spec.block_b, int):
@@ -354,6 +391,7 @@ def compile_plan(spec: RecoverySpec, device: str | torch.device | None = None) -
         smem_bytes=smem,
         smem_budget_bytes=budget,
         device=str(device),
+        mesh_shape=(spec.mesh_slots,) if spec.mode == "stream" else (),
         **stream_fields,
     )
-    return RecoveryPlan(spec, spec.to_mr_config(block_b), lowering)
+    return RecoveryPlan(spec, spec.to_mr_config(block_b), lowering, mesh)

@@ -4,8 +4,9 @@ Counterpart of ``repro/api/spec.py``: the offline, batch and stream modes, QAT
 and int8/PWL serving (``precision="int8_pwl"``) included, and the service
 tick's ``TickSpec`` with both control planes (``control="device"``: the
 device-resident one, ``core/control.py``) and periodic service checkpoints
-(``checkpoint_period > 0``, ``runtime/resilience.py``). Not yet ported, and
-refused when the spec is built: a slot mesh (``mesh_slots > 1``).
+(``checkpoint_period > 0``, ``runtime/resilience.py``), and the slot mesh
+(``mesh_slots > 1``: the stream service's slots sharded over that many
+devices, ``compile_plan(spec, devices=...)``).
 """
 
 from __future__ import annotations
@@ -119,7 +120,7 @@ class RecoverySpec:
     tick: TickSpec | None = None  # None = TickSpec() defaults (composite)
 
     # -- placement -----------------------------------------------------------
-    mesh_slots: int = 1  # devices sharding the slot axis (only 1 is ported)
+    mesh_slots: int = 1  # devices sharding the slot axis (stream mode; 1 = one device)
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -142,11 +143,14 @@ class RecoverySpec:
             )
         if self.mesh_slots < 1:
             raise ValueError(f"mesh_slots must be >= 1, got {self.mesh_slots}")
-        if self.mesh_slots > 1:
-            raise ValueError("mesh_slots > 1 (a sharded slot axis) is not yet ported to repro_torch")
         if self.mode == "stream":
             if self.n_slots < 1:
                 raise ValueError(f"n_slots must be >= 1, got {self.n_slots}")
+            if self.n_slots % self.mesh_slots != 0:
+                raise ValueError(
+                    f"n_slots ({self.n_slots}) must divide evenly over the mesh "
+                    f"({self.mesh_slots} devices) for a balanced slot shard"
+                )
             if self.stream is not None and (
                 self.stream.lr != self.lr or self.stream.batch_size != self.batch_size
             ):
@@ -171,8 +175,11 @@ class RecoverySpec:
                     f"stream= has (steps_per_tick={self.stream.steps_per_tick}, "
                     f"ema={self.stream.ema}); set them equal"
                 )
-        elif self.tick is not None:
-            raise ValueError(f"tick= requires mode='stream', got mode={self.mode!r}")
+        else:
+            if self.mesh_slots != 1:
+                raise ValueError(f"mesh_slots > 1 requires mode='stream', got mode={self.mode!r}")
+            if self.tick is not None:
+                raise ValueError(f"tick= requires mode='stream', got mode={self.mode!r}")
 
     def to_mr_config(self, block_b: int | None = None) -> MRConfig:
         """The MRConfig this spec lowers to; ``block_b`` is the resolved tile."""

@@ -24,8 +24,11 @@ the other restores:
 - a bfloat16 (or float8) leaf is stored as its same-width unsigned bits, with
   its logical dtype in the manifest.
 
-One device only: a ``mesh`` of more than one device, or a restore sharding
-that names more than one, raises.
+- meshes: the manifest records the mesh's shape and axis names (the slot
+  mesh's ``("slots",)``, ``runtime/elastic.SlotMesh``); a restore given one
+  device per shard splits every leaf's leading axis over them, so a snapshot
+  written on a mesh of any size restores onto a mesh of another
+  (reshard-on-restore).
 """
 
 from __future__ import annotations
@@ -144,12 +147,11 @@ def _stage(leaves: list[tuple[str, Any]]) -> list[tuple[str, np.ndarray, str]]:
 
 
 def _mesh_record(mesh) -> dict:
+    """The manifest's mesh entry: its shape and axis names (None without one)."""
     if mesh is None:
         return {"shape": None, "axes": None}
-    shape = list(np.shape(mesh.devices))
-    if int(np.prod(shape)) > 1:
-        raise ValueError(f"checkpoints of the port hold one device; got a mesh of shape {shape}")
-    return {"shape": shape, "axes": list(mesh.axis_names)}
+    shape = getattr(mesh, "shape", None) or np.shape(mesh.devices)
+    return {"shape": [int(s) for s in shape], "axes": list(mesh.axis_names)}
 
 
 def save_checkpoint(
@@ -243,8 +245,13 @@ def restore_checkpoint(
 ):
     """Restore into the structure of ``like`` (a tree of tensors, arrays, or
     anything with a ``shape``). Each leaf goes to ``shardings`` (one device,
-    or a list of one: more than one raises), else to its ``like`` tensor's
-    device, else to ``device``.
+    or a list of one), else to its ``like`` tensor's device, else to
+    ``device``.
+
+    ``shardings`` a list of M > 1 devices, one a shard, splits every leaf's
+    leading axis into M equal parts and returns M trees, part ``i`` on
+    ``shardings[i]`` (reshard-on-restore); a leading axis that M does not
+    divide raises.
 
     ``expect_axes`` names the mesh axes the restoring caller shards over;
     when both it and the manifest's recorded axes are present and disagree,
@@ -265,9 +272,10 @@ def restore_checkpoint(
                 "(size may change, names may not)"
             )
 
+    shard_devices = None
     if isinstance(shardings, (list, tuple)):
         if len(shardings) > 1:
-            raise ValueError(f"a restore sharding names {len(shardings)} devices; the port holds one")
+            shard_devices = [torch.device(d) for d in shardings]
         shardings = shardings[0] if shardings else None
     out_leaves = []
     for key, ref in _flatten(like):
@@ -280,8 +288,21 @@ def restore_checkpoint(
         expect = tuple(getattr(ref, "shape", arr.shape))
         if tuple(arr.shape) != expect:
             raise ValueError(f"{key!r}: checkpoint shape {arr.shape} != expected {expect}")
+        leaf = _logical_view(arr, meta["dtype"])
+        if shard_devices is not None:
+            M = len(shard_devices)
+            if leaf.ndim == 0 or leaf.shape[0] % M:
+                raise ValueError(
+                    f"{key!r}: leading axis of {tuple(leaf.shape)} does not split over {M} shards"
+                )
+            parts = leaf.chunk(M)
+            out_leaves.append([part.to(d, copy=True) for part, d in zip(parts, shard_devices)])
+            continue
         where = torch.device(shardings) if shardings is not None else _placement(ref, device)
-        out_leaves.append(_logical_view(arr, meta["dtype"]).to(where))
+        out_leaves.append(leaf.to(where))
+    if shard_devices is not None:
+        return [_unflatten(like, iter([parts[i] for parts in out_leaves]))
+                for i in range(len(shard_devices))], manifest  # fmt: skip
     return _unflatten(like, iter(out_leaves)), manifest
 
 

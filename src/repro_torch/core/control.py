@@ -7,8 +7,9 @@ service tick reads nothing back:
 
 - **admission queues**: a fixed-capacity compact queue of pending stream
   histories and cold-start parameters a shard, held in the
-  :class:`ControlState` (every leaf leads with the shard axis M; M = 1 on
-  one card). ``enqueue`` writes one arrival at the queue's device-side
+  :class:`ControlState` (every leaf leads with the shard axis M, one row a
+  shard of the slot mesh; ``shard_control`` gives each shard its row on its
+  device). ``enqueue`` writes one arrival at the queue's device-side
   length. Each entry carries a PRIORITY TIER: admission pops the highest
   tier first (FIFO within a tier), and an arrival still waiting after every
   idle slot fills may preempt a cold (``steps < min_steps``) strictly
@@ -28,6 +29,10 @@ service tick reads nothing back:
 - **periodic snapshot**: the host drains the packed status and the event log
   every ``snapshot_period`` ticks (``drain_events``); between arrivals and
   snapshots ``RecoveryService.sync_log`` records 0.
+
+Everything a shard does is shard-local: the service runs ``tick_device``,
+``pump`` and ``drain_events`` once a shard, on the shard's slot rows and its
+control row, and no operation reads across shards.
 
 Every step is fixed-shape: no boolean-mask indexing, ``nonzero``, ``.item()``,
 slicing by a device length or data-dependent Python branch, each of which
@@ -142,6 +147,19 @@ def init_control(
     )
 
 
+def shard_control(control: ControlState, mesh) -> list[ControlState]:
+    """Split every ControlState leaf's shard axis over the ``("slots",)``
+    mesh: shard ``i``'s row ([1, ...], its own copy) on ``mesh.devices[i]``,
+    beside that shard's slots, so enqueue, refill and the warm lookup stay on
+    the shard's device. Without a mesh the one row is ``control`` itself.
+
+    The JAX package also re-asserts this placement on every program's output
+    (``_pin``): XLA might otherwise drift a leaf toward replication. Eager
+    PyTorch places every tensor explicitly, so nothing here needs it.
+    """
+    return stream_mod.shard_slots(control, mesh)
+
+
 @torch.no_grad()
 def enqueue(
     control: ControlState,
@@ -153,7 +171,8 @@ def enqueue(
     priority: int,
 ) -> ControlState:
     """Append one arrival to ``shard``'s queue, in place, at the queue's
-    length as the card holds it (nothing is read back).
+    length as the card holds it (nothing is read back). The service passes a
+    shard's own row (``control`` [1, ...], ``shard`` 0).
 
     The host guards the capacity (``RecoveryService`` counts each shard's
     in-flight arrivals and spills to its bounded overflow queue), so the
@@ -375,28 +394,15 @@ def _control_apply(
     evict: torch.Tensor,
     reason: torch.Tensor,
     *,
-    shards: int,
     min_steps: int = 0,
 ) -> tuple[SlotState, ControlState]:
-    """Split the [S] slot axis into [shards, P], run each shard's control
-    step and fold back. The control buffers take the result in place."""
-    S = state.active.shape[0]
-    P = S // shards
-    parts = []
-    for i in range(shards):
-        rows = slice(i * P, (i + 1) * P)
-        ctl_i = tree_map(lambda leaf: leaf[i], control)
-        st_new, ctl_new = _shard_control_step(
-            tree_map(lambda leaf: leaf[rows], state), ctl_i, evict[rows], reason[rows],
-            min_steps=min_steps,
-        )  # fmt: skip
-        for dst, src in zip(tree_leaves(ctl_i), tree_leaves(ctl_new)):
-            dst.copy_(src)
-        parts.append(st_new)
-    if shards == 1:
-        return parts[0], control
-    columns = zip(*(tree_leaves(p) for p in parts))
-    return tree_unflatten(parts[0], [torch.cat(col) for col in columns]), control
+    """Run one shard's control step on its [P] slots and its [1, ...]
+    control row. The control buffers take the result in place."""
+    ctl = tree_map(lambda leaf: leaf[0], control)
+    state, ctl_new = _shard_control_step(state, ctl, evict, reason, min_steps=min_steps)
+    for dst, src in zip(tree_leaves(ctl), tree_leaves(ctl_new)):
+        dst.copy_(src)
+    return state, control
 
 
 def _status5(state: SlotState) -> torch.Tensor:
@@ -409,14 +415,13 @@ def tick_device(
     control: ControlState,
     new_y: torch.Tensor,  # [S, C, n]
     new_u: torch.Tensor,  # [S, C, m]
-    generator: torch.Generator,
+    batch_idx: torch.Tensor | None,  # [K, S, bs] minibatch windows, or None: all
     *,
     cfg: MRConfig,
     scfg: StreamConfig,
     kernel: str = "composite",
     quant: bool = False,
     slots_per_bank: int = 1,
-    shards: int = 1,
 ) -> tuple[SlotState, ControlState, torch.Tensor]:
     """One zero-readback service tick: the tick body, eviction and refill.
 
@@ -428,23 +433,19 @@ def tick_device(
     [S, 5] status. Nothing is read back.
     """
     if kernel == "banked":
-        state, _ = stream_mod.tick_banked(state, new_y, new_u, generator, cfg=cfg, scfg=scfg,
+        state, _ = stream_mod.tick_banked(state, new_y, new_u, batch_idx, cfg=cfg, scfg=scfg,
                                           quant=quant, slots_per_bank=slots_per_bank)  # fmt: skip
     else:
-        state = stream_mod.tick(state, new_y, new_u, generator, cfg=cfg, scfg=scfg)
+        state = stream_mod.tick(state, new_y, new_u, batch_idx, cfg=cfg, scfg=scfg)
     converged = (state.steps >= scfg.min_steps) & (state.delta <= scfg.delta_tol)
     budget = state.steps >= scfg.max_steps
     evict = state.active & (converged | budget)
     reason = torch.where(converged, 1.0, torch.where(budget, 2.0, 0.0))
-    state, control = _control_apply(
-        state, control, evict, reason, shards=shards, min_steps=scfg.min_steps
-    )
+    state, control = _control_apply(state, control, evict, reason, min_steps=scfg.min_steps)
     return state, control, _status5(state)
 
 
-def pump(
-    state: SlotState, control: ControlState, *, shards: int = 1
-) -> tuple[SlotState, ControlState, torch.Tensor]:
+def pump(state: SlotState, control: ControlState) -> tuple[SlotState, ControlState, torch.Tensor]:
     """Admission-only control step (bootstrap, or a refill between ticks):
     pop the queues into every idle slot without a tick. A fresh slot never
     meets the eviction predicate (delta = inf, steps = 0), so the all-False
@@ -452,7 +453,7 @@ def pump(
     S = state.active.shape[0]
     evict = torch.zeros((S,), dtype=torch.bool, device=state.active.device)
     reason = torch.zeros((S,), dtype=_F32, device=state.active.device)
-    state, control = _control_apply(state, control, evict, reason, shards=shards)
+    state, control = _control_apply(state, control, evict, reason)
     return state, control, _status5(state)
 
 
@@ -466,7 +467,8 @@ def drain_events(control: ControlState) -> tuple[ControlState, torch.Tensor]:
 
 
 def decode_events(events: np.ndarray, cfg: MRConfig) -> list[tuple]:
-    """Host-side parse of one drained [M, E, R] event log.
+    """Host-side parse of one drained [M, E, R] event log (every shard's row,
+    in shard order).
 
     Yields ``(stream_id, steps, reason_code, theta, mean, scale)`` per
     eviction, shard-major; empty rows (id < 0) are skipped.
@@ -496,13 +498,14 @@ def decode_events(events: np.ndarray, cfg: MRConfig) -> list[tuple]:
 class ControlPlane:
     """The device control plane a RecoveryPlan hands the service: the four
     programs and the capacities baked into the ControlState's shapes (all
-    recorded in ``plan.lowering``)."""
+    recorded in ``plan.lowering``). The service calls each program once a
+    shard, on that shard's rows."""
 
     queue_capacity: int  # Q: pending admissions a shard
     snapshot_period: int  # the host drains status and events every N ticks
     warm_capacity: int  # W: warm-ring entries a shard
-    shards: int  # M (1 on one card)
-    tick: Callable  # tick_device with its statics bound
+    shards: int  # M: the slot mesh's size
+    tick: Callable  # tick_device with its statics bound (one shard a call)
     enqueue: Callable  # enqueue
-    pump: Callable  # pump with shards bound
+    pump: Callable  # pump (one shard a call)
     drain: Callable  # drain_events

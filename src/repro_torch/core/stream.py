@@ -33,9 +33,18 @@ device-to-host readback (``counters``, ``sync_log``):
   card inside ``control.tick_device``, and the host reads the packed status
   and the event log back only every ``snapshot_period`` ticks.
 
+With a slot mesh (``mesh=``, a ``runtime/elastic.SlotMesh`` of M devices
+built by ``compile_plan`` from ``RecoverySpec.mesh_slots``), the service holds
+one ``SlotState`` a shard (leaves [S/M, ...]) on that shard's device, and on
+the device plane the shard's ``ControlState`` row ([1, ...]); slot ``s``
+belongs to shard ``s // (S/M)``. Every tick runs the tick program once a
+shard on that shard's rows, and no operation reads across shards (the JAX
+package's rule R5, which XLA keeps there by sharding; here the placement is
+explicit). ``state`` and ``control`` show the JAX package's [S, ...] and
+[M, ...] layouts. At M = 1 the service is the one-device path, bit for bit.
+
 A ``ServiceCheckpointer`` (``runtime/resilience.py``), when attached,
-snapshots the service every ``checkpoint_period`` ticks. The slot mesh is
-not ported.
+snapshots the service every ``checkpoint_period`` ticks.
 
 Under ``precision="int8_pwl"`` (``quant=True``) every eviction reads the
 stream's coefficients out through the fixed-point fused stage
@@ -70,7 +79,14 @@ from repro_torch.kernels.mr_step.tick import mr_tick
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.optim import adamw_init
 from repro_torch.runtime.heartbeat import HeartbeatRegistry, StragglerDetector
-from repro_torch.tree import tree_index, tree_map, tree_stack, tree_write_slot
+from repro_torch.tree import (
+    tree_index,
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_unflatten,
+    tree_write_slot,
+)
 
 PRIORITY_LIMIT = 1 << 16  # admission tiers are [0, PRIORITY_LIMIT), as in core/control.py
 
@@ -122,6 +138,28 @@ class SlotState(NamedTuple):
     steps: torch.Tensor  # [S] int32 optimizer steps since admission
     active: torch.Tensor  # [S] bool
     stream_id: torch.Tensor  # [S] int32 (-1 = empty slot)
+
+
+def shard_slots(state: Any, mesh) -> list:
+    """Split every leaf's leading axis (a SlotState's slot axis, a
+    ControlState's shard axis) over ``mesh`` (``("slots",)``, M devices): part
+    ``i`` (rows [i * S/M, (i + 1) * S/M)) on ``mesh.devices[i]``, each its own
+    copy, so a dropped shard frees its memory. Without a mesh the one part
+    is ``state`` itself."""
+    if mesh is None:
+        return [state]
+    P = tree_leaves(state)[0].shape[0] // mesh.size
+    return [tree_map(lambda leaf: leaf[i * P : (i + 1) * P].to(d, copy=True), state)
+            for i, d in enumerate(mesh.devices)]  # fmt: skip
+
+
+def gather_slots(shards: list, device) -> Any:
+    """The shards' trees concatenated along the slot axis on ``device`` (the
+    JAX package's [S, ...] layout); one shard is returned as it is."""
+    if len(shards) == 1:
+        return shards[0]
+    columns = zip(*(tree_leaves(t) for t in shards))
+    return tree_unflatten(shards[0], [torch.cat([x.to(device) for x in col]) for col in columns])
 
 
 def cold_start(seed: int, stream_id: int, cfg: MRConfig, device) -> tuple[MRParams, Any]:
@@ -195,23 +233,24 @@ def _slot_windows(buf_y, buf_u, mean, scale, scfg: StreamConfig):
     return yw, window_views(buf_u, scfg.window, scfg.stride)
 
 
-def _recover_steps(params, opt, yw, uw, generator, steps0, *, cfg: MRConfig, scfg: StreamConfig):
+def _recover_steps(params, opt, yw, uw, batch_idx, steps0, *, cfg: MRConfig, scfg: StreamConfig):
     """K optimizer steps of every slot on its windows yw [S, N, T, n].
 
     The learning rate warms up linearly, then decays as the inverse square
     root of each slot's own step count: the decay lets the readout settle so
     the delta can fall below ``delta_tol``. Returns (params, opt, recon [S])
     with recon the last step's reconstruction MSE.
+
+    ``batch_idx`` holds step j's minibatch window indices [S, bs] at
+    ``batch_idx[j]`` (``scfg.batch_size``; ``RecoveryService._tick_batch_idx``
+    draws them), or is None: every step trains on all windows.
     """
-    S, n_win = yw.shape[:2]
-    bs = scfg.batch_size or n_win
     uw = uw if cfg.input_dim else None
     recon = None
     for j in range(scfg.steps_per_tick):
         yb, ub = yw, uw
-        if bs < n_win:
-            idx = torch.randint(0, n_win, (S, bs), generator=generator, device=yw.device)
-            yb, ub = gather_windows(yw, idx), gather_windows(uw, idx)
+        if batch_idx is not None:
+            yb, ub = gather_windows(yw, batch_idx[j]), gather_windows(uw, batch_idx[j])
         frac = ((steps0 + j).to(torch.float32) + 1.0) / WARMUP_STEPS
         lr_t = scfg.lr * torch.minimum(frac, torch.rsqrt(frac))
         params, opt, aux = stacked_train_step(params, opt, cfg, yb, ub, lr_t)
@@ -237,7 +276,7 @@ def tick(
     state: SlotState,
     new_y: torch.Tensor,  # [S, C, n] fresh observations (zeros for idle slots)
     new_u: torch.Tensor,  # [S, C, m]
-    generator: torch.Generator,  # minibatch indices, when scfg.batch_size is set
+    batch_idx: torch.Tensor | None,  # [K, S, bs] minibatch windows, or None: all
     *,
     cfg: MRConfig,
     scfg: StreamConfig,
@@ -249,7 +288,7 @@ def tick(
     uw_in = uw if cfg.input_dim else None
     if scfg.steps_per_tick:
         params, opt, recon = _recover_steps(
-            state.params, state.opt, yw, uw, generator, state.steps, cfg=cfg, scfg=scfg
+            state.params, state.opt, yw, uw, batch_idx, state.steps, cfg=cfg, scfg=scfg
         )
         loss = _masked_loss(state, recon)
     else:
@@ -281,7 +320,7 @@ def tick_banked(
     state: SlotState,
     new_y: torch.Tensor,  # [S, C, n]
     new_u: torch.Tensor,  # [S, C, m]
-    generator: torch.Generator,
+    batch_idx: torch.Tensor | None,  # [K, S, bs] minibatch windows, or None: all
     *,
     cfg: MRConfig,
     scfg: StreamConfig,
@@ -300,7 +339,7 @@ def tick_banked(
         buf_u = roll_buffer(state.buf_u, new_u)
         yw, uw = _slot_windows(buf_y, buf_u, state.mean, state.scale, scfg)
         params, opt, recon = _recover_steps(
-            state.params, state.opt, yw, uw, generator, state.steps, cfg=cfg, scfg=scfg
+            state.params, state.opt, yw, uw, batch_idx, state.steps, cfg=cfg, scfg=scfg
         )
         loss = _masked_loss(state, recon)
     else:
@@ -391,7 +430,9 @@ class RecoveryService:
 
     All numerics run in the tick program (``tick`` or ``tick_banked``, bound
     by the plan). ``counters["host_syncs"]`` counts every device-to-host
-    readback and ``sync_log`` holds each tick's count.
+    readback and ``sync_log`` holds each tick's count;
+    ``counters["reshards"]`` counts the restores that placed a snapshot onto
+    the service's shards (``ServiceCheckpointer.restore_into``).
 
     Two control planes (``control=``, a ``core/control.ControlPlane`` built by
     the plan, selects the device one):
@@ -407,9 +448,17 @@ class RecoveryService:
       snapshots reads nothing back: host-to-device copies are made from
       pinned memory without waiting, so no tick waits for the card.
 
+    ``mesh`` (a ``runtime/elastic.SlotMesh``) shards the slots over its
+    devices: the tick program runs once a shard, and a readback of a leaf of
+    every shard copies each into one pinned host buffer without waiting,
+    then waits once (one sync, as the JAX package counts a sharded
+    readback). The device plane's ``control.shards`` must equal the mesh's
+    size.
+
     ``device=None`` is the card (raising when none is visible); the CPU runs
-    only when the caller passes ``device="cpu"``. ``quant`` reads every
-    evicted stream out through ``mr_step_int8`` (``precision="int8_pwl"``).
+    only when the caller passes ``device="cpu"`` (or a mesh of CPU devices).
+    ``quant`` reads every evicted stream out through ``mr_step_int8``
+    (``precision="int8_pwl"``).
     """
 
     def __init__(
@@ -424,19 +473,27 @@ class RecoveryService:
         quant: bool = False,
         control=None,
         overflow_capacity: int = 16,
+        mesh=None,
     ):
         encoders.validate_config(cfg)
         self.cfg, self.scfg, self.n_slots = cfg, scfg, n_slots
         self.seed = seed
         self.quant = quant
-        self.device = resolve_device(device, "RecoveryService")
-        self.counters = {"host_syncs": 0}
+        self.mesh = mesh
+        where = mesh.devices if mesh is not None else (device,)
+        self.devices = [resolve_device(d, "RecoveryService") for d in where]
+        self.device = self.devices[0]
+        self.n_shards = len(self.devices)
+        if n_slots % self.n_shards:
+            raise ValueError(f"n_slots ({n_slots}) must divide over {self.n_shards} shard(s)")
+        self.slots_per_shard = n_slots // self.n_shards
+        self.counters = {"host_syncs": 0, "reshards": 0}
         self.sync_log: list[int] = []
         self._tick = tick_program or functools.partial(tick, cfg=cfg, scfg=scfg)
         # minibatch indices of every tick (scfg.batch_size); a spawn path of
         # its own, apart from the slots' (i,) and the cold starts' (1000 + id,)
         self.generator = seeded_generator(seed, 0, 0, device=self.device)
-        self.state = init_slots(seed, cfg, scfg, n_slots, self.device)
+        self.shards = shard_slots(init_slots(seed, cfg, scfg, n_slots, self.device), mesh)
         # host admission queue: (stream_id, buf_y, buf_u, priority) entries;
         # pops take the highest tier first, FIFO within a tier (_queue_pop)
         self.queue: collections.deque = collections.deque()
@@ -455,8 +512,8 @@ class RecoveryService:
         self._prio_view = np.zeros((n_slots,), np.int64)  # tier per slot
         self._prio_of: dict[int, int] = {}  # stream_id -> submitted tier
         self._undrained: list[StreamResult] = []
-        # per-tick wall latency (ms) and one heartbeat a tick for the
-        # straggler detector; serve_mr reports p50/p99
+        # per-tick wall latency (ms) and one heartbeat a shard and tick for
+        # the straggler detector; serve_mr reports p50/p99
         self.tick_ms: list[float] = []
         self.registry = HeartbeatRegistry()
         self.stragglers = StragglerDetector(self.registry)
@@ -471,7 +528,7 @@ class RecoveryService:
         self.overflow_capacity = int(overflow_capacity)
         # -- device-resident control plane (core/control.py) ---------------
         self.control_plane = control
-        self.control = None
+        self.controls: list = []  # one [1, ...] ControlState row a shard
         self._pending: set[int] = set()  # submitted, no result yet
         self._seen_done: set[int] = set()  # completed since the last resubmission
         self._inflight: list[set[int]] = []  # per shard: enqueued, not yet admitted
@@ -479,12 +536,37 @@ class RecoveryService:
         if control is not None:
             from repro_torch.core import control as control_mod
 
-            self.control = control_mod.init_control(
+            if control.shards != self.n_shards:
+                raise ValueError(f"the control plane has {control.shards} shard(s), the service "
+                                 f"{self.n_shards}")  # fmt: skip
+            control0 = control_mod.init_control(
                 cfg, scfg, n_slots, shards=control.shards, queue_capacity=control.queue_capacity,
                 warm_capacity=control.warm_capacity, snapshot_period=control.snapshot_period,
                 device=self.device,
             )  # fmt: skip
+            self.controls = control_mod.shard_control(control0, mesh)
             self._inflight = [set() for _ in range(control.shards)]
+
+    # -- the JAX package's layouts over the shards ---------------------------
+    @property
+    def state(self) -> SlotState:
+        """The SlotState in the [S, ...] layout: the one shard itself, or the
+        shards concatenated on the first device (a copy: write ``shards``)."""
+        return gather_slots(self.shards, self.device)
+
+    @property
+    def control(self):
+        """The ControlState in the [M, ...] layout (None on the host plane):
+        the one shard's row itself, or the rows concatenated (a copy: write
+        ``controls``)."""
+        return gather_slots(self.controls, self.device) if self.controls else None
+
+    def _locate(self, slot: int) -> tuple[SlotState, int]:
+        """The shard holding global ``slot``, and the slot's row in it."""
+        return self.shards[slot // self.slots_per_shard], slot % self.slots_per_shard
+
+    def _rows(self, shard: int) -> slice:
+        return slice(shard * self.slots_per_shard, (shard + 1) * self.slots_per_shard)
 
     def _host_read(self, leaf: torch.Tensor) -> np.ndarray:
         """Counted device-to-host readback (one host-sync point), as a copy: a
@@ -492,15 +574,51 @@ class RecoveryService:
         self.counters["host_syncs"] += 1
         return leaf.detach().cpu().numpy().copy()
 
-    def _to_device(self, x) -> torch.Tensor:
-        """Host data as float32 on the service's device. On the card the copy
-        goes through pinned memory without waiting (the caching host allocator
+    def _host_gather(self, leaves: list[torch.Tensor]) -> np.ndarray:
+        """Counted readback of one leaf of every shard, concatenated along the
+        leading axis: on the card each shard's leaf is copied into one pinned
+        host buffer without waiting, then one wait (one host-sync point)."""
+        if len(leaves) == 1:
+            return self._host_read(leaves[0])
+        self.counters["host_syncs"] += 1
+        if self.device.type != "cuda":
+            return torch.cat([leaf.detach().cpu() for leaf in leaves]).numpy().copy()
+        host = torch.empty((sum(leaf.shape[0] for leaf in leaves), *leaves[0].shape[1:]),
+                           dtype=leaves[0].dtype, pin_memory=True)  # fmt: skip
+        at = 0
+        for leaf in leaves:
+            host[at : at + leaf.shape[0]].copy_(leaf.detach(), non_blocking=True)
+            at += leaf.shape[0]
+        for device in {leaf.device for leaf in leaves}:
+            torch.cuda.synchronize(device)
+        return host.numpy().copy()
+
+    def _to_device(self, x, shard: int = 0) -> torch.Tensor:
+        """Host data as float32 on a shard's device. On the card the copy goes
+        through pinned memory without waiting (the caching host allocator
         keeps the pinned block until the copy has run), so it never stalls a
         tick."""
+        device = self.devices[shard]
         t = torch.as_tensor(np.asarray(x), dtype=torch.float32)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    def _tick_batch_idx(self) -> list:
+        """Each shard's minibatch window indices for this tick: None when
+        every step trains on all windows, else the tick's K draws of [S, bs]
+        from the service's one generator, each shard handed its rows, so the
+        indices do not depend on the mesh."""
+        scfg, K = self.scfg, self.scfg.steps_per_tick
+        n_win = scfg.n_windows
+        if not K or (scfg.batch_size or n_win) >= n_win:
+            return [None] * self.n_shards
+        draws = torch.stack([
+            torch.randint(0, n_win, (self.n_slots, scfg.batch_size), generator=self.generator,
+                          device=self.device)
+            for _ in range(K)
+        ])  # fmt: skip
+        return [draws[:, self._rows(i)].to(d) for i, d in enumerate(self.devices)]
 
     # -- warm-start registry (bounded LRU) ----------------------------------
     def _warm_put(self, stream_id: int, params: MRParams):
@@ -517,7 +635,8 @@ class RecoveryService:
 
     def _slot_params(self, slot: int) -> MRParams:
         """A copy of one slot's params (admission overwrites the slot in place)."""
-        return tree_map(lambda a: a.clone(), tree_index(self.state.params, slot))
+        st, row = self._locate(slot)
+        return tree_map(lambda a: a.clone(), tree_index(st.params, row))
 
     # -- admission ----------------------------------------------------------
     def submit(
@@ -562,17 +681,20 @@ class RecoveryService:
         return SubmitResult(SubmitStatus.OVERFLOW, sid)
 
     def _enqueue_device(self, sid, history_y, history_u, priority) -> int | None:
-        """Append one arrival into the least-loaded shard's queue; None when
-        all are full. ``_inflight`` counts ids enqueued and not yet admitted,
-        and victims preempted back into a queue (re-added at snapshots), so
-        the device queue never overflows."""
+        """Append one arrival into the least-loaded shard's queue (the lowest
+        index on a tie); None when all are full. ``_inflight`` counts ids
+        enqueued and not yet admitted, and victims preempted back into a
+        queue (re-added at snapshots), so the device queue never overflows."""
         cp = self.control_plane
         shard = min(range(cp.shards), key=lambda i: (len(self._inflight[i]), i))
         if len(self._inflight[shard]) >= cp.queue_capacity:
             return None
-        params, _ = cold_start(self.seed, sid, self.cfg, self.device)
-        self.control = cp.enqueue(self.control, shard, sid, self._to_device(history_y),
-                                  self._to_device(history_u), params, priority)  # fmt: skip
+        device = self.devices[shard]
+        params, _ = cold_start(self.seed, sid, self.cfg, device)
+        self.controls[shard] = cp.enqueue(
+            self.controls[shard], 0, sid, self._to_device(history_y, shard),
+            self._to_device(history_u, shard), params, priority,
+        )  # fmt: skip
         self._inflight[shard].add(sid)
         self._pending.add(sid)
         self._seen_done.discard(sid)
@@ -592,19 +714,22 @@ class RecoveryService:
         return entry
 
     def _admit_into(self, slot: int):
+        st, row = self._locate(slot)
         if not self.queue:
-            self.state = deactivate(self.state, slot)
+            deactivate(st, row)
             self._active_view[slot] = False
             self._slot_view[slot] = -1
             self._prio_view[slot] = 0
             return None
         stream_id, buf_y, buf_u, prio = self._queue_pop()
+        device = st.active.device
         warm_params = self._warm_get(stream_id)
         if warm_params is not None:
-            params, opt = warm_params, adamw_init(warm_params)
+            params = tree_map(lambda a: a.to(device), warm_params)
+            opt = adamw_init(params)
         else:
-            params, opt = cold_start(self.seed, stream_id, self.cfg, self.device)
-        self.state = admit(self.state, slot, stream_id, buf_y, buf_u, params, opt)
+            params, opt = cold_start(self.seed, stream_id, self.cfg, device)
+        admit(st, row, stream_id, buf_y, buf_u, params, opt)
         self._active_view[slot] = True
         self._slot_view[slot] = int(stream_id)
         self._delta_view[slot] = np.inf
@@ -632,13 +757,13 @@ class RecoveryService:
             if prio <= self._prio_view[victim]:
                 return
             vid = int(self._slot_view[victim])
-            st = self.state
+            st, row = self._locate(victim)
             self._warm_put(vid, self._slot_params(victim))
             self.queue.append(
                 (
                     vid,
-                    self._host_read(st.buf_y[victim]),
-                    self._host_read(st.buf_u[victim]),
+                    self._host_read(st.buf_y[row]),
+                    self._host_read(st.buf_u[row]),
                     int(self._prio_view[victim]),
                 )
             )
@@ -648,17 +773,22 @@ class RecoveryService:
     def fill_slots(self) -> list[int]:
         """Admit queued streams into every empty slot.
 
-        Device plane: one ``pump`` drains the device queues into every idle
-        slot, then a snapshot refreshes the host views.
+        Device plane: one ``pump`` a shard drains the device queues into
+        every idle slot, then a snapshot refreshes the host views.
         """
         if self.control_plane is not None:
             self._drain_overflow()
             before = {int(i) for i in self._slot_view if i >= 0}
-            self.state, self.control, status = self.control_plane.pump(self.state, self.control)
-            self._snapshot(status)
+            statuses = []
+            for i in range(self.n_shards):
+                self.shards[i], self.controls[i], status = self.control_plane.pump(
+                    self.shards[i], self.controls[i]
+                )
+                statuses.append(status)
+            self._snapshot(statuses)
             return [int(i) for i in self._slot_view if i >= 0 and int(i) not in before]
         admitted = []
-        active = self._host_read(self.state.active)
+        active = self._host_gather([st.active for st in self.shards])
         self._active_view = np.asarray(active, bool).copy()
         for s in range(self.n_slots):
             if not active[s] and self.queue:
@@ -676,23 +806,22 @@ class RecoveryService:
         """
         if self.control_plane is not None:
             return [int(i) for i in self._slot_view]
-        return [int(i) for i in self._host_read(self.state.stream_id)]
+        return [int(i) for i in self._host_gather([st.stream_id for st in self.shards])]
 
     def _evict(self, slot: int, reason: str) -> StreamResult:
-        st = self.state
-        sid = int(self._host_read(st.stream_id[slot]))
-        theta = st.theta[slot]
+        st, row = self._locate(slot)
+        sid = int(self._host_read(st.stream_id[row]))
+        theta = st.theta[row]
         if self.quant:
-            yw, uw = _slot_windows(
-                st.buf_y[slot], st.buf_u[slot], st.mean[slot], st.scale[slot], self.scfg
-            )
-            theta = readout_theta(tree_index(st.params, slot), self.cfg, yw, uw, quant=True)
+            yw, uw = _slot_windows(st.buf_y[row], st.buf_u[row], st.mean[row], st.scale[row],
+                                   self.scfg)  # fmt: skip
+            theta = readout_theta(tree_index(st.params, row), self.cfg, yw, uw, quant=True)
         res = StreamResult(
             stream_id=sid,
             theta=self._host_read(theta),
-            mean=self._host_read(st.mean[slot]),
-            scale=self._host_read(st.scale[slot]),
-            steps=int(self._host_read(st.steps[slot])),
+            mean=self._host_read(st.mean[row]),
+            scale=self._host_read(st.scale[row]),
+            steps=int(self._host_read(st.steps[row])),
             reason=reason,
         )
         self.results[sid] = res
@@ -700,15 +829,15 @@ class RecoveryService:
         self._warm_put(sid, self._slot_params(slot))
         return res
 
-    def _snapshot(self, status: torch.Tensor) -> list[StreamResult]:
-        """Device plane: refresh the host views from the packed [S, 5] status
-        and drain the event log into StreamResults: the device plane's only
-        readbacks, two a snapshot."""
+    def _snapshot(self, statuses: list[torch.Tensor]) -> list[StreamResult]:
+        """Device plane: refresh the host views from every shard's packed
+        [S/M, 5] status and drain the event logs into StreamResults: the
+        device plane's only readbacks, two a snapshot."""
         from repro_torch.core import control as control_mod
 
         cp = self.control_plane
         prev_slots = self._slot_view.copy()
-        snap = self._host_read(status)
+        snap = self._host_gather(statuses)
         self._delta_view = snap[:, 0].copy()
         self._loss_view = snap[:, 1].copy()
         self._steps_view = snap[:, 2].astype(np.int64)
@@ -717,10 +846,13 @@ class RecoveryService:
         for s in range(self.n_slots):
             sid = int(self._slot_view[s])
             self._prio_view[s] = self._prio_of.get(sid, 0) if sid >= 0 else 0
-        self.control, events = cp.drain(self.control)
+        events = []
+        for i in range(self.n_shards):
+            self.controls[i], ev = cp.drain(self.controls[i])
+            events.append(ev)
         new_results = []
         for sid, steps, code, theta, mean, scale in control_mod.decode_events(
-            self._host_read(events), self.cfg
+            self._host_gather(events), self.cfg
         ):
             res = StreamResult(stream_id=sid, theta=theta, mean=mean, scale=scale, steps=steps,
                                reason="converged" if code == 1 else "budget")  # fmt: skip
@@ -734,11 +866,10 @@ class RecoveryService:
         # resident and is neither now was preempted back into its shard's
         # queue, so it counts as in flight again
         resident = {int(i) for i in self._slot_view if i >= 0}
-        slots_per_shard = self.n_slots // cp.shards
         for s in range(self.n_slots):
             sid = int(prev_slots[s])
             if sid >= 0 and sid not in resident and sid not in self._seen_done:
-                self._inflight[s // slots_per_shard].add(sid)
+                self._inflight[s // self.slots_per_shard].add(sid)
         settled = resident | self._seen_done
         for shard_ids in self._inflight:
             shard_ids.difference_update(settled)
@@ -749,6 +880,7 @@ class RecoveryService:
     def tick_once(self, chunks_y: np.ndarray, chunks_u: np.ndarray | None = None) -> dict:
         """Advance the service one tick; returns an info dict of host scalars.
 
+        The tick program runs once a shard, on the shard's rows of the chunks.
         Device plane: ``tick_device`` runs the tick, the eviction mask, the
         refill and the warm-start gather; the host reads nothing back except
         at snapshot ticks (every ``snapshot_period``), so ``sync_log`` records
@@ -760,16 +892,22 @@ class RecoveryService:
         S, C, m = self.n_slots, self.scfg.chunk, self.cfg.input_dim
         if chunks_u is None:
             chunks_u = np.zeros((S, C, m), np.float32)
-        new_y, new_u = self._to_device(chunks_y), self._to_device(chunks_u)
+        batch_idx = self._tick_batch_idx()
+        new = [(self._to_device(chunks_y[self._rows(i)], i), self._to_device(chunks_u[self._rows(i)], i))
+               for i in range(self.n_shards)]  # fmt: skip
         if self.control_plane is not None:
             cp = self.control_plane
-            self.state, self.control, status = cp.tick(self.state, self.control, new_y, new_u,
-                                                       self.generator)  # fmt: skip
+            statuses = []
+            for i, (new_y, new_u) in enumerate(new):
+                self.shards[i], self.controls[i], status = cp.tick(
+                    self.shards[i], self.controls[i], new_y, new_u, batch_idx[i]
+                )
+                statuses.append(status)
             self.ticks += 1
             self._ticks_since_snapshot += 1
             evicted: list[StreamResult] = []
             if self._ticks_since_snapshot >= cp.snapshot_period:
-                evicted = self._snapshot(status)
+                evicted = self._snapshot(statuses)
             info = {
                 "tick": self.ticks,
                 "evicted": evicted,
@@ -785,22 +923,23 @@ class RecoveryService:
             self._finish_tick(t0)
             self.sync_log.append(self.counters["host_syncs"] - syncs0)
             return info
-        out = self._tick(self.state, new_y, new_u, self.generator)
+        outs = [self._tick(st, new_y, new_u, idx)
+                for st, (new_y, new_u), idx in zip(self.shards, new, batch_idx)]  # fmt: skip
         self.ticks += 1
-        # the banked tick returns (state, status[S, 4]): one readback for the
+        # the banked tick returns (state, status[S/M, 4]): one readback for the
         # whole eviction scan; the composite tick reads each leaf separately
-        banked = not isinstance(out, SlotState)
+        banked = not isinstance(outs[0], SlotState)
         loss = None
         if banked:
-            self.state, status = out
-            snap = self._host_read(status)
+            self.shards = [st for st, _ in outs]
+            snap = self._host_gather([status for _, status in outs])
             delta, loss = snap[:, 0], snap[:, 1]
             steps, active = snap[:, 2].astype(np.int64), snap[:, 3] > 0
         else:
-            self.state = out
-            delta = self._host_read(self.state.delta)
-            steps = self._host_read(self.state.steps)
-            active = self._host_read(self.state.active)
+            self.shards = outs
+            delta = self._host_gather([st.delta for st in self.shards])
+            steps = self._host_gather([st.steps for st in self.shards])
+            active = self._host_gather([st.active for st in self.shards])
         self._active_view = np.asarray(active, bool).copy()
         self._delta_view = np.asarray(delta).copy()
         if banked:
@@ -818,7 +957,7 @@ class RecoveryService:
         # under pressure a higher-tier waiting arrival may displace a cold slot
         self._preempt_host()
         if not banked:
-            self._loss_view = np.array(self._host_read(self.state.loss))
+            self._loss_view = np.array(self._host_gather([st.loss for st in self.shards]))
         info = {
             "tick": self.ticks,
             "evicted": evicted,
@@ -834,10 +973,12 @@ class RecoveryService:
         return info
 
     def _finish_tick(self, t0: float):
-        """Latency accounting: the tick's wall ms, one heartbeat, straggler check."""
+        """Latency accounting: the tick's wall ms, one heartbeat a shard,
+        straggler check."""
         dt = time.perf_counter() - t0
         self.tick_ms.append(dt * 1e3)
-        self.registry.beat("shard0", self.ticks, dt)
+        for i in range(self.n_shards):
+            self.registry.beat(f"shard{i}", self.ticks, dt)
         self.straggler_flags = self.stragglers.check()
 
     def drain(self) -> list[StreamResult]:

@@ -40,6 +40,20 @@ takes zeros; a stream admitted since then waits for the next snapshot's map).
         --control device --snapshot-period 4 --checkpoint-dir /tmp/serve_mr_ckpt \
         --checkpoint-period 8 --streams 12 --slots 4
 
+``--mesh D`` shards the slots over D devices (``RecoverySpec.mesh_slots``:
+every tick runs the tick program once a shard, on the shard's slots);
+``--virtual-devices N`` lists ``--device`` N times, so a mesh of 2 runs on one
+card or on the CPU. ``--chaos-kill-shard TICK`` serves under a
+``ServiceSupervisor`` (``runtime/resilience.py``) that loses one device at
+TICK, re-plans the slot mesh on the survivors, restores the latest snapshot
+onto it and re-submits what the snapshot did not hold (up to
+``--max-restarts`` times; without ``--checkpoint-dir`` the snapshots go to a
+temporary directory, every 2 ticks unless ``--checkpoint-period`` says):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_mr --tick-kernel banked \\
+        --control device --mesh 2 --virtual-devices 2 --chaos-kill-shard 8 \\
+        --streams 4 --slots 4
+
 ``--fused`` runs every tick's recovery steps (and the composite tick's
 readout) through the stage-fused step, one launch of the slot-axis form of
 ``mr_step`` (``mr_step_ltc``, ``mr_step_node`` for ``--encoder ltc`` or
@@ -53,7 +67,9 @@ paper's headline LTC baseline runs the acceptance scenario fused:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import tempfile
 import time
 
 import numpy as np
@@ -208,6 +224,34 @@ def build_parser() -> argparse.ArgumentParser:
         help="ticks between service snapshots (0 = off; requires --checkpoint-dir)",
     )
     ap.add_argument(
+        "--mesh",
+        type=int,
+        default=1,
+        help="devices sharding the slot axis (RecoverySpec.mesh_slots; 1 = one device)",
+    )
+    ap.add_argument(
+        "--virtual-devices",
+        type=int,
+        default=0,
+        help="list --device this many times as the mesh's devices (a mesh on one card or the "
+        "CPU); 0 = every visible card (or the one --device cpu)",
+    )
+    ap.add_argument(
+        "--chaos-kill-shard",
+        type=int,
+        default=-1,
+        metavar="TICK",
+        help="chaos injection: lose one device at TICK; the service supervisor re-plans the slot "
+        "mesh on the survivors, restores the latest snapshot onto it and re-submits dropped "
+        "streams",
+    )
+    ap.add_argument(
+        "--max-restarts",
+        type=int,
+        default=4,
+        help="supervised-restart budget of the chaos path",
+    )
+    ap.add_argument(
         "--tol-factor",
         type=float,
         default=3.0,
@@ -227,24 +271,33 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def mesh_devices(args: argparse.Namespace) -> list | None:
+    """The devices a slot mesh may take: ``--device`` listed
+    ``--virtual-devices`` times, else every visible card (None) or the one
+    non-CUDA ``--device``."""
+    if args.virtual_devices:
+        return [args.device] * args.virtual_devices
+    return None if args.device.startswith("cuda") else [args.device]
+
+
 def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict:
     """Run the scenario of ``args``: the service, then the batch baseline and
     the tolerance check. Returns a dict with the plan, the service, the
     service's and the baseline's wall seconds, the baseline's Theta
     (``theta_base``, normalized coordinates), one row per stream
-    ``(name, mse, baseline_mse, tol, steps, reason, ok)`` and ``failures``
-    (streams never recovered or above tolerance).
+    ``(name, mse, baseline_mse, tol, steps, reason, ok)``, ``failures``
+    (streams never recovered or above tolerance), and under
+    ``--chaos-kill-shard`` the ``ServiceSupervisor``'s summary
+    (``supervisor``) and its per-incarnation stats (``incarnations``; both
+    None otherwise; ``plan`` and ``service`` are then the last
+    incarnation's).
 
     ``baseline``: ``theta_base`` of an earlier run whose fleet begins with
     this run's streams (the same ``--systems``, ``--seed``, ``--noise`` and
     stream geometry, ``--hidden``, ``--lr`` and ``--max-steps``, any
     ``--quant``: the baseline trains in float32 either way); its first rows
     stand in for this run's baseline, which is then not trained again."""
-    from repro_torch import api
-    from repro_torch.core.library import denormalize_theta
     from repro_torch.core.stream import StreamConfig
-    from repro_torch.data.dynamics import embed_true_coef
-    from repro_torch.data.windows import make_windows
 
     log = print if verbose else (lambda *a, **k: None)
     names = [s.strip() for s in args.systems.split(",") if s.strip()]
@@ -264,6 +317,27 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         min_steps=args.min_steps,
         max_steps=args.max_steps,
     )
+    ckpt_dir, ckpt_period = args.checkpoint_dir, args.checkpoint_period
+    scratch = contextlib.ExitStack()
+    if args.chaos_kill_shard >= 0:
+        # the chaos path restores from snapshots: a temporary directory and a
+        # 2-tick period when the flags do not give them
+        ckpt_dir = ckpt_dir or scratch.enter_context(tempfile.TemporaryDirectory())
+        ckpt_period = ckpt_period or 2
+    with scratch:
+        return _serve(args, verbose, baseline, specs, ys, us, (n_state, n_input, order), scfg,
+                      ckpt_dir, ckpt_period)  # fmt: skip
+
+
+def _serve(args, verbose, baseline, specs, ys, us, dims, scfg, ckpt_dir, ckpt_period) -> dict:
+    from repro_torch import api
+    from repro_torch.core.library import denormalize_theta
+    from repro_torch.data.dynamics import embed_true_coef
+    from repro_torch.data.windows import make_windows
+    from repro_torch.runtime import ServiceSupervisor, kill_shard_once
+
+    log = print if verbose else (lambda *a, **k: None)
+    n_state, n_input, order = dims
     spec = api.RecoverySpec(
         state_dim=n_state,
         input_dim=n_input,
@@ -285,37 +359,64 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
             control=args.control,
             queue_capacity=args.queue_capacity or max(args.streams, 1),
             snapshot_period=args.snapshot_period,
-            checkpoint_period=args.checkpoint_period,
-            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_period=ckpt_period,
+            checkpoint_dir=ckpt_dir,
         ),
+        mesh_slots=args.mesh,
     )
-    plan = api.compile_plan(spec, device=args.device)
-    service = plan.make_service()
+    devices = mesh_devices(args)
+    supervisor = summary = None
+    if args.chaos_kill_shard >= 0:
+        supervisor = ServiceSupervisor(
+            spec, ckpt_dir, checkpoint_period=ckpt_period, max_restarts=args.max_restarts,
+            chaos=kill_shard_once(args.chaos_kill_shard), devices=devices,
+        )  # fmt: skip
+        plan, service = supervisor.plan, supervisor.service
+    else:
+        plan = api.compile_plan(spec, device=args.device, devices=devices)
+        service = plan.make_service()
     log(f"[serve_mr] plan lowering: {plan.lowering}")
     cfg = service.cfg
     log(
         f"[serve_mr] streams={args.streams} slots={args.slots} K={args.steps_per_tick} "
         f"windows/slot={scfg.n_windows} library={cfg.n_terms}x{cfg.state_dim} "
         f"encoder={args.encoder} fused={args.fused} tick={plan.lowering.tick_kernel} "
-        f"control={args.control} quant={args.quant} device={args.device}",
+        f"control={args.control} quant={args.quant} mesh={args.mesh} device={args.device}",
         flush=True,
     )
-    stats = run_service(service, ys, us, args.max_ticks, verbose=verbose)
+    if supervisor is not None:
+        service = None  # the supervisor owns its incarnations: a failed one must be freed
+        t0 = time.time()
+        summary = supervisor.serve(ys, us if n_input else None, max_ticks=args.max_ticks)
+        plan, service = supervisor.plan, supervisor.service
+        stats = {"ticks": summary["ticks"], "wall_s": time.time() - t0, "evictions": None}
+        results = summary["results"]
+        tick_ms = [t for h in supervisor.history for t in h["tick_ms"]]
+        straggler_flags = summary["straggler_flags"]
+        log(
+            f"[serve_mr] chaos: {summary['restarts']} restart(s), final mesh "
+            f"{summary['final_mesh']}, recovered_streams_fraction="
+            f"{summary['recovered_streams_fraction']:.2f}"
+        )
+    else:
+        stats = run_service(service, ys, us, args.max_ticks, verbose=verbose)
+        results = service.results
+        tick_ms, straggler_flags = service.tick_ms, service.straggler_flags
     if service.checkpointer is not None:
         service.checkpointer.wait()
-    results = service.results
     n_done = len(results)
-    out = dict(plan=plan, service=service, stats=stats, rows=[], baseline_s=None, theta_base=None)
+    out = dict(plan=plan, service=service, stats=stats, rows=[], baseline_s=None, theta_base=None,
+               supervisor=summary, incarnations=supervisor and supervisor.history)  # fmt: skip
     wall = max(stats["wall_s"], 1e-9)
     log(
         f"[serve_mr] {n_done}/{args.streams} streams recovered in {stats['ticks']} ticks "
         f"({stats['wall_s']:.1f}s, {stats['ticks'] / wall:.2f} ticks/s)"
     )
-    if service.tick_ms:
+    if tick_ms:
         log(
-            f"[serve_mr] tick latency: p50={float(np.percentile(service.tick_ms, 50)):.1f}ms "
-            f"p99={float(np.percentile(service.tick_ms, 99)):.1f}ms; "
-            f"stragglers={','.join(service.straggler_flags) or 'none'}"
+            f"[serve_mr] tick latency: p50={float(np.percentile(tick_ms, 50)):.1f}ms "
+            f"p99={float(np.percentile(tick_ms, 99)):.1f}ms; "
+            f"stragglers={','.join(straggler_flags) or 'none'}"
         )
     if service.sync_log:
         log(
@@ -346,7 +447,7 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         log("[serve_mr] one-shot batch-plan baseline: reused from an earlier run of the fleet")
     else:
         base_spec = dataclasses.replace(spec, mode="batch", steps=scfg.max_steps, stream=None,
-                                        tick=None)  # fmt: skip
+                                        tick=None, mesh_slots=1)  # fmt: skip
         base_plan = api.compile_plan(base_spec, device=args.device)
         t0 = time.time()
         theta_base = base_plan.run_batch(np.stack(yw_b), np.stack(uw_b) if n_input else None)

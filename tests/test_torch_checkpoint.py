@@ -108,7 +108,9 @@ def test_shape_mismatch_rejected(tmp_path):
 def test_mesh_axes_mismatch_rejected_and_one_device_only(tmp_path):
     """As ``tests/test_checkpoint.py:72``: axes recorded at save that differ
     from the restoring caller's fail up front; matching or absent axes pass.
-    A mesh or a restore sharding of more than one device raises."""
+    A mesh of more than one device is recorded, and a restore sharding of
+    more than one device splits the leading axis (one tree a device); a
+    leading axis it does not divide raises."""
     s = _state()
     save_checkpoint(tmp_path, 2, s, mesh=Mesh(np.empty((1,), object), ("data",)))
     with pytest.raises(ValueError, match="mesh axes .* shards over"):
@@ -118,9 +120,18 @@ def test_mesh_axes_mismatch_rejected_and_one_device_only(tmp_path):
     save_checkpoint(tmp_path, 3, s)
     r, _ = restore_checkpoint(tmp_path, 3, _like(s), expect_axes=("slots",))
     assert r is not None
-    with pytest.raises(ValueError, match="one device"):
-        save_checkpoint(tmp_path, 4, s, mesh=Mesh(np.empty((2,), object), ("slots",)))
-    with pytest.raises(ValueError, match="devices"):
+    save_checkpoint(tmp_path, 4, s, mesh=Mesh(np.empty((2,), object), ("slots",)))
+    manifest = json.loads((tmp_path / "step_00000004" / "manifest.json").read_text())
+    assert manifest["mesh"] == {"shape": [2], "axes": ["slots"]}
+    even = {k: {kk: v for kk, v in d.items() if v.ndim and v.shape[0] % 2 == 0}
+            for k, d in s.items()}  # fmt: skip
+    save_checkpoint(tmp_path, 5, even)
+    parts, _ = restore_checkpoint(tmp_path, 5, _like(even), shardings=["cpu", "cpu"])
+    assert len(parts) == 2
+    for k, d in even.items():
+        for kk, v in d.items():
+            assert torch.equal(torch.cat([parts[0][k][kk], parts[1][k][kk]]), v)
+    with pytest.raises(ValueError, match="split"):  # the scalar step has no leading axis
         restore_checkpoint(tmp_path, 3, _like(s), shardings=["cpu", "cpu"])
 
 

@@ -149,7 +149,7 @@ def test_control_apply_matches_jax_bit_for_bit():
         jst, jctl = jcontrol._control_apply(jst, jctl, jnp.asarray(evict), jnp.asarray(reason),
                                             shards=1, min_steps=min_steps)  # fmt: skip
         st, ctl = control._control_apply(st, ctl, torch.tensor(evict), torch.tensor(reason),
-                                         shards=1, min_steps=min_steps)  # fmt: skip
+                                         min_steps=min_steps)  # fmt: skip
         _assert_trees_equal(st, jst, f"slots after wave {i}")
         _assert_trees_equal(ctl, jctl, f"control after wave {i}")
     # the waves did what they say: tier-2 arrivals first, stream 0 back warm
@@ -176,7 +176,7 @@ def test_tick_device_k0_matches_jax(kernel):
                                                 jax.random.key(1), cfg=jcfg, scfg=jscfg,
                                                 kernel=kernel)  # fmt: skip
     cfg = merinda.MRConfig(encoder="gru", **BASE)
-    st2, ctl2, status = control.tick_device(st, ctl, _t(new_y), _t(new_u), torch.Generator(),
+    st2, ctl2, status = control.tick_device(st, ctl, _t(new_y), _t(new_u), None,
                                             cfg=cfg, scfg=scfg, kernel=kernel)  # fmt: skip
     bound = dict(atol=1e-5, rtol=0)
     np.testing.assert_allclose(status.numpy(), np.asarray(jstatus), **bound)

@@ -207,16 +207,17 @@ def test_encoder_registry_has_the_gru_rows_and_refuses_the_rest():
 
 def test_unported_options_raise():
     """QAT, the ltc/node encoders, the batch and stream modes, int8 serving,
-    the device control plane and service checkpoints are ported; a slot mesh
-    is not."""
+    the device control plane, service checkpoints and the slot mesh are
+    ported; a mesh outside stream mode raises, as in the JAX package."""
     cfg = MRConfig(state_dim=2, encoder="ltc", quant=QuantConfig(4, 10, 2, 12))
     assert cfg.quant.act_bits == 14 and cfg.ltc_substeps == 6
     assert RecoverySpec(state_dim=2, encoder="node", qat=QuantConfig()).to_mr_config().quant
     assert RecoverySpec(state_dim=2, mode="batch").mode == "batch"
     assert RecoverySpec(state_dim=2, mode="stream").stream_config().n_windows == 17
     assert RecoverySpec(state_dim=2, encoder="gru", precision="int8_pwl").precision == "int8_pwl"
-    with pytest.raises(ValueError, match="not yet ported"):
-        RecoverySpec(state_dim=2, mode="stream", mesh_slots=2)
+    assert RecoverySpec(state_dim=2, mode="stream", mesh_slots=2).mesh_slots == 2
+    with pytest.raises(ValueError, match="mesh_slots"):
+        RecoverySpec(state_dim=2, mode="batch", mesh_slots=2)
     assert TickSpec(control="device").control == "device"
     assert TickSpec(checkpoint_period=1, checkpoint_dir="snapshots").checkpoint_period == 1
 

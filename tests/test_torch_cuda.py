@@ -15,7 +15,12 @@ path: its ticks between snapshots (an arrival's enqueue, evictions and
 refills included) run under ``torch.cuda.set_sync_debug_mode("error")``, so
 any wait for the card fails them; its outcomes equal the host plane's, and a
 service snapshot restores into a fresh service on the card bit for bit. The
-SR baselines (SINDy, PINN-SR) on the card agree with the CPU port.
+SR baselines (SINDy, PINN-SR) on the card agree with the CPU port. A slot
+mesh of 2 (the card listed twice) equals mesh 1 on both planes, launches the
+tick kernel once a shard a tick (a fused int8_pwl service: the slot-axis
+``mr_step`` once a shard a step, ``mr_step_int8`` once an eviction), and its
+ticks between snapshots never wait for the card; the ``ServiceSupervisor`` drill restores onto the mesh of 1 and
+frees the lost shard's memory, and a same-mesh restore replays bit for bit.
 
 The LM zoo's kernels: ``ssd_scan`` against ``ssd_chunked`` within 5e-5 in
 float32 (``tests/test_kernels_ssd.py:48``), and on bf16 inputs against
@@ -1126,15 +1131,20 @@ PLANE_SCFG = StreamConfig(buf_len=32, window=8, stride=8, chunk=8, steps_per_tic
                           max_steps=4, delta_tol=0.0)  # fmt: skip
 
 
-def _plane_service(dev, control, steps_per_tick=2, precision="fp32", **tick_kw):
+def _plane_spec(control, steps_per_tick=2, precision="fp32", mesh_slots=1, **tick_kw):
     scfg = StreamConfig(**{**PLANE_SCFG.__dict__, "steps_per_tick": steps_per_tick})
-    spec = api.RecoverySpec(
+    return api.RecoverySpec(
         mode="stream", n_slots=2, stream=scfg, encoder="gru", seed=0, precision=precision,
+        mesh_slots=mesh_slots,
         tick=api.TickSpec(steps_per_tick=steps_per_tick, tick_kernel="banked", control=control,
                           **tick_kw),
         **TICK_BASE,
     )  # fmt: skip
-    return api.compile_plan(spec, device=dev).make_service()
+
+
+def _plane_service(dev, control, steps_per_tick=2, precision="fp32", mesh_slots=1, **tick_kw):
+    spec = _plane_spec(control, steps_per_tick, precision, mesh_slots, **tick_kw)
+    return api.compile_plan(spec, device=dev, devices=[dev] * mesh_slots).make_service()
 
 
 def _plane_data(n=7):
@@ -1178,30 +1188,36 @@ def test_device_plane_ticks_between_snapshots_never_wait_for_the_card(dev, steps
         assert set(svc.results) == {0, 1, 2, 3, 6}
 
 
+def _arrivals_trace(svc, data):
+    """Six streams arriving over the first ticks: the slot maps and eviction
+    records of every tick."""
+    arrivals = {0: [0, 1, 2], 2: [3], 3: [4], 5: [5]}
+    cursors, trace = dict.fromkeys(range(6), 32), []
+    svc.fill_slots()
+    t = 0
+    while (not svc.done or t in arrivals) and t < 30:
+        for sid in arrivals.get(t, ()):
+            svc.submit(sid, data[sid, :32])
+            svc.fill_slots()
+        chunk = np.zeros((2, 8, 3), np.float32)
+        for s, sid in enumerate(svc.slot_streams()):
+            if sid >= 0:
+                chunk[s] = data[sid, cursors[sid] : cursors[sid] + 8]
+                cursors[sid] += 8
+        info = svc.tick_once(chunk)
+        trace.append((tuple(svc.slot_streams()), [(r.stream_id, r.steps) for r in info["evicted"]]))
+        t += 1
+    return trace
+
+
 def test_device_plane_matches_the_host_plane_on_the_card(dev):
     """Six streams arriving over the first ticks into 2 slots: slot maps and
     eviction records equal, theta within 1e-5."""
     data = _plane_data()
-    arrivals = {0: [0, 1, 2], 2: [3], 3: [4], 5: [5]}
     traces, services = {}, {}
     for control in ("host", "device"):
         svc = _plane_service(dev, control)
-        cursors, trace = dict.fromkeys(range(6), 32), []
-        svc.fill_slots()
-        t = 0
-        while (not svc.done or t in arrivals) and t < 30:
-            for sid in arrivals.get(t, ()):
-                svc.submit(sid, data[sid, :32])
-                svc.fill_slots()
-            chunk = np.zeros((2, 8, 3), np.float32)
-            for s, sid in enumerate(svc.slot_streams()):
-                if sid >= 0:
-                    chunk[s] = data[sid, cursors[sid] : cursors[sid] + 8]
-                    cursors[sid] += 8
-            info = svc.tick_once(chunk)
-            trace.append((tuple(svc.slot_streams()), [(r.stream_id, r.steps) for r in info["evicted"]]))
-            t += 1
-        traces[control], services[control] = trace, svc
+        traces[control], services[control] = _arrivals_trace(svc, data), svc
     assert traces["device"] == traces["host"]
     for sid in range(6):
         np.testing.assert_allclose(services["device"].results[sid].theta,
@@ -1228,6 +1244,119 @@ def test_service_snapshot_restores_bit_for_bit_on_the_card(dev, tmp_path):
             assert torch.equal(a, b)
         svc.tick_once(chunks[t])
         fresh.tick_once(chunks[t])
+
+
+@pytest.mark.parametrize("control", ["host", "device"])
+def test_slot_mesh_of_2_matches_mesh_1_on_the_card(dev, control):
+    """The arrivals above at mesh 2 (one slot a shard, the card listed
+    twice) and mesh 1: every stream's result equal (steps and reason; theta
+    within 1e-5), ``mr_tick`` once a shard a tick. The host plane's slot
+    maps and eviction records equal mesh 1's; the device plane's equal the
+    same mesh-2 service's on the CPU: an arrival joins the least-loaded
+    shard's queue, so at mesh 2 it may take another slot a tick earlier
+    than at mesh 1, as in the JAX package (``tests/test_torch_mesh.py``)."""
+    data = _plane_data()
+    svc1 = _plane_service(dev, control)
+    trace1 = _arrivals_trace(svc1, data)
+    svc2 = _plane_service(dev, control, mesh_slots=2)
+    before = mr_tick_cuda.launches
+    trace2 = _arrivals_trace(svc2, data)
+    assert mr_tick_cuda.launches - before == 2 * svc2.ticks
+    if control == "host":
+        assert trace2 == trace1
+    else:
+        cpu = api.compile_plan(_plane_spec(control, mesh_slots=2), devices=["cpu", "cpu"])
+        assert trace2 == _arrivals_trace(cpu.make_service(), data)
+    assert [st.active.shape[0] for st in svc2.shards] == [1, 1] and svc2.state.theta.is_cuda
+    for sid in range(6):
+        r1, r2 = svc1.results[sid], svc2.results[sid]
+        assert (r2.steps, r2.reason) == (r1.steps, r1.reason)
+        np.testing.assert_allclose(r2.theta, r1.theta, atol=1e-5, rtol=0)
+
+
+def test_slot_mesh_launches_the_fused_step_and_the_int8_readout_a_shard(dev):
+    """A fused int8_pwl host-plane service (composite tick, K = 2) on the
+    arrivals above: the slot-axis ``mr_step`` launches once a shard for each
+    step and for the tick's Theta, M x (K + 1) a tick, and no ``mr_tick``;
+    every eviction is one ``mr_step_int8`` launch on its shard's row. Mesh 2's
+    results equal mesh 1's (steps and reason; Theta within 1e-5)."""
+    data = _plane_data()
+    services = {}
+    kernels = (mr_step_slots_cuda, mr_step_int8_cuda, mr_tick_cuda, mr_step_cuda)
+    for mesh_slots in (1, 2):
+        spec = api.RecoverySpec(mode="stream", n_slots=2, stream=PLANE_SCFG, encoder="gru", seed=0,
+                                precision="int8_pwl", fused=True, block_b="auto",
+                                mesh_slots=mesh_slots,
+                                tick=api.TickSpec(steps_per_tick=2, tick_kernel="composite"),
+                                **TICK_BASE)  # fmt: skip
+        svc = api.compile_plan(spec, device=dev, devices=[dev] * mesh_slots).make_service()
+        before = [k.launches for k in kernels]
+        _arrivals_trace(svc, data)
+        moved = [k.launches - b for k, b in zip(kernels, before)]
+        assert moved == [mesh_slots * 3 * svc.ticks, len(svc.results), 0, 0], (mesh_slots, moved)
+        services[mesh_slots] = svc
+    assert set(services[2].results) == set(services[1].results) == set(range(6))
+    for sid, r1 in services[1].results.items():
+        r2 = services[2].results[sid]
+        assert (r2.steps, r2.reason) == (r1.steps, r1.reason)
+        np.testing.assert_allclose(r2.theta, r1.theta, atol=1e-5, rtol=0)
+
+
+def test_slot_mesh_ticks_between_snapshots_never_wait_for_the_card(dev):
+    """Mesh 2 on the device plane, snapshot every 4 ticks: every tick but
+    the snapshot ticks under sync-debug mode "error" after a first tick;
+    each snapshot reads every shard's status and events back once each."""
+    data = _plane_data()
+    svc = _plane_service(dev, "device", mesh_slots=2, snapshot_period=4)
+    for sid in range(4):
+        svc.submit(sid, data[sid, :32])
+    svc.fill_slots()
+    svc.tick_once(np.stack([data[s, 32:40] for s in (0, 1)]))
+    quiet = []
+    for t in range(1, 9):
+        snapshot = svc._ticks_since_snapshot + 1 >= 4
+        chunk = np.stack([data[max(s, 0), 32 + 8 * t : 40 + 8 * t] for s in svc.slot_streams()])
+        torch.cuda.set_sync_debug_mode(0 if snapshot else "error")
+        try:
+            svc.tick_once(chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not snapshot:
+            quiet.append(svc.sync_log[-1])
+    assert len(quiet) == 6 and not any(quiet) and svc.sync_log[3::4] == [2, 2]
+
+
+def _supervised(dev, tmp_path, chaos):
+    from repro_torch.runtime import ServiceSupervisor
+
+    sup = ServiceSupervisor(_plane_spec("device", mesh_slots=2), str(tmp_path), checkpoint_period=2,
+                            chaos=chaos, devices=[dev, dev])  # fmt: skip
+    return sup, sup.serve(_plane_data(6), max_ticks=30)
+
+
+def test_service_supervisor_drill_on_the_card(dev, tmp_path):
+    """A shard lost at tick 3 of a mesh-2 device-plane service: one restart,
+    the mesh of 1, every stream recovered, and the failed incarnation's
+    memory freed (dropping it gives the card's allocator back at least its
+    shards' and control rows' bytes)."""
+    from repro_torch.runtime import kill_shard_once
+
+    sup, out = _supervised(dev, tmp_path, kill_shard_once(3))
+    assert out["restarts"] == 1 and out["final_mesh"] == (1,)
+    assert out["recovered_streams_fraction"] == 1.0 and len(out["results"]) == 6
+    first, last = sup.history
+    assert first["mesh_shape"] == (2,) and last["mesh_shape"] == (1,)
+    assert first["device_bytes_freed"] >= first["service_bytes"] > 0
+
+
+def test_same_mesh_restore_replays_bit_for_bit_on_the_card(dev, tmp_path):
+    from repro_torch.runtime import kill_shard_once
+
+    _, plain = _supervised(dev, tmp_path / "plain", None)
+    _, out = _supervised(dev, tmp_path / "chaos", kill_shard_once(3, n_lost=0))
+    assert out["restarts"] == 1 and out["final_mesh"] == (2,) and plain["results"].keys() == out["results"].keys()
+    for sid, res in plain["results"].items():
+        np.testing.assert_array_equal(out["results"][sid].theta, res.theta)
 
 
 def test_sr_baselines_on_the_card_match_the_cpu(dev):

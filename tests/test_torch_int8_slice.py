@@ -201,7 +201,7 @@ def test_int8_monitor_tick_matches_jax():
     )  # fmt: skip
     plan = api.compile_plan(spec, device="cpu")
     assert plan.tick.keywords["quant"] is True
-    got, status = plan.tick(st, _t(new_y), _t(new_u), torch.Generator())
+    got, status = plan.tick(st, _t(new_y), _t(new_u), None)
     want, jstatus = jstream.tick_banked(jst, jnp.asarray(new_y), jnp.asarray(new_u),
                                         jax.random.key(1), cfg=jcfg, scfg=jscfg, quant=True)  # fmt: skip
     np.testing.assert_array_equal(got.buf_y.numpy(), _np(want.buf_y))

@@ -179,7 +179,7 @@ def test_composite_tick_matches_jax_from_a_carried_state(k):
     st = slot_state_from_jax(jst)
     want = jstream.tick(jst, jnp.asarray(new_y), jnp.asarray(new_u), jax.random.key(2),
                         cfg=jcfg, scfg=jscfg)  # fmt: skip
-    got = stream.tick(st, _t(new_y), _t(new_u), torch.Generator(), cfg=cfg, scfg=scfg)
+    got = stream.tick(st, _t(new_y), _t(new_u), None, cfg=cfg, scfg=scfg)
     bound = dict(atol=1e-5) if k == 0 else dict(rtol=1e-3, atol=1e-6)
     np.testing.assert_array_equal(got.buf_y.numpy(), np.asarray(want.buf_y))
     np.testing.assert_allclose(got.theta.numpy(), np.asarray(want.theta), **bound)
@@ -201,8 +201,8 @@ def test_banked_tick_matches_composite_tick():
     for t in range(3):
         new_y = _t(rng.standard_normal((3, 8, 3)).astype(np.float32))
         new_u = _t(rng.standard_normal((3, 8, 1)).astype(np.float32))
-        st = stream.tick(st, new_y, new_u, torch.Generator(), cfg=cfg, scfg=scfg)
-        st_b, status = stream.tick_banked(st_b, new_y, new_u, torch.Generator(), cfg=cfg,
+        st = stream.tick(st, new_y, new_u, None, cfg=cfg, scfg=scfg)
+        st_b, status = stream.tick_banked(st_b, new_y, new_u, None, cfg=cfg,
                                           scfg=scfg)  # fmt: skip
         for a, b in zip(tree_leaves(st.params), tree_leaves(st_b.params)):
             assert torch.equal(a, b)
@@ -347,8 +347,8 @@ def test_stream_plans_resolve_the_tick_kernel():
 
 def test_stream_mode_refuses_what_is_not_ported(tmp_path):
     """The fused and ``*_kernel`` rows build (their slot-axis kernels are
-    ported), and so do the device control plane and service checkpoints; the
-    mesh and int8 on a flow row still raise."""
+    ported), and so do the device control plane, service checkpoints and a
+    slot mesh of 2 (given two devices); int8 on a flow row still raises."""
     for kw in (dict(fused=True), dict(fused=True, encoder="gru_flow"),
                dict(fused=True, encoder="ltc"), dict(fused=True, encoder="node"),
                dict(encoder="gru_kernel"), dict(encoder="gru_flow_kernel")):  # fmt: skip
@@ -357,8 +357,8 @@ def test_stream_mode_refuses_what_is_not_ported(tmp_path):
     # int8 serving is ported, but not on a flow row (no int8 stage)
     with pytest.raises(ValueError, match="int8_pwl"):
         api.compile_plan(_spec(precision="int8_pwl", encoder="gru_flow"), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        _spec(mesh_slots=2)
+    mesh_plan = api.compile_plan(_spec(mesh_slots=2), device="cpu", devices=["cpu", "cpu"])
+    assert mesh_plan.lowering.mesh_shape == (2,) and mesh_plan.make_service().n_shards == 2
     tick = dict(control="device", checkpoint_period=2, checkpoint_dir=str(tmp_path))
     plan = api.compile_plan(_spec(tick), device="cpu")
     assert (plan.lowering.control_plane, plan.lowering.checkpoint_period) == ("device", 2)
