@@ -60,8 +60,8 @@ prints no result):
    are set to 0 just before and read just after: every stream must be
    recovered within the baseline tolerance (3x the per-system median MSE +
    0.05), ``mr_tick`` launched once a tick and no other kernel at all, and
-   the median host syncs a tick (after the first) at most 1. Then 2 banked
-   and 2 composite ticks at the serve shape, timed on the host's clock;
+   the median host syncs a tick (after the first) at most 1. Then 1 banked
+   and 1 composite tick at the serve shape, timed on the host's clock;
 9. timings with CUDA events (warm-up, then the median of 25 runs; 10 for the
    plain versions) of each kernel and its plain version at the quickstart
    shapes, of ``mr_step``,
@@ -235,14 +235,34 @@ The slot mesh and the supervised restart (no new kernel: the mesh launches
   then 8g's steady device-plane run at mesh 2, every tick between snapshots
   under sync-debug mode "error" with 0 readbacks; tick p50 at mesh 1 and 2
   printed;
-- 8l. the chaos drill: 8j's service with ``--mesh 2 --virtual-devices 2
-  --chaos-kill-shard 8 --max-restarts 1`` on phase 8's baseline: one
+- 8l. the chaos drill: 8j's service with ``--checkpoint-period 4 --mesh 2
+  --virtual-devices 2 --chaos-kill-shard 4 --max-restarts 1`` on phase 8's
+  baseline: one
   restart, final mesh (1,), every stream within the tolerance, ``mr_tick``
   launched mesh size x ticks summed over the incarnations and nothing else,
   dropping the failed incarnation giving back at least its shards' and
   control rows' bytes to the card's allocator (``memory_allocated``: no
   shard's tensors stay alive); the restart's ms and the tick p50 at mesh 2
   and mesh 1 printed beside the card's name and power limit.
+
+Plan analysis (``repro_torch.analysis``: the audit's rules R1-R5 and the
+measured tuner; no new kernel) adds:
+
+- in phase 8b, ``serve_mr --quant --audit error --tune measured`` with a
+  fresh tune cache: the plan passes R1, R3 and R4 and is tuned on the card
+  (its fleet check leaves the two flags out); the kernels the tuner and the
+  audit launch at compile time are counted apart (``serve_mr.serve``'s
+  ``on_ready`` zeroes the counts before the first tick), so the service's
+  counts are its own;
+- 8m. the quickstart's ``gru_flow`` and ``ltc`` specs, and at serve_mr's
+  width fused specs (K = 2) of the banked host plane, the device plane, a
+  K = 0 int8 monitor and a slot mesh of 2, each tuned on the card (every
+  candidate's stage timed with CUDA events, each candidate table printed,
+  every carve equal to its model) and compiled with ``audit="error",
+  tune="measured"``: each verdict a pass with R2 among the rules checked, R3
+  under sync-debug mode "error" too, the compile a cache hit, a warm tune
+  timing 0 candidates; the offline plans' first training step and the
+  monitor's first tick within 1e-4 of the untuned plan's.
 
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
@@ -268,6 +288,18 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+# the roofline counts and peaks of the kernel table's bounds (one copy, in the package)
+from repro_torch.analysis.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    PEAK_FP32_FLOPS,
+    SUBSTEPS,
+    bound_ms,
+    tick_work,
+    tick_work_int8,
+    work,
+    work_int8,
+)
+
 TOL = 1e-4
 ACT_BITS = (4, 10)  # the QAT run's activation format, Q4.10
 # A Q2.3 step moves the head's output by ~1e-2, so a kernel that skipped or
@@ -278,16 +310,6 @@ ACT_BITS = (4, 10)  # the QAT run's activation format, Q4.10
 COARSE_BITS = (2, 3)
 MARGIN = 1e-5
 QAT = (4, 10, 2, 12)  # QuantConfig of the QAT main path
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, bf16 on
-# the tensor cores (dense), HBM3 rate
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
-# elementwise operations per hidden unit and step besides the products:
-# GRU: bias adds, two sigmoids, r*h, tanh, the (flow) update;
-# LTC substep: the sigmoid, sub_dt*f*a + h, 1 + sub_dt*(inv_tau + f), the division;
-# NODE substep: two bias adds, tanh, the Euler update
-ELEMENTWISE = {"gru": 16, "ltc": 12, "node": 8}
 # (label, B, T, D, H, Dh, K); K = 12 is the quickstart head (6 terms x 2 states)
 KERNEL_SHAPES = [
     ("quickstart training batch", 64, 32, 2, 32, 64, 12),
@@ -296,7 +318,6 @@ KERNEL_SHAPES = [
     ("bench_cycles", 64, 200, 8, 64, 128, 12),
 ]
 DT = 0.05  # lotka_volterra sampling interval: the substep kernels' dt
-SUBSTEPS = 6  # MRConfig.ltc_substeps
 REPO_PATH = "src/repro_torch/kernels/csrc"
 PALLAS = "src/repro/kernels"
 TICK_TOL = 1e-5  # the JAX tick tests' bound on theta and delta (tests/test_tick.py:83)
@@ -318,22 +339,20 @@ SCENARIO = ["--streams", "4", "--slots", "4", "--max-steps", "320", "--device", 
 SERVE_ARGS = ["--tick-kernel", "banked", *SCENARIO]
 # phase 8g's traffic takes 7 streams of the same fleet
 FLEET_STREAMS = 8
-# the int8 service: serve_mr --quant at 4 streams, one wave through the 4 slots
-QUANT_ARGS = ["--quant", "--tick-kernel", "banked", *SCENARIO]
+# the int8 service: serve_mr --quant at 4 streams, one wave through the 4 slots, its
+# plan audited and its bank measured (plan analysis)
+QUANT_ARGS = ["--quant", "--tick-kernel", "banked", "--audit", "error", "--tune", "measured",
+              *SCENARIO]  # fmt: skip
 # the fused banked service, the same 4 streams and int8 eviction: every training step
 # one launch of the slot-axis mr_step, every readout mr_tick, every eviction mr_step_int8
-FUSED_ARGS = ["--fused", *QUANT_ARGS]
+FUSED_ARGS = ["--fused", "--quant", "--tick-kernel", "banked", *SCENARIO]
+ANALYSIS_FLAGS = ("audit", "tune")  # serve_mr flags that leave the fleet as it is
 # the int8/PWL kernels against their plain versions: the fp32 kernels measure
 # 1.1e-7 to 3.6e-7, the quantization itself moves the readout by ~3.4e-3
 INT8_TOL = 1e-5
 QUANT_GAP = 1e-4  # the least an int8 output must differ from its fp32 twin's
 MONITOR_TICKS = 10
 MONITOR_TOL = 0.25  # int8 against fp32 monitor readout (tests/test_tick.py:119)
-# elementwise operations per hidden unit and step of the int8 cells besides the
-# products and their per-column scale multiplies: GRU: 3 PWL evaluations (~8
-# each), bias adds, r*h, the update; LTC substep: 1 PWL evaluation and the
-# semi-implicit update
-ELEMENTWISE_INT8 = {"gru": 34, "ltc": 14}
 # the LM zoo's kernels
 SSD_TEST_SHAPES = [(1, 64, 1, 8, 4, 1), (2, 128, 2, 16, 8, 1), (2, 96, 4, 32, 16, 2)]  # B,S,H,P,N,G
 SSD_MODEL = dict(T=1024, H=24, P=64, N=128, G=1, chunk=128)  # mamba2-130m's prefill of 1,024 tokens
@@ -393,7 +412,7 @@ BATCH_TOL = (3.0, 0.05)  # each system's Theta MSE <= 3x the plain run's + 0.05 
 # (tolerance 0.34): the delta rule fires before the LTC has recovered it
 FUSED_LTC_ARGS = ["--fused", "--encoder", "ltc", *SCENARIO]
 LOCK_TICKS = 2
-WALL_TICKS = 2  # phase 8's banked and composite ticks timed on the host's clock
+WALL_TICKS = 1  # phase 8's banked and composite ticks timed on the host's clock
 # the SR baselines on the card (phase 8f), each against the CPU port on the same
 # inputs: SINDy as recover_aid calls it (AID, threshold 0.005, the insulin input, in
 # float64: float32 leaves AID's coefficients to the LU's rounding, recover_aid.py) and
@@ -417,10 +436,12 @@ SNAPSHOT_PERIOD = 4
 DEVICE_ARGS = ["--tick-kernel", "banked", "--control", "device", "--snapshot-period", "4",
                "--checkpoint-period", "8", *SCENARIO]  # fmt: skip
 # the chaos drill: the device-plane service above at a slot mesh of 2 (the card listed
-# twice), losing one shard at tick 8 (right after the service snapshot of tick 8); the
-# supervisor restores onto the mesh of 1, once at most
-CHAOS_ARGS = [*DEVICE_ARGS, "--mesh", "2", "--virtual-devices", "2", "--chaos-kill-shard", "8",
-              "--max-restarts", "1"]  # fmt: skip
+# twice), losing one shard at tick 4, right after the service snapshot of tick 4 (early:
+# a mesh-2 tick on one card costs two mesh-1 ticks); the supervisor restores onto the
+# mesh of 1, once at most
+CHAOS_ARGS = ["--tick-kernel", "banked", "--control", "device", "--snapshot-period", "4",
+              "--checkpoint-period", "4", *SCENARIO, "--mesh", "2", "--virtual-devices", "2",
+              "--chaos-kill-shard", "4", "--max-restarts", "1"]  # fmt: skip
 # the slot forms against their plain twins on a main path: the fused batch run's
 # and the lockstep LTC service's Theta (normalized coordinates) within this of the
 # plain run's (the kernel tolerance; 5e-7 to 3e-6 measured after 60 and 120 steps)
@@ -505,88 +526,6 @@ def substep_operands(family, B, T, D, H, Dh, K, seed, device):
     head = (mk(H, Dh, scale=H**-0.5), mk(Dh, scale=0.1), mk(Dh, K, scale=0.1 * Dh**-0.5),
             mk(K, scale=0.1))  # fmt: skip
     return (xs, h0, *cell, *head)
-
-
-def work(family, B, T, D, H, Dh, K, n_sub=SUBSTEPS, head=True) -> tuple[float, float]:
-    """(operations, bytes) of one fused call (``head=False``: the bare
-    ``gru_scan``, which writes hs [B, T, H]): each input read once, the output
-    written once, and the operations these inputs need."""
-    e = ELEMENTWISE[family]
-    if family == "gru":
-        flops = B * T * (2 * (D + H) * 3 * H + e * H)
-        weights = (D + H) * 3 * H + 3 * H + H + T  # wx, wh, b, time_scale, dts
-    elif family == "ltc":
-        flops = B * T * (2 * D * H + H) + B * T * n_sub * (2 * H * H + e * H)
-        weights = D * H + H * H + 3 * H
-    else:
-        flops = B * T * (2 * D * H + 2 * H) + B * T * n_sub * (4 * H * H + e * H)
-        weights = 2 * H * H + D * H + 3 * H
-    if not head:
-        return flops, 4 * (B * T * D + B * H + weights + B * T * H)
-    head_flops = B * (2 * H * Dh + 2 * Dh * K + 3 * H + 2 * Dh + K)
-    head_weights = H * Dh + Dh + Dh * K + K
-    return flops + head_flops, 4 * (B * T * D + B * H + weights + head_weights + B * K)
-
-
-def work_int8(family, B, T, D, H, Dh, K, n_sub=SUBSTEPS, head=True) -> tuple[float, float]:
-    """(operations, bytes) of one int8/PWL call: a multiply-add for every
-    weight use and one scale multiply for every output column of a product
-    (the scale factors out of the sum); int8 weights are read as one byte
-    each, their scales, the biases and the PWL tables as floats."""
-    from repro_torch.core.quant import PWL_FLOATS
-
-    e = ELEMENTWISE_INT8[family]
-    tables = 2 * PWL_FLOATS
-    if family == "gru":  # x·Wx and h·Wh, each scaled per column of 3H
-        flops = B * T * (2 * (D + H) * 3 * H + 2 * 3 * H + e * H)
-        wbytes = (D + H) * 3 * H + 4 * (3 * 3 * H + tables)
-    else:  # x·W_in once a step, h·W_rec every substep, each scaled per column of H
-        flops = B * T * (2 * D * H + H + H) + B * T * n_sub * (2 * H * H + H + e * H)
-        wbytes = D * H + H * H + 4 * (5 * H + PWL_FLOATS)
-    if not head:
-        return flops, 4 * (B * T * D + B * H + B * T * H) + wbytes
-    head_flops = B * (2 * H * Dh + Dh + 2 * Dh * K + K + 3 * H + 2 * Dh + K)
-    head_bytes = H * Dh + Dh * K + 4 * (2 * Dh + 2 * K)
-    return flops + head_flops, 4 * (B * T * D + B * H + B * K) + wbytes + head_bytes
-
-
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    """The least time the card could take: the larger of operations over the
-    peak for their type (float32 unless named) and bytes over the memory rate."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def tick_work(S, L, C, n, m, N, T, H, Dh, Ko, Kc) -> tuple[float, float]:
-    """(operations, bytes) of one ``mr_tick`` call: the GRU scan and head of
-    every slot's N windows, the window mean, EMA and delta; every input read
-    once (buffers, chunks, stats, the previous readout, the flags, each
-    slot's weights) and every output written once (rolled buffers, theta,
-    delta)."""
-    D = n + m
-    flops = S * N * T * (2 * D * 3 * H + 2 * H * 3 * H + ELEMENTWISE["gru"] * H)
-    flops += S * N * (2 * H * Dh + 2 * Dh * Ko + 3 * H + 2 * Dh + Ko)  # the head
-    flops += S * (N * T * D * 2 + Kc * (N + 8))  # normalization; mean, EMA, delta
-    weights = (D + H) * 3 * H + 3 * H + H + H * Dh + Dh + Dh * Ko + Ko
-    reads = L * D + C * D + 2 * n + Kc + 2 + weights
-    writes = L * D + Kc + 1
-    return flops, 4 * S * (reads + writes)
-
-
-def tick_work_int8(S, L, C, n, m, N, T, H, Dh, Ko, Kc) -> tuple[float, float]:
-    """``tick_work`` of ``mr_tick_int8``: the int8 cell and head (a
-    multiply-add a weight use, a scale multiply an output column), one-byte
-    weights beside float scales and biases, the two PWL tables read once."""
-    from repro_torch.core.quant import PWL_FLOATS
-
-    D = n + m
-    flops = S * N * T * (2 * D * 3 * H + 2 * H * 3 * H + 2 * 3 * H + ELEMENTWISE_INT8["gru"] * H)
-    flops += S * N * (2 * H * Dh + Dh + 2 * Dh * Ko + Ko + 3 * H + 2 * Dh + Ko)
-    flops += S * (N * T * D * 2 + Kc * (N + 8))
-    weights = (D + H) * 3 * H + H * Dh + Dh * Ko + 4 * (3 * 3 * H + 2 * Dh + 2 * Ko)
-    reads = 4 * (L * D + C * D + 2 * n + Kc + 2) + weights
-    writes = 4 * (L * D + Kc + 1)
-    return flops, S * (reads + writes) + 4 * 2 * PWL_FLOATS
 
 
 def ssd_work(B, T, H, P, N, G, L, itemsize) -> tuple[float, float, float]:
@@ -685,6 +624,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible")
     from repro_torch import api
+    from repro_torch.analysis import audit as audit_mod
+    from repro_torch.analysis import tuner
     from repro_torch.core import merinda
     from repro_torch.core.engine import make_phys
     from repro_torch.core.library import term_names
@@ -1466,14 +1407,28 @@ def main() -> None:
     # -- 8b. the int8 service: serve_mr --quant, every eviction through mr_step_int8 --------
     with Phase("main stream int8"):
         quant_args = serve_mr.build_parser().parse_args(QUANT_ARGS)
-        same = lambda a: {k: v for k, v in vars(a).items() if k not in ("streams", "quant")}
+        same = lambda a: {k: v for k, v in vars(a).items()
+                          if k not in ("streams", "quant", *ANALYSIS_FLAGS)}  # fmt: skip
         check(same(quant_args) == same(serve_args) and quant_args.streams <= serve_args.streams,
               "the int8 service's fleet begins phase 8's")  # fmt: skip
         log(f"[main stream int8] python -m repro_torch.launch.serve_mr {' '.join(QUANT_ARGS)}")
+        analysis_counts = {}
+
+        def ready(plan):
+            # the plan is compiled: what the tuner timed and the audit ran ends here,
+            # and the service's own launches are counted from 0
+            analysis_counts.update((k, n) for k, n in read_counts().items() if n)
+            zero_counts()
+
         zero_counts()
         torch.cuda.synchronize()
-        # the 4 streams are the first 4 of phase 8's fleet: its baseline serves them
-        q_scenario = serve_mr.serve(quant_args, baseline=scenario["theta_base"])
+        # the 4 streams are the first 4 of phase 8's fleet: its baseline serves them; a
+        # fresh tune cache, so the tuner times its candidates in this run
+        with tempfile.TemporaryDirectory() as tune_dir:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = tune_dir
+            q_scenario = serve_mr.serve(quant_args, baseline=scenario["theta_base"],
+                                        on_ready=ready)  # fmt: skip
+            del os.environ["REPRO_TORCH_TUNE_CACHE"]
         torch.cuda.synchronize()
         counts = read_counts()
         q_svc, q_stats = q_scenario["service"], q_scenario["stats"]
@@ -1487,6 +1442,16 @@ def main() -> None:
             f"phase 8's; launches {counts}; median host syncs a tick after the first {steady}"
         )
         check(q_svc.quant and q_scenario["plan"].lowering.quant_serving, "int8 service lowering")
+        q_low = q_scenario["plan"].lowering
+        log(f"[main stream int8] plan analysis: audit {q_low.audit}, tuned {q_low.tuned}, bank "
+            f"{q_low.tick_slots_per_bank}, fused {q_low.fused}")  # fmt: skip
+        check(q_low.audit == "pass:R1,R3,R4" and q_low.tuned == "measured",
+              f"the int8 service's plan analysis: {q_low.audit}, {q_low.tuned}")  # fmt: skip
+        # counted apart: the tuner times each bank's mr_tick, the audit runs the tick and
+        # the int8 readout (traced, then under sync-debug mode)
+        log(f"[main stream int8] the plan analysis launched {analysis_counts} at compile time")
+        check(analysis_counts.get("mr_tick", 0) > 0 and analysis_counts.get("mr_step_int8", 0) > 0,
+              f"the int8 service's plan analysis launched {analysis_counts}")  # fmt: skip
         check(q_scenario["failures"] == 0 and len(q_scenario["rows"]) == quant_args.streams,
               f"int8 stream scenario: {q_scenario['failures']} streams failed")  # fmt: skip
         check(counts["mr_tick"] == q_ticks, f"mr_tick launched {counts['mr_tick']} times in {q_ticks} ticks")
@@ -1505,7 +1470,8 @@ def main() -> None:
     # through the slot-axis mr_step, every readout through mr_tick, every eviction
     # through mr_step_int8 ----------------------------------------------------------
     fleet = lambda a: {k: v for k, v in vars(a).items()
-                       if k not in ("streams", "quant", "fused", "encoder", "tick_kernel")}  # fmt: skip
+                       if k not in ("streams", "quant", "fused", "encoder", "tick_kernel",
+                                    *ANALYSIS_FLAGS)}  # fmt: skip
     with Phase("main stream fused"):
         f_args = serve_mr.build_parser().parse_args(FUSED_ARGS)
         check(fleet(f_args) == fleet(serve_args) and f_args.streams <= serve_args.streams,
@@ -2403,6 +2369,90 @@ def main() -> None:
 
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
+
+    # -- 8m. plan analysis: each main path's plan tuned on the card and audited ----------
+    def first_step(plan):
+        """One training step of ``plan``'s config from the quickstart's first batch."""
+        params = merinda.init_mr(torch.Generator(device=dev).manual_seed(0), plan.cfg, dev)
+        phys = make_phys(plan.cfg, norm, dev)
+        out, _, aux = merinda.mr_train_step(params, adamw_init(params), plan.cfg, batch, None,
+                                            3e-3, phys)  # fmt: skip
+        return [*tree_leaves(out), aux["loss"]]
+
+    def monitor_tick(plan):
+        """One K = 0 tick of ``plan`` on 4 admitted slots: its Theta [S, n_terms, n]."""
+        cfg, scfg = plan.cfg, plan.scfg
+        state = stream.init_slots(0, cfg, scfg, 4, dev)
+        for slot in range(4):
+            stream.admit(state, slot, slot, hist[slot : slot + scfg.buf_len],
+                         np.zeros((scfg.buf_len, 1), np.float32), *stream.cold_start(0, slot, cfg, dev))  # fmt: skip
+        y, u = (torch.from_numpy(c).to(dev) for c in tick_chunk_at(scfg.buf_len, scfg.chunk))
+        return [plan.tick(state, y, u, None)[0].theta]
+
+    def tick_chunk_at(at, chunk):
+        return (np.repeat(hist[at : at + chunk][None], 4, axis=0),
+                np.zeros((4, chunk, 1), np.float32))  # fmt: skip
+
+    analysis = {}
+    with Phase("plan analysis"), tempfile.TemporaryDirectory() as tune_dir:
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = tune_dir
+        # serve_mr's width and geometry, fused, at K = 2 steps a tick (8 in the service: the
+        # depth the audit runs twice a program, cut for time)
+        serve_spec = scenario["plan"].spec
+        sscfg = dataclasses.replace(serve_spec.stream_config(), steps_per_tick=2)
+        tspec = dataclasses.replace(serve_spec.tick_spec(), steps_per_tick=2)
+        serve_spec = dataclasses.replace(serve_spec, fused=True, block_b="auto", stream=sscfg,
+                                         tick=tspec)  # fmt: skip
+        specs = {  # label -> (spec, the mesh's devices, how its first step is held)
+            "quickstart gru_flow": (runs["gru_flow"][0], None, first_step),
+            "quickstart ltc": (runs["ltc"][0], None, first_step),
+            "serve banked": (serve_spec, None, None),
+            "serve device plane": (dataclasses.replace(serve_spec, tick=dataclasses.replace(
+                tspec, control="device", snapshot_period=SNAPSHOT_PERIOD)), None, None),
+            "serve K=0 int8": (dataclasses.replace(
+                serve_spec, precision="int8_pwl",
+                stream=dataclasses.replace(sscfg, steps_per_tick=0),
+                tick=dataclasses.replace(tspec, steps_per_tick=0)), None, monitor_tick),
+            "serve mesh 2": (dataclasses.replace(serve_spec, mesh_slots=2), [dev, dev], None),
+        }  # fmt: skip
+        for label, (a_spec, devices, held) in specs.items():
+            t0 = time.perf_counter()
+            report = tuner.tune(a_spec, device=dev)
+            log(f"[plan analysis] {label}: the candidate table, each candidate's stage timed "
+                f"with CUDA events (meas_us: a call, the median of {tuner.RUNS} runs of "
+                f"{tuner.TIMED} held behind a spin kernel); {smi}\n" + tuner.explain(report))  # fmt: skip
+            scored = report.candidates + report.tick_candidates
+            n_timed = sum(sc.measured_us is not None for sc in scored)
+            check(not report.cache_hit and n_timed == report.n_lowered > 0,
+                  f"{label}: {n_timed} of {report.n_lowered} scored candidates timed")  # fmt: skip
+            check(all(sc.parsed_bytes == sc.predicted_bytes for sc in scored
+                      if sc.parsed_bytes is not None), f"{label}: a carve off its model")  # fmt: skip
+            try:
+                plan = api.compile_plan(a_spec, devices=devices, audit="error", tune="measured")
+            except audit_mod.AuditError as e:
+                check(False, f"{label}: {e}")
+            low = plan.lowering
+            warm = tuner.tune(a_spec, device=dev)
+            rules_checked = low.audit.split(":")[1].split(",")
+            log(f"[plan analysis] {label}: audit {low.audit}; tuned {low.tuned}: block_b "
+                f"{low.block_b}, fused {low.fused}, unroll {low.substep_unroll}, bank "
+                f"{low.tick_slots_per_bank}; carve {low.measured_bytes} B, model "
+                f"{low.predicted_bytes} B; a warm tune timed {warm.n_lowered} candidates")  # fmt: skip
+            check(low.tuned == "measured:cached" and "R2" in rules_checked,
+                  f"{label}: {low.tuned}, {low.audit}")  # fmt: skip
+            check(warm.cache_hit and warm.n_lowered == 0, f"{label}: a warm tune timed {warm.n_lowered}")
+            gap = None
+            if held is not None:  # the tuned plan's first step against the untuned plan's
+                base, tuned = held(api.compile_plan(a_spec, devices=devices)), held(plan)
+                torch.cuda.synchronize()
+                gap = max((a - b).abs().max().item() for a, b in zip(base, tuned))
+                log(f"[plan analysis] {label}: the tuned plan's first "
+                    f"{'tick' if held is monitor_tick else 'step'} {gap:.3e} from the untuned's")
+                check(gap <= TOL, f"{label}: the tuned plan's first step {gap:.3e} off")
+            analysis[label] = dict(audit=low.audit, chosen=report.chosen.candidate.label(),
+                                   bank=low.tick_slots_per_bank, gap=gap,
+                                   seconds=time.perf_counter() - t0)  # fmt: skip
+        del os.environ["REPRO_TORCH_TUNE_CACHE"]
 
     def tick_chunk(t):
         return (np.repeat(hist[160 + 16 * t : 176 + 16 * t][None], 4, axis=0),

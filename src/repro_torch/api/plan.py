@@ -28,6 +28,13 @@ The fused tile is resolved against the compile-time batch, as
 ``repro/api/plan.py`` ``_compile_time_batch``: a stream's windows a slot,
 else ``batch_size``; in stream mode over the ``n_slots`` slots.
 
+``compile_plan(spec, audit=..., tune=...)`` runs plan analysis
+(``analysis/``): ``tune="static"|"measured"`` picks the fused tile, fused
+against unfused, the LTC and NODE kernels' substep unroll and the tick's bank
+size (measured: timed on the card with CUDA events, the decision cached on
+disk), and ``audit="warn"|"error"`` holds the plan's programs to the rules
+R1-R5 and stamps the verdict into ``plan.lowering.audit``.
+
 ``precision="int8_pwl"`` (``Lowering.quant_serving``) serves through the
 fixed-point fused stage: ``readout`` and every eviction of the service read
 out through ``mr_step_int8`` (``mr_step_ltc_int8`` on the ltc row), and a
@@ -75,6 +82,21 @@ class Lowering:
     smem_budget_bytes: int | None  # the budget the "auto" tile fit into
     device: str
     mesh_shape: tuple[int, ...] = ()  # device mesh over the slot axis (stream mode)
+    # which source resolved smem_budget_bytes: "explicit" (the spec's),
+    # "device" (the card's opt-in shared memory a block) or "default"
+    # (tiling.resolve_smem_budget)
+    smem_budget_source: str | None = None
+    # plan analysis (analysis/): the LTC and NODE kernels' substep unroll; how
+    # the lowering was chosen ("static" | "measured" | "measured:cached", None =
+    # untuned); the cache key the measured decision persists under; the chosen
+    # candidate's shared-memory model and the launcher's carve for it (the
+    # figure R2 holds a measured-tuned plan to); the audit verdict
+    substep_unroll: int = 1
+    tuned: str | None = None
+    tune_cache_key: str | None = None
+    predicted_bytes: int | None = None
+    measured_bytes: float | None = None
+    audit: str | None = None  # "pass:R1,R3,..." | "fail:R2"
     # -- stream mode (None elsewhere) ------------------------------------------
     tick_kernel: str | None = None  # "banked" | "composite"
     tick_slots_per_bank: int | None = None  # mr_tick's slots per block (banked)
@@ -319,12 +341,37 @@ def _slot_mesh(spec: RecoverySpec, device: torch.device, devices):
     return build_mesh(MeshPlan((spec.mesh_slots,), ("slots",)), devices)
 
 
+AUDIT_MODES = ("off", "warn", "error")
+TUNE_MODES = ("off", "static", "measured")
+
+
 def compile_plan(
-    spec: RecoverySpec, device: str | torch.device | None = None, devices=None
+    spec: RecoverySpec,
+    device: str | torch.device | None = None,
+    devices=None,
+    audit: str = "off",
+    tune: str = "off",
 ) -> RecoveryPlan:
     """Validate and lower a RecoverySpec; see the module docstring. ``devices``
     lists the devices a slot mesh may take (its first one is the plan's
-    device when ``device`` is not given)."""
+    device when ``device`` is not given).
+
+    ``audit`` runs the plan auditor (``analysis/audit.py``) over the plan's
+    programs: ``"warn"`` warns once a finding, ``"error"`` raises
+    ``AuditError`` on any; both stamp the verdict into ``lowering.audit``.
+    ``tune`` (``analysis/tuner.py``): ``"static"`` records the candidate table
+    through the shared-memory model and chooses what the static policy
+    chooses; ``"measured"`` times every candidate's stage on the card (the
+    model and the roofline rank them on the CPU) and caches the decision, so
+    a warm recompile times nothing. The choice and its evidence land in
+    ``lowering`` (``block_b``, ``fused``, ``substep_unroll``,
+    ``tick_slots_per_bank``, ``tuned``, ``tune_cache_key``,
+    ``predicted_bytes``, ``measured_bytes``).
+    """
+    if audit not in AUDIT_MODES:
+        raise ValueError(f"audit must be one of {AUDIT_MODES}, got {audit!r}")
+    if tune not in TUNE_MODES:
+        raise ValueError(f"tune must be one of {TUNE_MODES}, got {tune!r}")
     if devices is not None:
         devices = [rt.resolve_device(d, "compile_plan") for d in devices]
         device = devices[0] if device is None else device
@@ -345,12 +392,24 @@ def compile_plan(
             f"qat (fixed-point fake-quant) is implemented for the GRU families, "
             f"got encoder={spec.encoder!r}"
         )
+    tiling.check_unroll(spec.substep_unroll, row.family)
     rt.pin_fp32_matmul()
-    block_b, smem, budget = None, None, None
-    if spec.fused:
+    report = None
+    if tune != "off":
+        from repro_torch.analysis import tuner as tuner_mod
+
+        report = tuner_mod.tune(spec, mode=tune, device=device)
+    chosen = report.chosen.candidate if report is not None else None
+    fused = chosen.fused if chosen is not None else spec.fused
+    unroll = chosen.substep_unroll if chosen is not None else spec.substep_unroll
+    block_b, smem, budget, budget_src = None, None, None, None
+    if chosen is not None and fused:
+        block_b = chosen.block_b
+        budget, budget_src = report.budget_bytes, report.budget_source
+    elif spec.fused:
         batch = _compile_time_batch(spec)
         if spec.block_b == "auto":
-            budget = spec.smem_budget_bytes or tiling.SMEM_BUDGET_BYTES
+            budget, budget_src = tiling.resolve_smem_budget(device, spec.smem_budget_bytes)
             slots = spec.n_slots // spec.mesh_slots if spec.mode == "stream" else 1
             block_b = tiling.auto_block_b(spec.to_mr_config(), row.family, batch, budget,
                                           slots=slots)  # fmt: skip
@@ -360,13 +419,18 @@ def compile_plan(
                     f"block_b={spec.block_b} does not divide the compile-time batch ({batch})"
                 )
             block_b = spec.block_b
-        if block_b is not None:
-            smem = tiling.config_smem_bytes(spec.to_mr_config(), row.family, block_b)
-    routes_kernel = spec.fused or row.kernel or quant_serving
+    if fused and block_b is not None:
+        smem = tiling.config_smem_bytes(spec.to_mr_config(), row.family, block_b)
+    cfg = spec.to_mr_config(block_b, substep_unroll=unroll)
+    if cfg.fused != fused:  # the tuner may flip the dispatch (the same math)
+        cfg = dataclasses.replace(cfg, fused=fused)
+    routes_kernel = fused or row.kernel or quant_serving
     stream_fields = {}
     if spec.mode == "stream":
         quant_tick = _quant_tick(quant_serving, spec.stream_config())
         tick_kernel, spb = _resolve_tick_kernel(spec, spec.to_mr_config(), quant_tick)
+        if tick_kernel == "banked" and report is not None and report.chosen_tick is not None:
+            spb = report.chosen_tick.candidate.slots_per_bank  # the tuner's bank
         tspec = spec.tick_spec()
         device_plane = tspec.control == "device"
         stream_fields = dict(
@@ -380,9 +444,12 @@ def compile_plan(
             checkpoint_dir=tspec.checkpoint_dir,
             overflow_capacity=tspec.overflow_capacity,
         )
+    tuned = None
+    if report is not None:
+        tuned = "measured:cached" if report.cache_hit else report.mode
     lowering = Lowering(
         encoder=spec.encoder,
-        fused=spec.fused,
+        fused=fused,
         kernel=row.kernel,
         qat=spec.qat is not None,
         quant_serving=quant_serving,
@@ -392,6 +459,25 @@ def compile_plan(
         smem_budget_bytes=budget,
         device=str(device),
         mesh_shape=(spec.mesh_slots,) if spec.mode == "stream" else (),
+        smem_budget_source=budget_src,
+        substep_unroll=unroll,
+        tuned=tuned,
+        tune_cache_key=report and report.cache_key,
+        predicted_bytes=report and report.chosen.predicted_bytes,
+        measured_bytes=report and report.chosen.parsed_bytes,
         **stream_fields,
     )
-    return RecoveryPlan(spec, spec.to_mr_config(block_b), lowering, mesh)
+    plan = RecoveryPlan(spec, cfg, lowering, mesh)
+    if audit != "off":
+        from repro_torch.analysis import audit as audit_mod
+
+        verdict = audit_mod.audit_plan(plan)
+        plan.lowering = dataclasses.replace(lowering, audit=verdict.verdict)
+        if verdict.findings:
+            if audit == "error":
+                raise audit_mod.AuditError(verdict)
+            import warnings
+
+            for f in verdict.findings:
+                warnings.warn(f"plan audit: {f}", stacklevel=2)
+    return plan

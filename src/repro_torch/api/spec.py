@@ -103,8 +103,14 @@ class RecoverySpec:
     qat: QuantConfig | None = None  # fixed-point fake-quant during training
     fused: bool = False  # stage-fused per-window step (kernels/mr_step)
     block_b: int | str | None = None  # fused batch tile: int, None, or "auto"
-    # shared memory the "auto" tile fits into; None = one block's 227 KB
+    # shared memory the "auto" tile fits into; None = the card's opt-in shared
+    # memory a block (kernels/mr_step/tiling.resolve_smem_budget; 227 KB on an
+    # H100, and on the CPU); plan.lowering.smem_budget_source records which
     smem_budget_bytes: int | None = None
+    # the LTC and NODE kernels' substep-loop unroll (MRConfig.substep_unroll):
+    # 1 = none. compile_plan(tune="static"|"measured") may resolve another;
+    # the resolved factor lands in plan.lowering.substep_unroll
+    substep_unroll: int = 1
 
     # -- execution ----------------------------------------------------------
     mode: str = "offline"  # "offline" | "batch" | "stream"
@@ -141,6 +147,8 @@ class RecoverySpec:
             raise ValueError(
                 'smem_budget_bytes requires block_b="auto" (a fixed tile ignores the budget)'
             )
+        if self.substep_unroll < 1:
+            raise ValueError(f"substep_unroll must be >= 1, got {self.substep_unroll}")
         if self.mesh_slots < 1:
             raise ValueError(f"mesh_slots must be >= 1, got {self.mesh_slots}")
         if self.mode == "stream":
@@ -181,8 +189,11 @@ class RecoverySpec:
             if self.tick is not None:
                 raise ValueError(f"tick= requires mode='stream', got mode={self.mode!r}")
 
-    def to_mr_config(self, block_b: int | None = None) -> MRConfig:
-        """The MRConfig this spec lowers to; ``block_b`` is the resolved tile."""
+    def to_mr_config(
+        self, block_b: int | None = None, substep_unroll: int | None = None
+    ) -> MRConfig:
+        """The MRConfig this spec lowers to; ``block_b`` is the resolved tile and
+        ``substep_unroll`` overrides the spec's factor (the tuner's choice)."""
         if block_b is None and isinstance(self.block_b, int):
             block_b = self.block_b
         return MRConfig(
@@ -201,6 +212,7 @@ class RecoverySpec:
             quant=self.qat,
             fused=self.fused,
             block_b=block_b,
+            substep_unroll=self.substep_unroll if substep_unroll is None else substep_unroll,
         )
 
     def stream_config(self) -> StreamConfig:

@@ -96,7 +96,11 @@ def run_epoch(
         rows.append(aux)
         lrs.append(lr_t)
     metrics = {k: torch.stack([r[k] for r in rows]) for k in rows[0]} if rows else {}
-    metrics["lr"] = torch.tensor(lrs, dtype=torch.float32, device=ys.device)
+    # pinned and non-blocking on the card: any other host-to-device copy waits
+    lr = torch.tensor(lrs, dtype=torch.float32)
+    if ys.device.type == "cuda":
+        lr = lr.pin_memory()
+    metrics["lr"] = lr.to(ys.device, non_blocking=True)
     return params, opt_state, metrics
 
 

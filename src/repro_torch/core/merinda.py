@@ -53,6 +53,9 @@ class MRConfig:
     quant: QuantConfig | None = None  # fixed-point QAT when set
     fused: bool = False  # stage-fused per-window step (kernels/mr_step)
     block_b: int | None = None  # fused-stage batch tile (None = fitted per call)
+    # the LTC and NODE kernels' substep-loop unroll (kernels/mr_step/tiling.py
+    # SUBSTEP_UNROLLS): no value depends on it, the plain versions ignore it
+    substep_unroll: int = 1
 
     @property
     def n_terms(self) -> int:

@@ -71,7 +71,9 @@ def node_scan(
         z = torch.tanh(h @ params.w_f1 + params.b_f1)
         return z @ params.w_f2 + params.b_f2
 
-    dt = torch.tensor(dt, dtype=h0.dtype, device=h0.device)
+    # a fill on the device: torch.tensor(dt, device=...) would copy from the
+    # host and wait for the card on every call
+    dt = torch.full((), dt, dtype=h0.dtype, device=h0.device)
     h, hs = h0, []
     for t in range(xs.shape[1]):
         x_t = xs[:, t]

@@ -49,6 +49,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                                  wc::slot_at(hs, st.v[7]), T, D, H_rt, 0, 0, bb, 0, -1);
 }
 
+// The dynamic shared memory a launch requests, in bytes: GruLayout with no head's carve
+// (exported as gru_scan_smem_bytes).
+static size_t gru_scan_smem(int D, int H, int bb) {
+  return wc::GruLayout(D, H, 0, 0, bb).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
 template <int N, bool FLOW>
 static cudaError_t launch_gru_scan(const float* xs, const float* h0, const float* wx,
@@ -57,7 +63,7 @@ static cudaError_t launch_gru_scan(const float* xs, const float* h0, const float
                                    int S, int B, int T, int D, int H, int bb,
                                    cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::GruLayout(D, H, 0, 0, bb).total * sizeof(float);
+  const size_t smem = gru_scan_smem(D, H, bb);
   auto kernel = &gru_scan_kernel<N, FLOW>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -84,6 +90,10 @@ static cudaError_t launch_gru_scan_width(const float* xs, const float* h0, const
 }
 
 }  // namespace repro
+
+extern "C" long long gru_scan_smem_bytes(int D, int H, int bb) {
+  return (long long)repro::gru_scan_smem(D, H, bb);
+}
 
 // Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
 // shared by every slot), hs [S, B, T, H].

@@ -38,6 +38,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
   wc::gru_windows<N, false, true>(xs, h0, args, hs, T, D, H_rt, 0, 0, bb, 0, -1);
 }
 
+// The dynamic shared memory a launch requests, in bytes: GruQLayout with no head's carve
+// (exported as gru_scan_int8_smem_bytes).
+static size_t gru_scan_int8_smem(int D, int H, int bb, int n_seg) {
+  return wc::GruQLayout(D, H, 0, 0, bb, pwl_floats(n_seg)).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
 template <int N>
 static cudaError_t launch_gru_scan_int8(const float* xs, const float* h0, const int8_t* wxq,
@@ -46,7 +52,7 @@ static cudaError_t launch_gru_scan_int8(const float* xs, const float* h0, const 
                                         float* hs, int B, int T, int D, int H, int bb, int n_seg,
                                         cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::GruQLayout(D, H, 0, 0, bb, pwl_floats(n_seg)).total * sizeof(float);
+  const size_t smem = gru_scan_int8_smem(D, H, bb, n_seg);
   auto kernel = &gru_scan_int8_kernel<N>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -56,6 +62,10 @@ static cudaError_t launch_gru_scan_int8(const float* xs, const float* h0, const 
 }
 
 }  // namespace repro
+
+extern "C" long long gru_scan_int8_smem_bytes(int D, int H, int bb, int n_seg) {
+  return (long long)repro::gru_scan_int8_smem(D, H, bb, n_seg);
+}
 
 extern "C" int gru_scan_int8_launch(const float* xs, const float* h0, const int8_t* wxq,
                                     const int8_t* whq, const float* sx, const float* sh,

@@ -51,6 +51,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                                   act_frac);
 }
 
+// The dynamic shared memory a launch requests, in bytes: GruLayout's carve
+// (exported as mr_step_smem_bytes).
+static size_t mr_step_smem(int D, int H, int Dh, int K, int bb) {
+  return wc::GruLayout(D, H, Dh, K, bb).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
 template <int N, bool FLOW>
 static cudaError_t launch_mr_step(const float* xs, const float* h0, const float* wx,
@@ -61,7 +67,7 @@ static cudaError_t launch_mr_step(const float* xs, const float* h0, const float*
                                   int Dh, int K, int bb, int act_int, int act_frac,
                                   cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::GruLayout(D, H, Dh, K, bb).total * sizeof(float);
+  const size_t smem = mr_step_smem(D, H, Dh, K, bb);
   auto kernel = &mr_step_kernel<N, FLOW>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -93,6 +99,10 @@ static cudaError_t launch_mr_step_width(const float* xs, const float* h0, const 
 }
 
 }  // namespace repro
+
+extern "C" long long mr_step_smem_bytes(int D, int H, int Dh, int K, int bb) {
+  return (long long)repro::mr_step_smem(D, H, Dh, K, bb);
+}
 
 // Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
 // shared by every slot), out [S, B, K].

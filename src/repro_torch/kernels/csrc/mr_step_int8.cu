@@ -44,6 +44,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
   wc::gru_windows<N, false, false>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, 0, -1);
 }
 
+// The dynamic shared memory a launch requests, in bytes: GruQLayout's carve
+// (exported as mr_step_int8_smem_bytes).
+static size_t mr_step_int8_smem(int D, int H, int Dh, int K, int bb, int n_seg) {
+  return wc::GruQLayout(D, H, Dh, K, bb, pwl_floats(n_seg)).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
 template <int N>
 static cudaError_t launch_mr_step_int8(const float* xs, const float* h0, const int8_t* wxq,
@@ -54,7 +60,7 @@ static cudaError_t launch_mr_step_int8(const float* xs, const float* h0, const i
                                        float* out, int B, int T, int D, int H, int Dh, int K,
                                        int bb, int n_seg, cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::GruQLayout(D, H, Dh, K, bb, pwl_floats(n_seg)).total * sizeof(float);
+  const size_t smem = mr_step_int8_smem(D, H, Dh, K, bb, n_seg);
   auto kernel = &mr_step_int8_kernel<N>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -65,6 +71,10 @@ static cudaError_t launch_mr_step_int8(const float* xs, const float* h0, const i
 }
 
 }  // namespace repro
+
+extern "C" long long mr_step_int8_smem_bytes(int D, int H, int Dh, int K, int bb, int n_seg) {
+  return (long long)repro::mr_step_int8_smem(D, H, Dh, K, bb, n_seg);
+}
 
 extern "C" int mr_step_int8_launch(const float* xs, const float* h0, const int8_t* wxq,
                                    const int8_t* whq, const float* sx, const float* sh,

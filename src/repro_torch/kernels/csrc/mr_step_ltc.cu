@@ -10,7 +10,10 @@
 //            h = (h + sub_dt * f * a) / (1 + sub_dt * (inv_tau + f))
 //
 // with sub_dt = dt / K in float32, handed in by the wrapper, and K a runtime
-// int. Then the head on h_T.
+// int. Then the head on h_T. The substep loop takes a compile-time unroll
+// factor UNROLL (wc::substeps; any K runs at each factor, and no factor changes
+// a bit of the result); only UNROLL = 1 is instantiated, since 2 and 6 measured
+// no faster on an H100.
 //
 // A warp-per-window recurrence (warp_cell.cuh ltc_windows, shared with
 // mr_step_ltc_int8.cu, on the F32Ltc substep): a block of `bb` windows stages
@@ -37,7 +40,7 @@
 
 namespace repro {
 
-template <int N>
+template <int N, int UNROLL>
 // minBlocksPerSM = 1: without it ptxas holds the H=64 instantiations to
 // 64-128 registers and issues each shared load just ahead of its FMAs
 __global__ void __launch_bounds__(wc::kWarps * 32, 1)
@@ -54,13 +57,19 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                          wc::slot_at(inv_tau, st.v[6]), wc::slot_at(w1, st.v[7]),
                          wc::slot_at(b1, st.v[8]),      wc::slot_at(w2, st.v[9]),
                          wc::slot_at(b2, st.v[10])};
-  wc::ltc_windows<N>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]), args,
+  wc::ltc_windows<N, UNROLL>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]), args,
                      wc::slot_at(out, st.v[11]), T, D, H_rt, Dh, K, bb, n_substeps, sub_dt,
                      act_int, act_frac);
 }
 
+// The dynamic shared memory a launch requests, in bytes: LtcLayout's carve
+// (exported as mr_step_ltc_smem_bytes).
+static size_t ltc_smem(int D, int H, int Dh, int K, int bb) {
+  return wc::LtcLayout(D, H, Dh, K, bb).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
-template <int N>
+template <int N, int UNROLL>
 static cudaError_t launch_ltc(const float* xs, const float* h0, const float* w_in,
                               const float* w_rec, const float* bias, const float* a,
                               const float* inv_tau, const float* w1, const float* b1,
@@ -69,8 +78,8 @@ static cudaError_t launch_ltc(const float* xs, const float* h0, const float* w_i
                               int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
                               int act_frac, cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::LtcLayout(D, H, Dh, K, bb).total * sizeof(float);
-  auto kernel = &mr_step_ltc_kernel<N>;
+  const size_t smem = ltc_smem(D, H, Dh, K, bb);
+  auto kernel = &mr_step_ltc_kernel<N, UNROLL>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B / bb, S), 32 * wc::warps_for(bb), smem, stream>>>(
@@ -79,7 +88,22 @@ static cudaError_t launch_ltc(const float* xs, const float* h0, const float* w_i
   return cudaGetLastError();
 }
 
+// The launch at width N with the substep loop unrolled `unroll` times: one of
+// the instantiated factors (kernels/mr_step/tiling.py SUBSTEP_UNROLLS), else
+// cudaErrorInvalidValue. Another factor is one more case here.
+template <int N, class... Args>
+static cudaError_t launch_ltc_unrolled(int unroll, Args... args) {
+  switch (unroll) {
+    case 1: return launch_ltc<N, 1>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace repro
+
+extern "C" long long mr_step_ltc_smem_bytes(int D, int H, int Dh, int K, int bb) {
+  return (long long)repro::ltc_smem(D, H, Dh, K, bb);
+}
 
 // Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
 // shared by every slot), out [S, B, K].
@@ -91,17 +115,17 @@ extern "C" int mr_step_ltc_launch(const float* xs, const float* h0, const float*
                                   long long s_bias, long long s_a, long long s_inv_tau,
                                   long long s_w1, long long s_b1, long long s_w2, long long s_b2,
                                   int S, int B, int T, int D, int H, int Dh, int K, int bb,
-                                  int n_substeps, int act_int, int act_frac, float sub_dt,
-                                  void* stream) {
+                                  int n_substeps, int unroll, int act_int, int act_frac,
+                                  float sub_dt, void* stream) {
   if (S < 1 || S > repro::wc::kMaxSlots || bb < 1 || B % bb != 0 || T < 1 || n_substeps < 1 ||
       H < 1 || H > 32 * repro::wc::kMaxUnits)
     return (int)cudaErrorInvalidValue;
   const repro::wc::SlotStrides<12> st{{s_xs, s_h0, s_w_in, s_w_rec, s_bias, s_a, s_inv_tau, s_w1,
                                        s_b1, s_w2, s_b2, (long long)B * K}};
-#define REPRO_LTC(N)                                                                          \
-  repro::launch_ltc<N>(xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, st, S, B, T, \
-                       D, H, Dh, K, bb, n_substeps, sub_dt, act_int, act_frac,                  \
-                       (cudaStream_t)stream)
+#define REPRO_LTC(N)                                                                         \
+  repro::launch_ltc_unrolled<N>(unroll, xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, \
+                                out, st, S, B, T, D, H, Dh, K, bb, n_substeps, sub_dt,         \
+                                act_int, act_frac, (cudaStream_t)stream)
   switch (H) {
     case 8: return (int)REPRO_LTC(8);
     case 32: return (int)REPRO_LTC(32);

@@ -49,7 +49,13 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                             int n_substeps, int n_seg, float sub_dt) {
   const wc::LtcQArgs args{w_inq, s_in, w_recq, s_rec, bias, a, inv_tau, sig,
                           w1q,   s1,   b1,     w2q,   s2,   b2, n_seg};
-  wc::ltc_windows<N>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, n_substeps, sub_dt, 0, -1);
+  wc::ltc_windows<N, 1>(xs, h0, args, out, T, D, H_rt, Dh, K, bb, n_substeps, sub_dt, 0, -1);
+}
+
+// The dynamic shared memory a launch requests, in bytes: LtcQLayout's carve
+// (exported as mr_step_ltc_int8_smem_bytes).
+static size_t ltc_int8_smem(int D, int H, int Dh, int K, int bb, int n_seg) {
+  return wc::LtcQLayout(D, H, Dh, K, bb, pwl_floats(n_seg)).total * sizeof(float);
 }
 
 // static: internal linkage, so each library keeps its own `allowed` record
@@ -63,7 +69,7 @@ static cudaError_t launch_ltc_int8(const float* xs, const float* h0, const int8_
                                    int K, int bb, int n_substeps, int n_seg, float sub_dt,
                                    cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::LtcQLayout(D, H, Dh, K, bb, pwl_floats(n_seg)).total * sizeof(float);
+  const size_t smem = ltc_int8_smem(D, H, Dh, K, bb, n_seg);
   auto kernel = &mr_step_ltc_int8_kernel<N>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -74,6 +80,10 @@ static cudaError_t launch_ltc_int8(const float* xs, const float* h0, const int8_
 }
 
 }  // namespace repro
+
+extern "C" long long mr_step_ltc_int8_smem_bytes(int D, int H, int Dh, int K, int bb, int n_seg) {
+  return (long long)repro::ltc_int8_smem(D, H, Dh, K, bb, n_seg);
+}
 
 extern "C" int mr_step_ltc_int8_launch(
     const float* xs, const float* h0, const int8_t* w_inq, const float* s_in,

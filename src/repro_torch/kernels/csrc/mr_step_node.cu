@@ -11,7 +11,10 @@
 //   then     h = h + (x_t . W_in + b_in)
 //
 // with sub_dt the float32 Euler substep handed in by the wrapper and K a
-// runtime int. Then the head on h_T.
+// runtime int. Then the head on h_T. The substep loop takes a compile-time
+// unroll factor UNROLL (wc::substeps; any K runs at each factor, and no factor
+// changes a bit of the result); only UNROLL = 1 is instantiated, since 2 and 6
+// measured no faster on an H100 (6 slower at H = 64).
 //
 // A warp-per-window recurrence (warp_cell.cuh): a block of `bb` windows
 // stages w_f1, w_f2, w_in, the biases and the head weights once; each warp
@@ -35,7 +38,7 @@
 namespace repro {
 
 // Block blockIdx.x's windows of one call: the kernel's body.
-template <int N>
+template <int N, int UNROLL>
 __device__ __forceinline__ void node_windows(
     const float* __restrict__ xs, const float* __restrict__ h0, const float* __restrict__ w_f1,
     const float* __restrict__ b_f1, const float* __restrict__ w_f2,
@@ -163,7 +166,7 @@ __device__ __forceinline__ void node_windows(
       slot ^= 1;
 
       for (int c = 0; c < nc; ++c) {
-        for (int s = 0; s < n_substeps; ++s) {
+        wc::substeps<UNROLL>(n_substeps, [&](int s) {
           float a[1][U];
           wc::matvec<N, 1, U>(row_h, H, nu, w_f1c, a);
 #pragma unroll
@@ -180,7 +183,7 @@ __device__ __forceinline__ void node_windows(
             if (un.own[u]) row_h[un.col[u]] = h[u];
           }
           __syncwarp();
-        }
+        });
       }
     }
     const wc::F32Head hd{smem + L.head.w1, smem + L.head.b1, smem + L.head.w2, smem + L.head.b2,
@@ -189,7 +192,7 @@ __device__ __forceinline__ void node_windows(
   }
 }
 
-template <int N>
+template <int N, int UNROLL>
 // minBlocksPerSM = 1: without it ptxas holds the H=64 instantiations to
 // 64-128 registers and issues each shared load just ahead of its FMAs
 __global__ void __launch_bounds__(wc::kWarps * 32, 1)
@@ -202,7 +205,7 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                         float* __restrict__ out, wc::SlotStrides<13> st, int T, int D, int H_rt,
                         int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
                         int act_frac) {
-  node_windows<N>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]),
+  node_windows<N, UNROLL>(wc::slot_at(xs, st.v[0]), wc::slot_at(h0, st.v[1]),
                   wc::slot_at(w_f1, st.v[2]), wc::slot_at(b_f1, st.v[3]),
                   wc::slot_at(w_f2, st.v[4]), wc::slot_at(b_f2, st.v[5]),
                   wc::slot_at(w_in, st.v[6]), wc::slot_at(b_in, st.v[7]),
@@ -211,8 +214,14 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
                   n_substeps, sub_dt, act_int, act_frac);
 }
 
+// The dynamic shared memory a launch requests, in bytes: NodeLayout's carve
+// (exported as mr_step_node_smem_bytes).
+static size_t node_smem(int D, int H, int Dh, int K, int bb) {
+  return wc::NodeLayout(D, H, Dh, K, bb).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own `allowed` record
-template <int N>
+template <int N, int UNROLL>
 static cudaError_t launch_node(const float* xs, const float* h0, const float* w_f1,
                                const float* b_f1, const float* w_f2, const float* b_f2,
                                const float* w_in, const float* b_in, const float* w1,
@@ -221,8 +230,8 @@ static cudaError_t launch_node(const float* xs, const float* h0, const float* w_
                                int Dh, int K, int bb, int n_substeps, float sub_dt, int act_int,
                                int act_frac, cudaStream_t stream) {
   static size_t allowed[wc::kMaxDevices] = {};
-  const size_t smem = wc::NodeLayout(D, H, Dh, K, bb).total * sizeof(float);
-  auto kernel = &mr_step_node_kernel<N>;
+  const size_t smem = node_smem(D, H, Dh, K, bb);
+  auto kernel = &mr_step_node_kernel<N, UNROLL>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B / bb, S), 32 * wc::warps_for(bb), smem, stream>>>(
@@ -231,7 +240,22 @@ static cudaError_t launch_node(const float* xs, const float* h0, const float* w_
   return cudaGetLastError();
 }
 
+// The launch at width N with the substep loop unrolled `unroll` times: one of
+// the instantiated factors (kernels/mr_step/tiling.py SUBSTEP_UNROLLS), else
+// cudaErrorInvalidValue. Another factor is one more case here.
+template <int N, class... Args>
+static cudaError_t launch_node_unrolled(int unroll, Args... args) {
+  switch (unroll) {
+    case 1: return launch_node<N, 1>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace repro
+
+extern "C" long long mr_step_node_smem_bytes(int D, int H, int Dh, int K, int bb) {
+  return (long long)repro::node_smem(D, H, Dh, K, bb);
+}
 
 // Operand i of slot s at its pointer + s * its slot stride (elements; 0 =
 // shared by every slot), out [S, B, K].
@@ -241,17 +265,17 @@ extern "C" int mr_step_node_launch(
     const float* w2, const float* b2, float* out, long long s_xs, long long s_h0,
     long long s_w_f1, long long s_b_f1, long long s_w_f2, long long s_b_f2, long long s_w_in,
     long long s_b_in, long long s_w1, long long s_b1, long long s_w2, long long s_b2, int S,
-    int B, int T, int D, int H, int Dh, int K, int bb, int n_substeps, int act_int, int act_frac,
-    float sub_dt, void* stream) {
+    int B, int T, int D, int H, int Dh, int K, int bb, int n_substeps, int unroll, int act_int,
+    int act_frac, float sub_dt, void* stream) {
   if (S < 1 || S > repro::wc::kMaxSlots || bb < 1 || B % bb != 0 || T < 1 || n_substeps < 1 ||
       H < 1 || H > 32 * repro::wc::kMaxUnits)
     return (int)cudaErrorInvalidValue;
   const repro::wc::SlotStrides<13> st{{s_xs, s_h0, s_w_f1, s_b_f1, s_w_f2, s_b_f2, s_w_in, s_b_in,
                                        s_w1, s_b1, s_w2, s_b2, (long long)B * K}};
-#define REPRO_NODE(N)                                                                         \
-  repro::launch_node<N>(xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, st, S, \
-                        B, T, D, H, Dh, K, bb, n_substeps, sub_dt, act_int, act_frac,         \
-                        (cudaStream_t)stream)
+#define REPRO_NODE(N)                                                                        \
+  repro::launch_node_unrolled<N>(unroll, xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, \
+                                 w2, b2, out, st, S, B, T, D, H, Dh, K, bb, n_substeps,       \
+                                 sub_dt, act_int, act_frac, (cudaStream_t)stream)
   switch (H) {
     case 8: return (int)REPRO_NODE(8);
     case 32: return (int)REPRO_NODE(32);

@@ -170,6 +170,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
   }
 }
 
+// The dynamic shared memory a launch requests, in bytes: TickLayout's carve, one
+// block of a slot's cluster (exported as mr_tick_smem_bytes).
+static size_t tick_smem(int D, int H, int Dh, int Ko, int T, int N) {
+  return wc::TickLayout(D, H, Dh, Ko, T, N).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own records
 template <int N, bool FLOW>
 static cudaError_t launch_tick(const float* buf_y, const float* new_y, const float* mean,
@@ -186,7 +192,7 @@ static cudaError_t launch_tick(const float* buf_y, const float* new_y, const flo
   static ClusterFit fit;
   const int Nw = (L - T) / stride + 1;
   const unsigned cs = wc::tick_cluster(Nw);
-  const size_t smem = wc::TickLayout(n + m, H, Dh, Ko, T, Nw).total * sizeof(float);
+  const size_t smem = tick_smem(n + m, H, Dh, Ko, T, Nw);
   auto kernel = &mr_tick_kernel<N, FLOW>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -223,6 +229,10 @@ static cudaError_t launch_tick_width(const float* buf_y, const float* new_y, con
 }
 
 }  // namespace repro
+
+extern "C" long long mr_tick_smem_bytes(int D, int H, int Dh, int Ko, int T, int N) {
+  return (long long)repro::tick_smem(D, H, Dh, Ko, T, N);
+}
 
 extern "C" int mr_tick_launch(
     const float* buf_y, const float* new_y, const float* mean, const float* scale,

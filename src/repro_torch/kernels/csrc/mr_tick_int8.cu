@@ -193,6 +193,12 @@ __global__ void __launch_bounds__(wc::kWarps * 32, 1)
   }
 }
 
+// The dynamic shared memory a launch requests, in bytes: TickQLayout's carve, one
+// block of a slot's cluster (exported as mr_tick_int8_smem_bytes).
+static size_t tick_int8_smem(int D, int H, int Dh, int Ko, int T, int N, int n_seg) {
+  return wc::TickQLayout(D, H, Dh, Ko, T, N, pwl_floats(n_seg)).total * sizeof(float);
+}
+
 // static: internal linkage, so each library keeps its own records
 template <int N>
 static cudaError_t launch_tick_int8(
@@ -208,8 +214,7 @@ static cudaError_t launch_tick_int8(
   static ClusterFit fit;
   const int Nw = (L - T) / stride + 1;
   const unsigned cs = wc::tick_cluster(Nw);
-  const size_t smem =
-      wc::TickQLayout(n + m, H, Dh, Ko, T, Nw, pwl_floats(n_seg)).total * sizeof(float);
+  const size_t smem = tick_int8_smem(n + m, H, Dh, Ko, T, Nw, n_seg);
   auto kernel = &mr_tick_int8_kernel<N>;
   cudaError_t err = wc::allow_shared_once(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -221,6 +226,11 @@ static cudaError_t launch_tick_int8(
 }
 
 }  // namespace repro
+
+extern "C" long long mr_tick_int8_smem_bytes(int D, int H, int Dh, int Ko, int T, int N,
+                                             int n_seg) {
+  return (long long)repro::tick_int8_smem(D, H, Dh, Ko, T, N, n_seg);
+}
 
 extern "C" int mr_tick_int8_launch(
     const float* buf_y, const float* new_y, const float* mean, const float* scale,

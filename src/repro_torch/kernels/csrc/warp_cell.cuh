@@ -1019,6 +1019,27 @@ __device__ __forceinline__ void gru_windows(const float* __restrict__ xs,
   }
 }
 
+// The substep loop of the LTC and NODE kernels: substep(s) for s < n, unrolled
+// UNROLL times, a compile-time factor (the remainder of n / UNROLL runs one at
+// a time, so any n runs). Unrolling repeats the same code and reorders no
+// operation: every factor gives the same bits. mr_step_ltc and mr_step_node
+// are instantiated for 1 only (kernels/mr_step/tiling.py SUBSTEP_UNROLLS:
+// 2 and 6 gave the same bits and no faster kernel on an H100); their launchers
+// refuse any other factor.
+template <int UNROLL, class F>
+__device__ __forceinline__ void substeps(int n, F&& substep) {
+  if constexpr (UNROLL == 1) {
+    for (int s = 0; s < n; ++s) substep(s);
+  } else {
+    int s = 0;
+    for (; s + UNROLL <= n; s += UNROLL) {
+#pragma unroll
+      for (int i = 0; i < UNROLL; ++i) substep(s + i);
+    }
+    for (; s < n; ++s) substep(s);
+  }
+}
+
 // The body of the LTC kernels, mr_step_ltc.cu and mr_step_ltc_int8.cu: a block
 // of `bb` windows (LtcLayout, or LtcQLayout for the int8 operands LtcQArgs)
 // stages w_rec, w_in, bias, a, inv_tau and the head weights once, meets its one
@@ -1028,8 +1049,9 @@ __device__ __forceinline__ void gru_windows(const float* __restrict__ xs,
 // publishing the new h in the other), the add of the drive, the activation,
 // the numerator and denominator and their IEEE division (the policy's step);
 // the drive x_t.W_in + bias was computed before the chunk of steps from an x
-// chunk that cp.async staged a chunk ahead.
-template <int N, class A>
+// chunk that cp.async staged a chunk ahead. UNROLL unrolls the substep loop
+// (substeps); the int8 kernel runs it at 1.
+template <int N, int UNROLL, class A>
 __device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
                                             const float* __restrict__ h0, const A& args,
                                             float* __restrict__ out, int T, int D, int H_rt,
@@ -1180,7 +1202,7 @@ __device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
         float drive[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) drive[u] = u < nu ? drvs[(c * nu + u) * 32 + lane] : 0.0f;
-        for (int s = 0; s < n_substeps; ++s) {
+        substeps<UNROLL>(n_substeps, [&](int) {
           float rec[1][U];
           matvec<N, 1, U>(row_in, H, nu, w_recc, rec);
 #pragma unroll
@@ -1193,7 +1215,7 @@ __device__ __forceinline__ void ltc_windows(const float* __restrict__ xs,
           float* const read = row_in;
           row_in = row_out;
           row_out = read;
-        }
+        });
       }
     }
     const auto hd = head_at(smem, L.head, Dh, K);

@@ -52,9 +52,8 @@ def _launch_gru_scan(name, xs, h0, wx, wh, b, time_scale, dts, *, in_dims, flow:
     block_b = block_b or tiling.fit_block_b("gru_scan", B, D, H, slots=S)
     if T < 1 or block_b < 1 or B % block_b:
         raise ValueError(f"{name}: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
-    smem = tiling.gru_scan_smem_bytes(D, H, block_b)
-    if smem > tiling.SMEM_BUDGET_BYTES:
-        raise ValueError(f"{name}: {smem} bytes of shared memory exceed one block's budget")
+    # the bytes the launch requests (the library's own layout), against the budget
+    rt.check_smem(name, rt.kernel_smem_bytes("gru_scan", D, H, block_b))
     hs = torch.empty((S, B, T, H), dtype=torch.float32, device=xs.device)
     err = rt.load_library().gru_scan_launch(
         *(t.data_ptr() for t in (xs, h0, wx, wh, b, time_scale, dts, hs)),
@@ -152,9 +151,7 @@ def gru_scan_int8_cuda(xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, *, bl
         raise ValueError(f"gru_scan_int8: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
     if H > tiling.MAX_HIDDEN:
         raise ValueError(f"gru_scan_int8: H={H} exceeds the warp cell's {tiling.MAX_HIDDEN} units")
-    smem = tiling.gru_scan_int8_smem_bytes(D, H, block_b)
-    if smem > tiling.SMEM_BUDGET_BYTES:
-        raise ValueError(f"gru_scan_int8: {smem} bytes of shared memory exceed one block's budget")
+    rt.check_smem("gru_scan_int8", rt.kernel_smem_bytes("gru_scan_int8", D, H, block_b, N_SEG))
     hs = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
     err = rt.load_library().gru_scan_int8_launch(
         *(t.data_ptr() for t in (xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, hs)),

@@ -70,11 +70,20 @@ from repro_torch.kernels.mr_step.ref import (
 NO_ACT_BITS = (0, -1)  # (int_bits, frac_bits) the launchers read as "no activation step"
 
 
-def _check_tile(kernel: str, B: int, T: int, block_b: int, smem: int) -> None:
+def _check_tile(kernel: str, B: int, T: int, block_b: int, carve: str, *dims: int) -> None:
+    """Raise on a tile the batch does not take, or whose launch would request
+    more shared memory than a block has: the bytes of ``carve``'s exported
+    layout (``runtime.kernel_smem_bytes``) at ``dims`` and ``block_b``, what
+    the launcher really requests."""
     if T < 1 or block_b < 1 or B % block_b:
         raise ValueError(f"{kernel}: T={T} and block_b={block_b} must be >= 1, B={B} a multiple")
-    if smem > tiling.SMEM_BUDGET_BYTES:
-        raise ValueError(f"{kernel}: {smem} bytes of shared memory exceed one block's budget")
+    rt.check_smem(kernel, rt.kernel_smem_bytes(carve, *dims[:4], block_b, *dims[4:]))
+
+
+def _check_substeps(kernel: str, n_substeps: int, unroll: int, family: str) -> None:
+    if n_substeps < 1:
+        raise ValueError(f"{kernel}: n_substeps={n_substeps} must be >= 1")
+    tiling.check_unroll(unroll, family)
 
 
 def _head_operands(H: int, w1, b1, w2, b2) -> dict:
@@ -110,7 +119,7 @@ def _launch_mr_step(
         **_head_operands(H, w1, b1, w2, b2),
     )
     block_b = block_b or tiling.fit_block_b("gru", B, D, H, Dh, K, slots=S)
-    _check_tile(name, B, T, block_b, tiling.mr_step_smem_bytes(D, H, Dh, K, block_b))
+    _check_tile(name, B, T, block_b, "mr_step", D, H, Dh, K)
     out = torch.empty((S, B, K), dtype=torch.float32, device=xs.device)
     err = rt.load_library().mr_step_launch(
         *(t.data_ptr() for t in (xs, h0, wx, wh, b, time_scale, dts, w1, b1, w2, b2, out)),
@@ -123,7 +132,7 @@ def _launch_mr_step(
 
 def _launch_ltc(
     name, xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, *, in_dims, sub_dt: float,
-    n_substeps: int, block_b: int | None, act_bits: tuple[int, int] | None,
+    n_substeps: int, unroll: int, block_b: int | None, act_bits: tuple[int, int] | None,
 ):  # fmt: skip
     """One launch of ``csrc/mr_step_ltc.cu``: out [S, B, K]."""
     B, T, D = xs.shape[-3:]
@@ -143,14 +152,13 @@ def _launch_ltc(
         **_head_operands(H, w1, b1, w2, b2),
     )
     block_b = block_b or tiling.fit_block_b("ltc", B, D, H, Dh, K, slots=S)
-    _check_tile(name, B, T, block_b, tiling.ltc_smem_bytes(D, H, Dh, K, block_b))
-    if n_substeps < 1:
-        raise ValueError(f"{name}: n_substeps={n_substeps} must be >= 1")
+    _check_tile(name, B, T, block_b, "mr_step_ltc", D, H, Dh, K)
+    _check_substeps(name, n_substeps, unroll, "ltc")
     out = torch.empty((S, B, K), dtype=torch.float32, device=xs.device)
     err = rt.load_library().mr_step_ltc_launch(
         *(t.data_ptr() for t in (xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out)),
-        *strides, S, B, T, D, H, Dh, K, block_b, n_substeps, *(act_bits or NO_ACT_BITS), sub_dt,
-        rt.current_stream(xs.device),
+        *strides, S, B, T, D, H, Dh, K, block_b, n_substeps, unroll, *(act_bits or NO_ACT_BITS),
+        sub_dt, rt.current_stream(xs.device),
     )  # fmt: skip
     rt.check_launch(name, err)
     return out
@@ -158,7 +166,8 @@ def _launch_ltc(
 
 def _launch_node(
     name, xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, *, in_dims,
-    sub_dt: float, n_substeps: int, block_b: int | None, act_bits: tuple[int, int] | None,
+    sub_dt: float, n_substeps: int, unroll: int, block_b: int | None,
+    act_bits: tuple[int, int] | None,
 ):  # fmt: skip
     """One launch of ``csrc/mr_step_node.cu``: out [S, B, K]."""
     B, T, D = xs.shape[-3:]
@@ -179,15 +188,14 @@ def _launch_node(
         **_head_operands(H, w1, b1, w2, b2),
     )
     block_b = block_b or tiling.fit_block_b("node", B, D, H, Dh, K, slots=S)
-    _check_tile(name, B, T, block_b, tiling.node_smem_bytes(D, H, Dh, K, block_b))
-    if n_substeps < 1:
-        raise ValueError(f"{name}: n_substeps={n_substeps} must be >= 1")
+    _check_tile(name, B, T, block_b, "mr_step_node", D, H, Dh, K)
+    _check_substeps(name, n_substeps, unroll, "node")
     out = torch.empty((S, B, K), dtype=torch.float32, device=xs.device)
     tensors = (xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out)
     err = rt.load_library().mr_step_node_launch(
         *(t.data_ptr() for t in tensors),
-        *strides, S, B, T, D, H, Dh, K, block_b, n_substeps, *(act_bits or NO_ACT_BITS), sub_dt,
-        rt.current_stream(xs.device),
+        *strides, S, B, T, D, H, Dh, K, block_b, n_substeps, unroll, *(act_bits or NO_ACT_BITS),
+        sub_dt, rt.current_stream(xs.device),
     )  # fmt: skip
     rt.check_launch(name, err)
     return out
@@ -209,36 +217,37 @@ def mr_step_cuda(
 
 
 def mr_step_ltc_cuda(
-    xs, *ops, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    xs, *ops, sub_dt: float, n_substeps: int, unroll: int = 1, block_b: int | None = None,
     act_bits: tuple[int, int] | None = None,
 ):  # fmt: skip
     """Launch the fused LTC stage on the current stream: out [B, K].
 
     ``ops`` are h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2; ``sub_dt``
-    is ``dt / n_substeps`` in float32 (``core.ltc.ltc_sub_dt``);
-    ``block_b=None`` fits the tile to B. Counts its launches in
-    ``mr_step_ltc_cuda.launches``.
+    is ``dt / n_substeps`` in float32 (``core.ltc.ltc_sub_dt``); ``unroll``
+    the substep loop's unroll factor (``tiling.SUBSTEP_UNROLLS``; no bit of
+    the result depends on it); ``block_b=None`` fits the tile to B. Counts
+    its launches in ``mr_step_ltc_cuda.launches``.
     """
     out = _launch_ltc("mr_step_ltc", xs[None], *ops, in_dims=_one_call(1 + len(ops)),
-                      sub_dt=sub_dt, n_substeps=n_substeps, block_b=block_b,
+                      sub_dt=sub_dt, n_substeps=n_substeps, unroll=unroll, block_b=block_b,
                       act_bits=act_bits)[0]  # fmt: skip
     mr_step_ltc_cuda.launches += 1
     return out
 
 
 def mr_step_node_cuda(
-    xs, *ops, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    xs, *ops, sub_dt: float, n_substeps: int, unroll: int = 1, block_b: int | None = None,
     act_bits: tuple[int, int] | None = None,
 ):  # fmt: skip
     """Launch the fused NODE stage on the current stream: out [B, K].
 
     ``ops`` are h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2;
-    ``sub_dt`` is the Euler substep (``core.node_mr.node_sub_dt``);
-    ``block_b=None`` fits the tile to B. Counts its launches in
-    ``mr_step_node_cuda.launches``.
+    ``sub_dt`` is the Euler substep (``core.node_mr.node_sub_dt``); ``unroll``
+    as ``mr_step_ltc_cuda``'s; ``block_b=None`` fits the tile to B. Counts its
+    launches in ``mr_step_node_cuda.launches``.
     """
     out = _launch_node("mr_step_node", xs[None], *ops, in_dims=_one_call(1 + len(ops)),
-                       sub_dt=sub_dt, n_substeps=n_substeps, block_b=block_b,
+                       sub_dt=sub_dt, n_substeps=n_substeps, unroll=unroll, block_b=block_b,
                        act_bits=act_bits)[0]  # fmt: skip
     mr_step_node_cuda.launches += 1
     return out
@@ -264,7 +273,7 @@ def mr_step_slots_cuda(
 
 
 def mr_step_ltc_slots_cuda(
-    *ops, in_dims, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    *ops, in_dims, sub_dt: float, n_substeps: int, unroll: int = 1, block_b: int | None = None,
     act_bits: tuple[int, int] | None = None,
 ):  # fmt: skip
     """Launch S fused LTC stages as one kernel: out [S, B, K], each slot
@@ -272,13 +281,14 @@ def mr_step_ltc_slots_cuda(
     ``mr_step_slots_cuda``. Counts its launches in
     ``mr_step_ltc_slots_cuda.launches``."""
     out = _launch_ltc("mr_step_ltc_slots", *ops, in_dims=in_dims, sub_dt=sub_dt,
-                      n_substeps=n_substeps, block_b=block_b, act_bits=act_bits)  # fmt: skip
+                      n_substeps=n_substeps, unroll=unroll, block_b=block_b,
+                      act_bits=act_bits)  # fmt: skip
     mr_step_ltc_slots_cuda.launches += 1
     return out
 
 
 def mr_step_node_slots_cuda(
-    *ops, in_dims, sub_dt: float, n_substeps: int, block_b: int | None = None,
+    *ops, in_dims, sub_dt: float, n_substeps: int, unroll: int = 1, block_b: int | None = None,
     act_bits: tuple[int, int] | None = None,
 ):  # fmt: skip
     """Launch S fused NODE stages as one kernel: out [S, B, K], each slot
@@ -286,7 +296,8 @@ def mr_step_node_slots_cuda(
     ``mr_step_slots_cuda``. Counts its launches in
     ``mr_step_node_slots_cuda.launches``."""
     out = _launch_node("mr_step_node_slots", *ops, in_dims=in_dims, sub_dt=sub_dt,
-                       n_substeps=n_substeps, block_b=block_b, act_bits=act_bits)  # fmt: skip
+                       n_substeps=n_substeps, unroll=unroll, block_b=block_b,
+                       act_bits=act_bits)  # fmt: skip
     mr_step_node_slots_cuda.launches += 1
     return out
 
@@ -322,7 +333,7 @@ def mr_step_int8_cuda(
         tanh=(tanh, (PWL_FLOATS,)),
         **_int8_head_operands(H, w1q, s1, b1, w2q, s2, b2),
     )
-    _check_tile("mr_step_int8", B, T, block_b, tiling.int8_smem_bytes(D, H, Dh, K, block_b))
+    _check_tile("mr_step_int8", B, T, block_b, "mr_step_int8", D, H, Dh, K, N_SEG)
     out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
     tensors = (xs, h0, wxq, whq, wx_scale, wh_scale, b, sig, tanh, w1q, s1, b1, w2q, s2, b2, out)
     err = rt.load_library().mr_step_int8_launch(
@@ -361,8 +372,7 @@ def mr_step_ltc_int8_cuda(
         sig=(sig, (PWL_FLOATS,)),
         **_int8_head_operands(H, w1q, s1, b1, w2q, s2, b2),
     )
-    smem = tiling.ltc_int8_smem_bytes(D, H, Dh, K, block_b)
-    _check_tile("mr_step_ltc_int8", B, T, block_b, smem)
+    _check_tile("mr_step_ltc_int8", B, T, block_b, "mr_step_ltc_int8", D, H, Dh, K, N_SEG)
     if n_substeps < 1:
         raise ValueError(f"mr_step_ltc_int8: n_substeps={n_substeps} must be >= 1")
     out = torch.empty((B, K), dtype=torch.float32, device=xs.device)
@@ -439,7 +449,8 @@ def mr_step(
     """Fused per-window recovery stage: (theta [B, n_terms, n], shifts [B, q]).
 
     The LTC and NODE families integrate on ``cfg.dt`` with
-    ``cfg.ltc_substeps`` substeps; the GRU families' flow gate sees
+    ``cfg.ltc_substeps`` substeps, their kernels' substep loop unrolled
+    ``cfg.substep_unroll`` times; the GRU families' flow gate sees
     ``dts = ones(T)``, as in the JAX package (``ops.py:238-278``).
     """
     spec = _fusable_spec(cfg)
@@ -450,15 +461,16 @@ def mr_step(
     ab = quant_act_bits(cfg.quant)
     if spec.family in ("ltc", "node"):
         K = cfg.ltc_substeps
-        ref_kw = dict(dt=cfg.dt, n_substeps=K, act_bits=ab)
+        ref_kw = dict(dt=cfg.dt, n_substeps=K, act_bits=ab)  # the plain versions: no unroll
+        kernel_kw = dict(n_substeps=K, unroll=cfg.substep_unroll, act_bits=ab)
         if spec.family == "ltc":
             fn, reference = _MRStepLTCFn, mr_step_ltc_reference
             tensors = (xs, h0, enc.w_in, enc.w_rec, enc.bias, enc.a, enc.inv_tau, *head)
-            kernel_kw = dict(sub_dt=ltc_sub_dt(cfg.dt, K), n_substeps=K, act_bits=ab)
+            kernel_kw["sub_dt"] = ltc_sub_dt(cfg.dt, K)
         else:
             fn, reference = _MRStepNodeFn, mr_step_node_reference
             tensors = (xs, h0, enc.w_f1, enc.b_f1, enc.w_f2, enc.b_f2, enc.w_in, enc.b_in, *head)
-            kernel_kw = dict(sub_dt=node_sub_dt(cfg.dt, K), n_substeps=K, act_bits=ab)
+            kernel_kw["sub_dt"] = node_sub_dt(cfg.dt, K)
     else:
         fn, reference = _MRStepFn, mr_step_reference
         if dts is None:
@@ -522,6 +534,11 @@ def mr_step_int8(
     enc = params.encoder
     ltc = spec.family == "ltc"
     if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
+        # the plan auditor's rule R4 sees the weights this path hands the kernel
+        names = ("w_inq", "w_recq") if ltc else ("wxq", "whq")
+        rt.observe_operands("mr_step_ltc_int8" if ltc else "mr_step_int8",
+                            dict(zip((*names, "w1q", "w2q"),
+                                     (q.values for q in (cell_a, cell_b, w1q, w2q)))))  # fmt: skip
         sig_t, tanh_t = serving_tables()
         if ltc:
             out = mr_step_ltc_int8_reference(

@@ -49,6 +49,17 @@ grow with the bank. The bank size (``auto_slots_per_bank``) only decides how
 many clusters share the slots. On the TPU the whole slot set was one bank,
 so nothing streamed; here the grid keeps ``min(S, 132)`` clusters, one slot
 each for S <= 132.
+
+Each function here is the predicted side of a carve. The measured side is the
+launcher's own: every kernel source exports the bytes its launch requests
+(``runtime.kernel_smem_bytes``), and the launch wrappers check those against
+the budget; the plan auditor's rule R2 holds the two sides equal
+(``analysis/audit.py``). ``resolve_smem_budget`` is the budget an ``"auto"``
+tile fits into, and names where it came from.
+
+``SUBSTEP_UNROLLS`` are the unroll factors of the LTC and NODE kernels'
+substep loop (``csrc/warp_cell.cuh`` ``substeps``): the launchers refuse any
+other, and ``check_unroll`` raises before a plan would ask for one.
 """
 
 from __future__ import annotations
@@ -58,6 +69,40 @@ from repro_torch.core.quant import PWL_FLOATS
 SMEM_BUDGET_BYTES = 232_448  # 227 KB: the most dynamic shared memory a block can use
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
 FAMILIES = ("gru", "ltc", "node", "gru_scan")
+# the LTC and NODE kernels' instantiated substep unrolls: 2 and 6 gave the same
+# bits and no faster kernel on an H100 (launch/kernel_phases.py times them)
+SUBSTEP_UNROLLS = (1,)
+UNROLLED_FAMILIES = ("ltc", "node")  # the families whose kernels take the factor
+
+
+def check_unroll(unroll: int, family: str) -> None:
+    """Raise unless ``family``'s kernel is instantiated for the substep
+    unroll ``unroll`` (any factor passes a family whose kernel has none)."""
+    if family in UNROLLED_FAMILIES and unroll not in SUBSTEP_UNROLLS:
+        raise ValueError(
+            f"substep_unroll={unroll} has no instantiation in the {family} kernel; it is built "
+            f"for {SUBSTEP_UNROLLS} (csrc/warp_cell.cuh substeps)"
+        )
+
+
+def resolve_smem_budget(device=None, explicit: int | None = None) -> tuple[int, str]:
+    """The shared memory an ``"auto"`` tile fits into, and its source:
+    ``"explicit"`` (``explicit``, the spec's ``smem_budget_bytes``),
+    ``"device"`` (the card's opt-in shared memory a block, from
+    ``torch.cuda.get_device_properties``) or ``"default"``
+    (``SMEM_BUDGET_BYTES``; on the CPU). ``repro/kernels/mr_step/tiling.py:51``
+    ``resolve_vmem_budget`` is the TPU's."""
+    if explicit is not None:
+        return int(explicit), "explicit"
+    import torch
+
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        optin = getattr(props, "shared_memory_per_block_optin", 0)
+        if optin:
+            return int(optin), "device"
+    return SMEM_BUDGET_BYTES, "default"
 
 
 # csrc/warp_cell.cuh: every region of a carve starts 16-byte aligned (whole

@@ -58,11 +58,11 @@ LAUNCHERS = {
     # S, B, T, D, H, Dh, K, block_b, flow, act_int, act_frac, stream
     "mr_step_launch": [_P] * 12 + [_L] * 11 + [_I] * 11 + [_P],
     # xs, h0, w_in, w_rec, bias, a, inv_tau, w1, b1, w2, b2, out, 11 strides,
-    # S, B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
-    "mr_step_ltc_launch": [_P] * 12 + [_L] * 11 + [_I] * 11 + [_F, _P],
+    # S, B, T, D, H, Dh, K, block_b, n_substeps, unroll, act_int, act_frac, sub_dt, stream
+    "mr_step_ltc_launch": [_P] * 12 + [_L] * 11 + [_I] * 12 + [_F, _P],
     # xs, h0, w_f1, b_f1, w_f2, b_f2, w_in, b_in, w1, b1, w2, b2, out, 12 strides,
-    # S, B, T, D, H, Dh, K, block_b, n_substeps, act_int, act_frac, sub_dt, stream
-    "mr_step_node_launch": [_P] * 13 + [_L] * 12 + [_I] * 11 + [_F, _P],
+    # S, B, T, D, H, Dh, K, block_b, n_substeps, unroll, act_int, act_frac, sub_dt, stream
+    "mr_step_node_launch": [_P] * 13 + [_L] * 12 + [_I] * 12 + [_F, _P],
     # xs, h0, wx, wh, b, time_scale, dts, hs, 7 strides, S, B, T, D, H, block_b, flow,
     # stream
     "gru_scan_launch": [_P] * 8 + [_L] * 7 + [_I] * 7 + [_P],
@@ -92,6 +92,21 @@ LAUNCHERS = {
     # q, k, v, o, B, Sq, Sk, QH, KH, Dh, block_q, block_k, causal, window, q_offset,
     # scale, bf16, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 11 + [_F, _I, _P],
+}
+
+# every kernel's exported carve: the dynamic shared memory its launcher
+# requests, in bytes, for the given dims (``kernel_smem_bytes``), computed by
+# the layout the launch uses
+CARVES = {
+    "mr_step": 5,  # D, H, Dh, K, block_b
+    "gru_scan": 3,  # D, H, block_b
+    "mr_step_ltc": 5,
+    "mr_step_node": 5,
+    "mr_step_int8": 6,  # D, H, Dh, K, block_b, n_seg
+    "gru_scan_int8": 4,  # D, H, block_b, n_seg
+    "mr_step_ltc_int8": 6,
+    "mr_tick": 6,  # D, H, Dh, Ko, T, N (one block of a slot's cluster)
+    "mr_tick_int8": 7,  # D, H, Dh, Ko, T, N, n_seg
 }
 
 
@@ -179,7 +194,42 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for kernel, n_dims in CARVES.items():
+        fn = getattr(lib, f"{kernel}_smem_bytes")
+        fn.argtypes = [_I] * n_dims
+        fn.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_smem_bytes(kernel: str, *dims: int) -> int:
+    """The dynamic shared memory a launch of ``kernel`` requests for ``dims``
+    (``CARVES``), from the library's own layout code: the measured side of the
+    shared-memory model in ``kernels/mr_step/tiling.py``. Builds and loads the
+    library."""
+    if len(dims) != CARVES[kernel]:
+        raise ValueError(f"{kernel}: its carve takes {CARVES[kernel]} dims, got {len(dims)}")
+    return int(getattr(load_library(), f"{kernel}_smem_bytes")(*map(int, dims)))
+
+
+def check_smem(kernel: str, smem: int) -> None:
+    """Raise when a launch would request more shared memory than a block has."""
+    from repro_torch.kernels.mr_step.tiling import SMEM_BUDGET_BYTES
+
+    if smem > SMEM_BUDGET_BYTES:
+        raise ValueError(f"{kernel}: {smem} bytes of shared memory exceed one block's budget")
+
+
+# callables ``fn(kernel, operands)`` told of every kernel call's named operands
+# (``observe_operands``): the plan auditor's view of what reaches a kernel
+OPERAND_OBSERVERS: list = []
+
+
+def observe_operands(kernel: str, operands: dict) -> None:
+    """Tell every observer of one call of ``kernel``: ``operands`` maps a name
+    to the tensor handed to it. ``check_operands`` calls it for every launch;
+    the plain versions of the int8 serving kernels call it too."""
+    for fn in OPERAND_OBSERVERS:
+        fn(kernel, operands)
 
 
 def check_operands(kernel: str, device: torch.device, **operands) -> None:
@@ -189,6 +239,7 @@ def check_operands(kernel: str, device: torch.device, **operands) -> None:
     expected_shape, dtype)``: every tensor must be a contiguous CUDA tensor on
     ``device`` of that shape and dtype (float32 unless named).
     """
+    observe_operands(kernel, {name: t for name, (t, *_) in operands.items()})
     for name, (t, shape, *dtype) in operands.items():
         dtype = dtype[0] if dtype else torch.float32
         if not t.is_cuda or t.device != device:

@@ -21,14 +21,18 @@ serve shape (S=4 slots of N=17 windows, T=32, D=4, H=32, Dh=64, Ko=45, the
 standard GRU; the int8 tick on the same weights
 quantized per slot and per column, with the serving PWL tables). The time a
 variant saves is its phase's cost (a variant computes on values its
-switched-off phase left unset, so it checks nothing). The unmodified build
+switched-off phase left unset, so it checks nothing). ``mr_step_ltc`` and
+``mr_step_node`` are also built with their substep loop unrolled 2 and 6
+times (the kernels instantiate an unroll of 1 only), each timed and held to
+the unmodified build's bits. The unmodified build
 is also held against the plain versions, timed at 1, 2 and 4 windows a
 block (the tiles ``kernels/mr_step/tiling.py`` chooses between; for the tick
 1, 2 and 4 slots a bank) and, with ``--baseline`` (the ``csrc`` directory of
 another tree with the same launchers, such as the parent commit unpacked with
 ``git archive``; ``mr_step``, ``mr_step_ltc``, ``mr_step_node`` and
 ``gru_scan`` take a slot axis since the fused and ``*_kernel`` rows' batch and
-stream slice, so a tree from before it cannot serve for them),
+stream slice, and ``mr_step_ltc`` and ``mr_step_node`` the substep unroll since
+plan analysis, so a tree from before those cannot serve for them),
 timed in turns with the same kernels built from there: baseline, current,
 current, baseline, and the largest difference between the two builds'
 outputs on the same operands printed (0 where a change keeps the arithmetic).
@@ -80,8 +84,8 @@ VARIANTS = {
          "for (int c = 0; c < 0; ++c) {\n    float a[2][U];"),
         ("warp_cell.cuh", "for (int c = 0; c < nc; ++c) {\n        float drive[U];",
          "for (int c = 0; c < 0; ++c) {\n        float drive[U];"),
-        ("mr_step_node.cu", "for (int c = 0; c < nc; ++c) {\n        for (int s = 0;",
-         "for (int c = 0; c < 0; ++c) {\n        for (int s = 0;"),
+        ("mr_step_node.cu", "for (int c = 0; c < nc; ++c) {\n        wc::substeps<UNROLL>(",
+         "for (int c = 0; c < 0; ++c) {\n        wc::substeps<UNROLL>("),
     ],
     "no terms ahead": [
         ("warp_cell.cuh", "if (u >= nu) continue;\n    float a[kChunk][3];",
@@ -110,17 +114,28 @@ VARIANTS = {
         for src in TICK_SOURCES
     ],
 }  # fmt: skip
+# the substep loop unrolled 2 or 6 times (csrc/warp_cell.cuh substeps): builds
+# whose launch at unroll 1 runs the other factor, timed beside the unmodified
+# build and held to its bits (the kernels instantiate 1 only, tiling.SUBSTEP_UNROLLS)
+UNROLLED = ("mr_step_ltc", "mr_step_node")
+UNROLL_SOURCES = ("mr_step_ltc.cu", "mr_step_node.cu")
+UNROLLS = {
+    f"unroll {u}": [(f"mr_step_{fam}.cu", f"case 1: return launch_{fam}<N, 1>(args...);",
+                     f"case 1: return launch_{fam}<N, {u}>(args...);") for fam in ("ltc", "node")]
+    for u in (2, 6)
+}  # fmt: skip
 # the phases each kernel has
 PHASES = {k: ("no steps", "no terms ahead", "no head") for k in KERNELS}
 for _scan in SCANS:
     PHASES[_scan] = ("no steps", "no terms ahead", "no hs write")
 for _tick in TICKS:
     PHASES[_tick] = ("no steps", "no terms ahead", "no head", "no ingest", "no readout")
-LAUNCHERS = tuple(f"{k}_launch" for k in (*KERNELS, *TICKS))
 
 
-def build(csrc: Path, work: Path, tag: str, patches=()) -> tuple[ctypes.CDLL, str]:
-    """The sources of ``csrc`` (patched) as one library; (library, ptxas log)."""
+def build(
+    csrc: Path, work: Path, tag: str, patches=(), sources=SOURCES
+) -> tuple[ctypes.CDLL, str]:
+    """``sources`` of ``csrc`` (patched) as one library; (library, ptxas log)."""
     src = work / tag
     shutil.copytree(csrc, src)
     for name, old, new in patches:
@@ -131,15 +146,15 @@ def build(csrc: Path, work: Path, tag: str, patches=()) -> tuple[ctypes.CDLL, st
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = [subprocess.Popen([nvcc, *rt.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src / n), "-o",
                                str(src / f"{n}.o")], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT) for n in SOURCES]  # fmt: skip
+                              stderr=subprocess.STDOUT) for n in sources]  # fmt: skip
     logs = [p.communicate()[0].decode(errors="replace") for p in procs]
     if any(p.returncode for p in procs):
         raise RuntimeError(f"nvcc failed on {tag}:\n" + "\n".join(logs))
     so = src / "lib.so"
-    subprocess.run([nvcc, *rt.NVCC_FLAGS, "-shared", *(str(src / f"{n}.o") for n in SOURCES),
+    subprocess.run([nvcc, *rt.NVCC_FLAGS, "-shared", *(str(src / f"{n}.o") for n in sources),
                     "-o", str(so)], check=True, capture_output=True)  # fmt: skip
     lib = ctypes.CDLL(str(so))
-    for name in LAUNCHERS:
+    for name in (f"{Path(n).stem}_launch" for n in sources):
         getattr(lib, name).argtypes = rt.LAUNCHERS[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib, "\n".join(logs)
@@ -211,10 +226,10 @@ def tick_operands(device, seed=0, int8=False) -> list[torch.Tensor]:
             w1.values, flat(w1), ops[12], w2.values, flat(w2), ops[14], *ops[15:]]  # fmt: skip
 
 
-def launcher(lib, kernel, ops, tile: int):
+def launcher(lib, kernel, ops, tile: int, n_substeps: int = SUBSTEPS):
     """A launch of ``lib``'s ``kernel`` on ``ops`` into fresh outputs, as a
     closure; ``tile`` is the fused kernels' and the scan's block_b or the
-    ticks' bank."""
+    ticks' bank; ``n_substeps`` the fp32 LTC and NODE kernels' substeps."""
     if kernel in TICKS:
         S, L, n, m, C, T, H, Dh, Ko, Kc = (TICK[k] for k in "S L n m C T H Dh Ko Kc".split())
         outs = [torch.empty_like(ops[0]), torch.empty(S, Kc, device=ops[0].device),
@@ -242,8 +257,8 @@ def launcher(lib, kernel, ops, tile: int):
         elif kernel == "mr_step_ltc_int8":
             args += (SUBSTEPS, N_SEG, ltc_sub_dt(DT, SUBSTEPS))
         else:
-            sub_dt = (ltc_sub_dt if kernel == "mr_step_ltc" else node_sub_dt)(DT, SUBSTEPS)
-            args += (SUBSTEPS, 0, -1, sub_dt)
+            sub_dt = (ltc_sub_dt if kernel == "mr_step_ltc" else node_sub_dt)(DT, n_substeps)
+            args += (n_substeps, 1, 0, -1, sub_dt)  # the substep loop not unrolled
     fn = getattr(lib, f"{kernel}_launch")
     slot = (0,) * (len(ptrs) - len(outs)) + (1,) if kernel in SLOTTED else ()
 
@@ -345,6 +360,11 @@ def report(libs, kernel, label, ops) -> None:
     for tag, ms in times.items():
         saved = "" if tag == "current" else f", {whole - ms:+.4f} ms saved"
         print(f"[phase] {kernel} at {label}, {tag}: {ms:.4f} ms{saved}", flush=True)
+    for tag in UNROLLS if kernel in UNROLLED else ():
+        run = launcher(libs[tag], kernel, ops, 1)
+        diff = (run()[0] - out[0]).abs().max().item()
+        print(f"[unroll] {kernel} at {label}, {tag}: {device_ms(run, kernel):.4f} ms (unroll 1 "
+              f"{whole:.4f} ms), max |unrolled - unroll 1| {diff:.3e}", flush=True)  # fmt: skip
     tiles = {t: device_ms(launcher(libs["current"], kernel, ops, t), kernel) for t in TILES}
     what = "slots a bank" if kernel in TICKS else "block_b"
     print(f"[tile] {kernel} at {label}: "
@@ -379,7 +399,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=rt.BUILD_DIR) as tmp:
         work = Path(tmp)
         jobs = {"current": (rt.CSRC, ())}
-        jobs.update({tag: (rt.CSRC, patches) for tag, patches in VARIANTS.items()})
+        jobs.update({tag: (rt.CSRC, patches) for tag, patches in {**VARIANTS, **UNROLLS}.items()})
         if args.baseline is not None:
             jobs["baseline"] = (args.baseline, ())
         with ThreadPoolExecutor(max_workers=2) as pool:

@@ -62,6 +62,12 @@ paper's headline LTC baseline runs the acceptance scenario fused:
 
     PYTHONPATH=src python -m repro_torch.launch.serve_mr --fused --encoder ltc \
         --streams 12 --slots 4
+
+``--audit {warn,error}`` and ``--tune {static,measured}`` go to ``compile_plan``
+(plan analysis, ``analysis/``): the plan's programs held to the rules R1-R5,
+and its tile, unroll and bank chosen by timing them on the card (cached
+under ``build/repro_torch/tune``, or ``$REPRO_TORCH_TUNE_CACHE``). The JAX
+package's ``serve_mr`` takes them with ``--plan``; this one always serves through a plan.
 """
 
 from __future__ import annotations
@@ -260,6 +266,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tol-abs", type=float, default=0.05)
     ap.add_argument("--quant", action="store_true", help="int8/PWL kernel readout at eviction")
     ap.add_argument(
+        "--audit",
+        choices=("off", "warn", "error"),
+        default="off",
+        help="hardware-contract audit of the compiled plan (analysis/audit.py): warn prints "
+        "findings, error refuses to serve a violating plan",
+    )
+    ap.add_argument(
+        "--tune",
+        choices=("off", "static", "measured"),
+        default="off",
+        help="tuning of the plan's lowering (analysis/tuner.py): 'static' records the "
+        "candidate table through the shared-memory model, 'measured' times every candidate "
+        "on the card and caches the decision on disk (warm recompiles time nothing)",
+    )
+    ap.add_argument(
         "--fused",
         action="store_true",
         help="stage-fused per-window recovery step (kernels/mr_step) in every tick",
@@ -280,7 +301,7 @@ def mesh_devices(args: argparse.Namespace) -> list | None:
     return None if args.device.startswith("cuda") else [args.device]
 
 
-def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict:
+def serve(args: argparse.Namespace, verbose: bool = True, baseline=None, on_ready=None) -> dict:
     """Run the scenario of ``args``: the service, then the batch baseline and
     the tolerance check. Returns a dict with the plan, the service, the
     service's and the baseline's wall seconds, the baseline's Theta
@@ -296,7 +317,11 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
     this run's streams (the same ``--systems``, ``--seed``, ``--noise`` and
     stream geometry, ``--hidden``, ``--lr`` and ``--max-steps``, any
     ``--quant``: the baseline trains in float32 either way); its first rows
-    stand in for this run's baseline, which is then not trained again."""
+    stand in for this run's baseline, which is then not trained again.
+
+    ``on_ready``: called with the plan once it is compiled (with any
+    ``--audit`` and ``--tune``, which launch kernels of their own) and its
+    service made, right before the first tick."""
     from repro_torch.core.stream import StreamConfig
 
     log = print if verbose else (lambda *a, **k: None)
@@ -325,11 +350,12 @@ def serve(args: argparse.Namespace, verbose: bool = True, baseline=None) -> dict
         ckpt_dir = ckpt_dir or scratch.enter_context(tempfile.TemporaryDirectory())
         ckpt_period = ckpt_period or 2
     with scratch:
-        return _serve(args, verbose, baseline, specs, ys, us, (n_state, n_input, order), scfg,
-                      ckpt_dir, ckpt_period)  # fmt: skip
+        return _serve(args, verbose, baseline, on_ready, specs, ys, us, (n_state, n_input, order),
+                      scfg, ckpt_dir, ckpt_period)  # fmt: skip
 
 
-def _serve(args, verbose, baseline, specs, ys, us, dims, scfg, ckpt_dir, ckpt_period) -> dict:
+def _serve(args, verbose, baseline, on_ready, specs, ys, us, dims, scfg, ckpt_dir,
+           ckpt_period) -> dict:  # fmt: skip
     from repro_torch import api
     from repro_torch.core.library import denormalize_theta
     from repro_torch.data.dynamics import embed_true_coef
@@ -369,11 +395,13 @@ def _serve(args, verbose, baseline, specs, ys, us, dims, scfg, ckpt_dir, ckpt_pe
     if args.chaos_kill_shard >= 0:
         supervisor = ServiceSupervisor(
             spec, ckpt_dir, checkpoint_period=ckpt_period, max_restarts=args.max_restarts,
-            chaos=kill_shard_once(args.chaos_kill_shard), devices=devices,
+            chaos=kill_shard_once(args.chaos_kill_shard), devices=devices, audit=args.audit,
+            tune=args.tune,
         )  # fmt: skip
         plan, service = supervisor.plan, supervisor.service
     else:
-        plan = api.compile_plan(spec, device=args.device, devices=devices)
+        plan = api.compile_plan(spec, device=args.device, devices=devices, audit=args.audit,
+                                tune=args.tune)  # fmt: skip
         service = plan.make_service()
     log(f"[serve_mr] plan lowering: {plan.lowering}")
     cfg = service.cfg
@@ -384,6 +412,8 @@ def _serve(args, verbose, baseline, specs, ys, us, dims, scfg, ckpt_dir, ckpt_pe
         f"control={args.control} quant={args.quant} mesh={args.mesh} device={args.device}",
         flush=True,
     )
+    if on_ready is not None:
+        on_ready(plan)
     if supervisor is not None:
         service = None  # the supervisor owns its incarnations: a failed one must be freed
         t0 = time.time()

@@ -234,7 +234,8 @@ class ServiceSupervisor:
 
     ``devices`` is the mesh's device list (default: every visible card); a
     device may repeat (``["cpu", "cpu"]``: a mesh of 2 on the CPU), and the
-    lost devices drop from its tail.
+    lost devices drop from its tail. ``audit`` and ``tune`` go to every
+    ``compile_plan`` (the restored plan is audited and tuned as the first).
     """
 
     def __init__(
@@ -246,6 +247,8 @@ class ServiceSupervisor:
         chaos: Callable[[int], None] | None = None,
         devices: list | None = None,
         keep: int = 3,
+        audit: str = "off",
+        tune: str = "off",
     ):
         if spec.mode != "stream":
             raise ValueError(f"ServiceSupervisor serves stream plans, got mode={spec.mode!r}")
@@ -257,6 +260,7 @@ class ServiceSupervisor:
         devices = visible_devices() if devices is None else devices
         self.devices = [torch.device(d) for d in devices]
         self.keep = keep
+        self.plan_kw = dict(audit=audit, tune=tune)
         self.restarts = 0
         self.history: list[dict] = []  # per-incarnation stats
         self.restore_ms: list[float] = []  # wall ms of each restart (re-plan to re-submit)
@@ -273,7 +277,7 @@ class ServiceSupervisor:
             checkpoint_dir=self.ckpt_dir,
         )
         self.spec = spec = dataclasses.replace(spec, tick=tspec)
-        self.plan = compile_plan(spec, devices=self.devices)
+        self.plan = compile_plan(spec, devices=self.devices, **self.plan_kw)
         self.service = self.plan.make_service()
         if self.service.checkpointer is not None:
             self.service.checkpointer.manager.keep = self.keep  # snapshots retained

@@ -32,6 +32,14 @@ within one bf16 rounding (2^-8 of the value plus 1e-4), and on rows with no
 unmasked key against the Pallas kernel's values (0, or the mean of v over
 the masked keys of the tiles it does not skip).
 
+Plan analysis: ``mr_step_ltc`` and ``mr_step_node`` built with their substep
+loop unrolled 2 and 6 times (``launch/kernel_phases.py``'s patches) equal the
+loop at 1 bit for bit, and the kernels, built for 1 only, refuse another
+factor; every kernel's exported carve equals ``tiling.py``'s model;
+service plans audit clean on the card (R2 against the carve, R3 under
+sync-debug mode "error" on the host and device planes); a measured tune
+times every candidate and a warm one times nothing.
+
 The int8/PWL serving kernels (``gru_scan_int8``, ``mr_step_int8``,
 ``mr_step_ltc_int8``, ``mr_tick_int8``) are held to their plain versions
 within 1e-5 (the tick's buffers bit for bit, the warp-cell stages' tiles bit
@@ -1387,3 +1395,150 @@ def test_sr_baselines_on_the_card_match_the_cpu(dev):
                                      steps=50, lr=1e-3, params=tree_map(lambda t: t.to(d), start))  # fmt: skip
         xi[str(d)] = pinn_sr.recovered_xi(p).cpu()
     assert (xi[str(dev)] - xi["cpu"]).abs().max() <= 1e-4
+
+
+# -- plan analysis: the substep unroll, the exported carves, the audit and the tuner
+@pytest.fixture(scope="module")
+def unrolled_libs(tmp_path_factory):
+    """mr_step_ltc.cu and mr_step_node.cu built as they are and with their
+    substep loop unrolled 2 and 6 times (launch/kernel_phases.py's patches:
+    the kernels instantiate an unroll of 1 only), tag -> library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not torch.cuda.is_available():  # a module fixture runs before dev()
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+
+    from repro_torch.launch import kernel_phases as kp
+
+    work = tmp_path_factory.mktemp("unroll")
+    jobs = {"unroll 1": (), **kp.UNROLLS}
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {tag: pool.submit(kp.build, rt.CSRC, work, tag.replace(" ", "_"), patches,
+                                    kp.UNROLL_SOURCES) for tag, patches in jobs.items()}  # fmt: skip
+        return {tag: f.result()[0] for tag, f in futures.items()}
+
+
+@pytest.mark.parametrize("n_substeps", [1, 5, 6, 7])
+@pytest.mark.parametrize("H", [8, 32, 48, 64])
+@pytest.mark.parametrize("family", ["ltc", "node"])
+def test_substep_unroll_changes_no_bit(dev, unrolled_libs, family, H, n_substeps):
+    """mr_step_ltc and mr_step_node with their substep loop unrolled 2 and 6
+    times equal the loop at 1 bit for bit, also where the substeps are no
+    multiple of the factor (the remainder runs one at a time)."""
+    from repro_torch.launch import kernel_phases as kp
+
+    kernel = f"mr_step_{family}"
+    ops = kp.operands(kernel, 16, 13, 3, H, 40, 7, dev)
+    base = kp.launcher(unrolled_libs["unroll 1"], kernel, ops, 2, n_substeps)()[0]
+    for tag in kp.UNROLLS:
+        assert torch.equal(kp.launcher(unrolled_libs[tag], kernel, ops, 2, n_substeps)()[0], base)
+
+
+def test_an_uninstantiated_unroll_is_refused(dev, monkeypatch):
+    ops = _substep_operands("ltc", 8, 5, 2, 32, 40, 7, dev)
+    kw = dict(sub_dt=ltc_sub_dt(0.05, 6), n_substeps=6, unroll=2)
+    with pytest.raises(ValueError, match=r"substep_unroll=2 has no instantiation .*\(1,\)"):
+        mr_step_ltc_cuda(*ops, **kw)
+    monkeypatch.setattr(tiling, "check_unroll", lambda unroll, family: None)
+    with pytest.raises(RuntimeError, match="cudaError"):  # the launcher's own guard
+        mr_step_ltc_cuda(*ops, **kw)
+
+
+# (label, D, H, Dh, K): the quickstart, the generic width, H = 64, serve_mr's width
+CARVE_SHAPES = [("quickstart", 2, 32, 64, 12), ("H=48", 3, 48, 64, 12),
+                ("H=64", 2, 64, 128, 12), ("serve", 4, 32, 64, 45)]  # fmt: skip
+CARVE_TICKS = [("test", 8, 3), ("serve", 32, 17), ("wide", 32, 72)]  # (label, T, N)
+
+
+@pytest.mark.parametrize("label,D,H,Dh,K", CARVE_SHAPES, ids=[s[0] for s in CARVE_SHAPES])
+def test_exported_carves_equal_the_model(dev, label, D, H, Dh, K):
+    """Every kernel's launcher requests exactly the shared memory
+    kernels/mr_step/tiling.py models (the two sides of rule R2)."""
+    from repro_torch.core.quant import N_SEG
+
+    carve = rt.kernel_smem_bytes
+    for bb in (1, 2, 4, 8, 16):
+        assert carve("mr_step", D, H, Dh, K, bb) == tiling.mr_step_smem_bytes(D, H, Dh, K, bb)
+        assert carve("gru_scan", D, H, bb) == tiling.gru_scan_smem_bytes(D, H, bb)
+        assert carve("mr_step_ltc", D, H, Dh, K, bb) == tiling.ltc_smem_bytes(D, H, Dh, K, bb)
+        assert carve("mr_step_node", D, H, Dh, K, bb) == tiling.node_smem_bytes(D, H, Dh, K, bb)
+        assert carve("mr_step_int8", D, H, Dh, K, bb, N_SEG) == tiling.int8_smem_bytes(
+            D, H, Dh, K, bb)  # fmt: skip
+        assert carve("gru_scan_int8", D, H, bb, N_SEG) == tiling.gru_scan_int8_smem_bytes(D, H, bb)
+        assert carve("mr_step_ltc_int8", D, H, Dh, K, bb, N_SEG) == tiling.ltc_int8_smem_bytes(
+            D, H, Dh, K, bb)  # fmt: skip
+    for _, T, N in CARVE_TICKS:
+        assert carve("mr_tick", D, H, Dh, K, T, N) == tiling.tick_smem_bytes(D, H, Dh, K, N, T)
+        assert carve("mr_tick_int8", D, H, Dh, K, T, N, N_SEG) == tiling.tick_smem_bytes(
+            D, H, Dh, K, N, T, int8=True)  # fmt: skip
+
+
+AUDIT_CELLS = [  # (id, tick kernel, control plane, K, precision, the verdict)
+    ("host_composite", "composite", "host", 2, "fp32", "pass:R1,R2,R3"),
+    ("host_banked", "banked", "host", 2, "fp32", "pass:R1,R2,R3"),
+    ("device_banked", "banked", "device", 2, "fp32", "pass:R1,R2,R3"),
+    ("monitor_int8", "banked", "host", 0, "int8_pwl", "pass:R1,R2,R3,R4"),
+]
+
+
+@pytest.mark.parametrize("tick_kernel,control,K,precision,verdict",
+                         [c[1:] for c in AUDIT_CELLS], ids=[c[0] for c in AUDIT_CELLS])  # fmt: skip
+def test_audit_on_the_card_is_clean(dev, tick_kernel, control, K, precision, verdict):
+    """A fused service plan at serve_mr's width audits clean on the card: R2
+    against the launcher's carve, R3 traced and again under sync-debug mode
+    "error" (the host-plane and device-plane ticks), R4 on the int8 tick."""
+    scfg = StreamConfig(steps_per_tick=K)
+    spec = api.RecoverySpec(**SERVE, encoder="gru", mode="stream", n_slots=4, fused=True,
+                            block_b="auto", precision=precision, stream=scfg,
+                            tick=api.TickSpec(steps_per_tick=K, tick_kernel=tick_kernel,
+                                              control=control))  # fmt: skip
+    plan = api.compile_plan(spec, device=dev, audit="error")
+    assert plan.lowering.audit == verdict
+    assert plan.lowering.smem_budget_source == "device"
+
+
+@pytest.mark.parametrize("encoder", ["gru_flow", "ltc", "node"])
+def test_offline_audit_on_the_card_is_clean(dev, encoder):
+    """Each fused family's quickstart-width offline plan audits clean on the
+    card: the epoch (R1; R3 traced and under sync-debug mode "error") and the
+    fused stage (R2, R3)."""
+    spec = api.RecoverySpec(state_dim=2, hidden=32, dense_hidden=64, encoder=encoder, fused=True,
+                            block_b="auto", mode="offline", batch_size=64, steps=4)  # fmt: skip
+    assert api.compile_plan(spec, device=dev, audit="error").lowering.audit == "pass:R1,R2,R3"
+
+
+def test_r3_sees_host_to_device_copies_on_the_card(dev):
+    """The trace finds each copy to the card that makes the host wait: a
+    tensor made on the card from a list, a blocking copy, a non-blocking copy
+    from pageable memory; a non-blocking copy from pinned memory is clean."""
+    from repro_torch.analysis import trace
+
+    lrs = [1e-3, 2e-3]
+    cases = {
+        "factory": lambda: torch.tensor(lrs, dtype=torch.float32, device=dev),
+        "blocking": lambda: torch.tensor(lrs).to(dev),
+        "pageable": lambda: torch.tensor(lrs).to(dev, non_blocking=True),
+        "pinned": lambda: torch.tensor(lrs).pin_memory().to(dev, non_blocking=True),
+    }
+    waits = {k: len(trace.observe(k, fn, []).waits) for k, fn in cases.items()}
+    assert waits == {"factory": 1, "blocking": 1, "pageable": 1, "pinned": 0}
+
+
+def test_measured_tune_on_the_card(dev, tmp_path, monkeypatch):
+    """Every candidate timed with CUDA events, its carve equal to the model;
+    the tuned plan audits clean (R2: the model and the recorded measured
+    bytes against the launch's carve); a warm recompile times nothing."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    from repro_torch.analysis import tuner
+
+    spec = api.RecoverySpec(state_dim=2, hidden=32, dense_hidden=64, encoder="ltc", fused=True,
+                            block_b="auto", mode="offline", batch_size=64, steps=4)  # fmt: skip
+    report = tuner.tune(spec, device=dev)
+    fused = [s for s in report.candidates if s.candidate.fused and s.t_step_us is not None]
+    assert fused and all(s.measured_us > 0 and s.parsed_bytes == s.predicted_bytes for s in fused)
+    plan = api.compile_plan(spec, device=dev, tune="measured", audit="error")
+    low = plan.lowering
+    assert low.tuned == "measured:cached" and low.audit == "pass:R1,R2,R3"
+    assert low.measured_bytes == report.chosen.parsed_bytes
+    assert low.substep_unroll == report.chosen.candidate.substep_unroll
+    assert tuner.tune(spec, device=dev).n_lowered == 0
