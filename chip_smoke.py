@@ -264,6 +264,32 @@ measured tuner; no new kernel) adds:
   timing 0 candidates; the offline plans' first training step and the
   monitor's first tick within 1e-4 of the untuned plan's.
 
+The ``gru`` LM family (merinda-gru: the paper's GRU-flow cell as an LM mixer,
+SwiGLU MLPs; its scan past the warp cell's width through the wide form
+``csrc/gru_scan_wide.cu``: a tiled GEMM for x.Wx + b, then the recurrence on a
+thread-block cluster of 16 blocks a batch row) adds, after phase 8e:
+
+- 8n. the wide scan against ``gru_scan_reference`` at the serve path's
+  shapes (bootstrap prefill B = 4, T = 1,024; admission B = 1; decode B = 4,
+  T = 1; D = H = 512), flow on and off, from a non-zero h0 and per-step dts,
+  within 1e-4; merinda-gru's SMOKE (H = 64) in float32, a prefill and a
+  decode step through the warp cell (``gru_scan``, once a layer each, nothing
+  else) against ``force_reference`` within 1e-4;
+- 8o. ``python -m repro_torch.launch.serve --arch merinda-gru --full
+  --requests 8 --slots 4 --prompt-len 1024 --max-new 32`` (random bf16
+  weights at the published widths). The launch counts are set to 0 just
+  before and read just after: ``gru_scan_wide`` exactly once a layer a
+  prefill and a decode step (8 x (5 + the decode steps)), no other kernel;
+  every request its tokens. On the same weights in float32 the kernel path's
+  prefill logits against ``force_reference``'s and a prefill + 3 decode steps
+  against longer prefills, within 1e-3 of the largest logit; bf16 printed,
+  with the share of greedy tokens on which the kernel and the reference
+  serve (the plain scan) agree. Prefill, admission and decode ms, tokens/s,
+  peak memory;
+- in phase 9 the wide scan's event time at the three shapes beside its plain
+  version, its bound and its chain floor; in phase 10 the device time of its
+  two kernels.
+
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -367,6 +393,12 @@ FLASH_CASES = [  # B, S, QH, KH, Dh, causal, window: tests/test_kernels_flash.py
 MINITRON = (1, 4096, 32, 8, 128)  # B, S, QH, KH, Dh: benchmarks/roofline.py's flash shape
 LM_ARGS = ["--arch", "mamba2-130m", "--full", "--requests", "8", "--slots", "4", "--prompt-len",
            "1024", "--max-new", "32", "--device", "cuda"]  # fmt: skip
+# the gru LM family: merinda-gru served at its published widths (8 layers, d_model = H =
+# 512) through the wide GRU-flow scan, and the scan alone at the serve path's shapes
+LM_GRU_ARGS = ["--arch", "merinda-gru", "--full", "--requests", "8", "--slots", "4",
+               "--prompt-len", "1024", "--max-new", "32", "--device", "cuda"]  # fmt: skip
+GRU_WIDTH = 512  # merinda-gru CONFIG: d_model = gru_hidden
+GRU_WIDE_SHAPES = [("bootstrap prefill", 4, 1024), ("admission prefill", 1, 1024), ("decode", 4, 1)]
 # the LM path's float32 logits, kernel against reference and prefill against decode,
 # relative to the largest logit: at Mamba2-130m's depth two float32 summation orders
 # part by ~1.2e-4 of it (tests/test_torch_lm_depth.py, at the SMOKE widths)
@@ -459,6 +491,10 @@ EVENT_GAP = 0.2  # event against device time: above it, the event time is the ho
 # conversion (~6), the clamp and the address (~12), the slope and intercept loaded
 # from shared memory side by side (~30), the multiply and add, the end-value selects
 LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH, LAT_DIV, LAT_PWL = 4, 40, 68, 70, 40, 110
+# the wide scan's (csrc/gru_scan_wide.cu): a shared load ~30 cycles, a shuffle ~30, and a
+# cluster barrier with the distributed shared-memory stores before it ~500 (assumed, not
+# measured: the step time on the card says what it is)
+LAT_LDS, LAT_SHFL, LAT_CLUSTER = 30, 30, 500
 
 
 def log(msg: str) -> None:
@@ -580,7 +616,12 @@ def chain_cycles(family: str, H: int) -> int:
     """Cycles of one dependent step of a warp-cell kernel (GRU step, the int8/PWL
     GRU step ``gru_q``, LTC substep, the int8/PWL LTC substep ``ltc_q``, NODE
     substep): each matvec is a row exchange, H/4 FMAs deep (four partial sums)
-    and two adds to combine them; then what follows it on the chain."""
+    and two adds to combine them; then what follows it on the chain. The wide
+    scan's step (``gru_wide``): each of its two products is a row load, H/32
+    FMAs deep (a lane's k), five shuffle rounds and a cluster barrier."""
+    if family == "gru_wide":  # + gx, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
+        product = LAT_LDS + (H // 32) * LAT_OP + 5 * LAT_SHFL + LAT_CLUSTER
+        return 2 * product + 2 * LAT_OP + LAT_SIGMOID + LAT_OP + LAT_TANH + 4 * LAT_OP
     matvec = LAT_EXCHANGE + (H // 4 + 2) * LAT_OP
     if family == "gru":  # + x.Wx + b, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
         return 2 * matvec + LAT_OP + LAT_SIGMOID + LAT_OP + LAT_OP + LAT_TANH + 4 * LAT_OP
@@ -645,10 +686,12 @@ def main() -> None:
     from repro_torch.core import engine
     from repro_torch.core.library import denormalize_theta
     from repro_torch.data.dynamics import embed_true_coef
+    from repro_torch.configs import get_config
     from repro_torch.kernels.gru_scan.ops import (
         gru_scan_cuda,
         gru_scan_int8_cuda,
         gru_scan_slots_cuda,
+        gru_scan_wide_cuda,
     )
     from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
     from repro_torch.kernels.mr_step import tiling
@@ -709,6 +752,7 @@ def main() -> None:
         "gru_scan_slots": gru_scan_slots_cuda,
         "mr_step_ltc_slots": mr_step_ltc_slots_cuda,
         "mr_step_node_slots": mr_step_node_slots_cuda,
+        "gru_scan_wide": gru_scan_wide_cuda,
     }
     tables = serving_tables()
     # the slot-axis forms: form -> (slot kernel, per-call kernel, plain version, the
@@ -2253,6 +2297,21 @@ def main() -> None:
             f"flash_attention {e_fa:.3e}")  # fmt: skip
         check(e_ssd <= 5e-4 and e_fa <= 5e-4, "the LM kernels' gradients")
 
+    def teacher_forcing(cfg, params, toks, S_p, force=False) -> tuple[float, float]:
+        """A prefill of S_p tokens of ``toks`` and 3 decode steps against prefills
+        of the longer prompts (tests/test_models.py:71): (max abs gap, max |logit|)."""
+        run = lambda n: lm.prefill(params, {"tokens": toks[:, :n]}, cfg, S_p + 4,
+                                   force_reference=force)  # fmt: skip
+        ref = [run(t)[0] for t in range(S_p, S_p + 4)]
+        lg, cache = run(S_p)
+        got = [lg]
+        for t in range(S_p, S_p + 3):
+            lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], t, cfg,
+                                       force_reference=force)  # fmt: skip
+            got.append(lg)
+        gap = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        return gap, max(b.float().abs().max().item() for b in ref)
+
     # -- 8e. the LM serving path: Mamba2-130m at full width through ssd_scan --------------
     with Phase("main lm"):
         lm_args = lm_serve.build_parser().parse_args(LM_ARGS)
@@ -2293,20 +2352,6 @@ def main() -> None:
                                device=dev).long()  # fmt: skip
         S_p = prompts.shape[1]
 
-        def teacher_forcing(cfg, params, force=False) -> tuple[float, float]:
-            """A prefill of S_p tokens and 3 decode steps against prefills of the
-            longer prompts (tests/test_models.py:71): (max abs gap, max |logit|)."""
-            run = lambda n: lm.prefill(params, {"tokens": toks[:, :n]}, cfg, S_p + 4,
-                                       force_reference=force)  # fmt: skip
-            ref = [run(t)[0] for t in range(S_p, S_p + 4)]
-            lg, cache = run(S_p)
-            got = [lg]
-            for t in range(S_p, S_p + 3):
-                lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], t, cfg)
-                got.append(lg)
-            gap = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
-            return gap, max(b.float().abs().max().item() for b in ref)
-
         times, logits = {}, {}
         with torch.no_grad():
             for label, prompt_batch in (("admission", first[:1]), ("bootstrap", first)):
@@ -2325,8 +2370,8 @@ def main() -> None:
             cfg64 = dataclasses.replace(lm_cfg, ssm=dataclasses.replace(lm_cfg.ssm, chunk=64))
             lg_64, _ = lm.prefill(lm_params, {"tokens": first}, cfg64, lm_args.cache_len)
             e_chunk = (lg_k.float() - lg_64.float()).abs().max().item()  # the same sums reordered
-            e_tf = teacher_forcing(lm_cfg, lm_params)[0]
-            e_tf_plain = teacher_forcing(lm_cfg, lm_params, force=True)[0]
+            e_tf = teacher_forcing(lm_cfg, lm_params, toks, S_p)[0]
+            e_tf_plain = teacher_forcing(lm_cfg, lm_params, toks, S_p, force=True)[0]
             # bounded: the same weights in float32, where the kernel and ssd_chunked
             # both compute in float32 and 24 layers keep them within LM_F32_REL
             cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
@@ -2335,7 +2380,7 @@ def main() -> None:
             lg32_r, _ = lm.prefill(params32, {"tokens": first}, cfg32, lm_args.cache_len,
                                    force_reference=True)  # fmt: skip
             e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
-            e32_tf, scale32_tf = teacher_forcing(cfg32, params32)
+            e32_tf, scale32_tf = teacher_forcing(cfg32, params32, toks, S_p)
         ref_serve = lm_serve.serve_lm(lm_cfg, lm_params, prompts, slots=lm_args.slots,
                                       max_new=lm_args.max_new, cache_len=lm_args.cache_len,
                                       eos=lm_args.eos, force_reference=True)  # fmt: skip
@@ -2366,6 +2411,143 @@ def main() -> None:
                              e_tf_plain=e_tf_plain, e32_logits=e32_logits, e32_tf=e32_tf,
                              agree=agree)  # fmt: skip
         del served, lm_params, params32, ref_serve
+
+    # -- 8n. the gru LM family: the wide GRU-flow scan alone, merinda-gru SMOKE ----------
+    def wide_operands(B, T, D, H, seed):
+        """The wide scan's operands at the LM's scales: xs, a non-zero h0, wx, wh,
+        b, time_scale and per-step dts."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        mk = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=g) * scale
+        w = (D + H) ** -0.5
+        dts = 0.25 + 1.75 * torch.rand(T, device=dev, generator=g)
+        return (mk(B, T, D), mk(B, H, scale=0.5), mk(D, 3 * H, scale=w), mk(H, 3 * H, scale=w),
+                mk(3 * H, scale=0.1), mk(H, scale=0.3), dts)  # fmt: skip
+
+    with Phase("lm gru parity"):
+        for label, B, T in GRU_WIDE_SHAPES:
+            for flow in (True, False):
+                ops = wide_operands(B, T, GRU_WIDTH, GRU_WIDTH, seed=90 + B + T + flow)
+                e = (gru_scan_wide_cuda(*ops, flow=flow) - gru_scan_reference(*ops, flow=flow))
+                record("gru_scan_wide", f"merinda-gru {label} B={B} T={T} D=H={GRU_WIDTH} "
+                       f"flow={flow}, h0 non-zero", e.abs().max().item())  # fmt: skip
+        del ops, e
+        # SMOKE (H = 64) through the warp cell: a prefill and a decode step in float32
+        s_cfg = dataclasses.replace(get_config("merinda-gru", smoke=True), dtype="float32")
+        s_params = lm.init_params(torch.Generator(device=dev).manual_seed(1), s_cfg)
+        rng = np.random.default_rng(91)
+        s_toks = torch.as_tensor(rng.integers(1, s_cfg.vocab_size, size=(2, 65)), device=dev).long()
+        zero_counts()
+        lg, cache = lm.prefill(s_params, {"tokens": s_toks[:, :64]}, s_cfg, 128)
+        lg2, cache = lm.decode_step(s_params, cache, s_toks[:, 64:], 64, s_cfg)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want, want_cache = lm.prefill(s_params, {"tokens": s_toks[:, :64]}, s_cfg, 128,
+                                      force_reference=True)  # fmt: skip
+        want2, want_cache = lm.decode_step(s_params, want_cache, s_toks[:, 64:], 64, s_cfg,
+                                           force_reference=True)  # fmt: skip
+        e_smoke = max((a - b).abs().max().item() for a, b in
+                      ((lg, want), (lg2, want2), (cache["layers"]["state"],
+                                                  want_cache["layers"]["state"])))  # fmt: skip
+        log(f"[lm gru parity] merinda-gru SMOKE (H = {s_cfg.gru_hidden}) float32 prefill of 64 "
+            f"tokens and a decode step, kernel against force_reference: logits and state max abs "
+            f"{e_smoke:.3e} (max |logit| {want.abs().max().item():.3e}); launches "
+            f"{dict((k, n) for k, n in counts.items() if n)}")  # fmt: skip
+        check(e_smoke <= TOL, f"merinda-gru SMOKE through gru_scan: {e_smoke:.3e}")
+        check(counts == {**dict.fromkeys(counts, 0), "gru_scan": 2 * s_cfg.num_layers},
+              f"merinda-gru SMOKE launched {counts}")  # fmt: skip
+        err["gru_scan"] = max(err["gru_scan"], e_smoke)
+
+    # -- 8o. the gru LM family's serving path: merinda-gru at full width ------------------
+    with Phase("main lm gru"):
+        g_args = lm_serve.build_parser().parse_args(LM_GRU_ARGS)
+        log(f"[main lm gru] python -m repro_torch.launch.serve {' '.join(LM_GRU_ARGS)}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        served = lm_serve.run(g_args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        g_cfg, g_params, prompts = served["cfg"], served["params"], served["prompts"]
+        outputs = served["outputs"]
+        n_new = sum(len(t) for t in outputs.values())
+        n_prefills = 1 + g_args.requests - g_args.slots
+        # one op call a layer a prefill and a decode step: two kernels each
+        want_launches = g_cfg.num_layers * (n_prefills + served["steps"])
+        decode_p50 = float(np.percentile(served["decode_ms"], 50))
+        log(
+            f"[main lm gru] {g_cfg.name}: {g_cfg.num_layers} layers, d_model {g_cfg.d_model}, "
+            f"gru_hidden {g_cfg.gru_hidden}, d_ff {g_cfg.d_ff}, vocab {g_cfg.vocab_padded}; "
+            f"{served['steps']} decode steps, {n_new} new tokens, "
+            f"{n_new / served['wall_s']:.1f} tokens/s; bootstrap prefill ({g_args.slots} x "
+            f"{g_args.prompt_len} tokens) {served['prefill_ms']:.1f} ms, admissions "
+            f"{[round(t, 1) for t in served['admit_ms']]} ms, decode p50 {decode_p50:.2f} ms a "
+            f"step; peak device memory {peak_gb:.2f} GB; launches "
+            f"{dict((k, n) for k, n in counts.items() if n)} (expected gru_scan_wide "
+            f"{want_launches}: {g_cfg.num_layers} layers x ({n_prefills} prefills + "
+            f"{served['steps']} decode steps)); {smi}"
+        )
+        for r in range(3):
+            log(f"[main lm gru]   req{r}: {outputs[r][:12]}...")
+        check(counts == {**dict.fromkeys(counts, 0), "gru_scan_wide": want_launches},
+              f"the gru LM path launched {counts}, expected gru_scan_wide {want_launches}")  # fmt: skip
+        check(all(len(t) == g_args.max_new or (t and t[-1] == g_args.eos) for t in outputs.values())
+              and len(outputs) == g_args.requests, "every gru request its tokens")  # fmt: skip
+        first = torch.as_tensor(prompts[: g_args.slots], device=dev).long()
+        extra = np.random.default_rng(92).integers(1, min(g_cfg.vocab_size, 1000), size=(2, 4))
+        toks = torch.as_tensor(np.concatenate([prompts[:2], extra.astype(np.int32)], axis=1),
+                               device=dev).long()  # fmt: skip
+        S_p = prompts.shape[1]
+        g_times = {}
+        with torch.no_grad():
+            for label, prompt_batch in (("admission", first[:1]), ("bootstrap", first)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg_k, _ = lm.prefill(g_params, {"tokens": prompt_batch}, g_cfg, g_args.cache_len)
+                torch.cuda.synchronize()
+                g_times[label] = (time.perf_counter() - t0) * 1e3
+            # bf16, printed: the kernel computes in float32 on the bf16 layer's inputs, as
+            # the plain version does, so the two part only by their sums' order
+            lg_r, _ = lm.prefill(g_params, {"tokens": first}, g_cfg, g_args.cache_len,
+                                 force_reference=True)  # fmt: skip
+            e_logits = (lg_k.float() - lg_r.float()).abs().max().item()
+            e_tf = teacher_forcing(g_cfg, g_params, toks, S_p)[0]
+            # bounded: the same weights in float32
+            cfg32 = dataclasses.replace(g_cfg, dtype="float32")
+            params32 = tree_map(lambda t: t.float(), g_params)
+            lg32_k, _ = lm.prefill(params32, {"tokens": first}, cfg32, g_args.cache_len)
+            lg32_r, _ = lm.prefill(params32, {"tokens": first}, cfg32, g_args.cache_len,
+                                   force_reference=True)  # fmt: skip
+            e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
+            e32_tf, scale32_tf = teacher_forcing(cfg32, params32, toks, S_p)
+        ref_serve = lm_serve.serve_lm(g_cfg, g_params, prompts, slots=g_args.slots,
+                                      max_new=g_args.max_new, cache_len=g_args.cache_len,
+                                      eos=g_args.eos, force_reference=True)  # fmt: skip
+        pairs = [(a, b) for r in outputs for a, b in zip(outputs[r], ref_serve["outputs"][r])]
+        agree = sum(a == b for a, b in pairs) / len(pairs)
+        log(
+            f"[main lm gru] warm prefill: bootstrap {g_times['bootstrap']:.1f} ms, admission "
+            f"{g_times['admission']:.1f} ms. bf16, printed, not bounded: prefill logits, kernel "
+            f"against force_reference, max abs {e_logits:.3e} (max |logit| "
+            f"{lg_r.float().abs().max().item():.3e}); teacher forcing ({S_p} tokens, 3 decode "
+            f"steps) max abs {e_tf:.3e}; greedy tokens the kernel and the reference serve agree "
+            f"on: {agree:.4f} of {len(pairs)}"
+        )
+        log(
+            f"[main lm gru] float32 (the same weights; bound {LM_F32_REL} of the largest logit): "
+            f"prefill logits, kernel against force_reference, max abs {e32_logits:.3e} (max "
+            f"|logit| {scale32:.3e}); teacher forcing on the kernel path max abs {e32_tf:.3e} (max "
+            f"|logit| {scale32_tf:.3e})"
+        )
+        check(e32_logits <= LM_F32_REL * scale32,
+              f"float32 gru LM logits, kernel against reference: {e32_logits:.3e}")  # fmt: skip
+        check(e32_tf <= LM_F32_REL * scale32_tf, f"float32 gru LM teacher forcing: {e32_tf:.3e}")
+        results["lm gru"] = dict(launches=counts["gru_scan_wide"], steps=served["steps"], new=n_new,
+                                 tok_s=n_new / served["wall_s"], prefill_ms=served["prefill_ms"],
+                                 admit_ms=served["admit_ms"], decode_p50=decode_p50,
+                                 peak_gb=peak_gb, warm=g_times, e_logits=e_logits, e_tf=e_tf,
+                                 e32_logits=e32_logits, e32_tf=e32_tf, agree=agree)  # fmt: skip
+        del served, g_params, params32, ref_serve
 
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
@@ -2683,6 +2865,29 @@ def main() -> None:
             f"bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
             f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
         del q, k, v, qt, kt, vt, o_l
+        # the wide GRU-flow scan at the merinda-gru serve path's shapes (flow on, as the
+        # LM runs it; flow off at the bootstrap prefill too)
+        for label, B, T in GRU_WIDE_SHAPES:
+            for flow in (True, False) if T > 1 and B > 1 else (True,):
+                ops = wide_operands(B, T, GRU_WIDTH, GRU_WIDTH, seed=95 + B + T)
+                k_ms = time_ms(lambda: gru_scan_wide_cuda(*ops, flow=flow),
+                               per_run=10 if T > 1 else 50)  # fmt: skip
+                p_ms = time_ms(lambda: gru_scan_reference(*ops, flow=flow), runs=2 if T > 1 else 10,
+                               per_run=1)  # fmt: skip
+                flops, nbytes = work("gru", B, T, GRU_WIDTH, GRU_WIDTH, 0, 0, head=False)
+                b_ms, b_by = bound_ms(flops, nbytes)
+                floor = chain_floor_ms("gru_wide", T, GRU_WIDTH, clock_mhz * 1e6)
+                key = label if flow else f"{label} (flow=False)"
+                shape = f"merinda-gru {label} B={B} T={T} D=H={GRU_WIDTH}"
+                lm_timed["gru_scan_wide", key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                                      bound_by=b_by, library_ms=None, shape=shape,
+                                                      chain_floor_ms=floor, flow=flow, B=B, T=T)  # fmt: skip
+                log(f"[time] gru_scan_wide at {shape} flow={flow}: kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                    f"{nbytes / 1e6:.1f} MB), chain floor {floor:.4f} ms "
+                    f"({chain_cycles('gru_wide', GRU_WIDTH)} cycles a step at {clock_mhz:.0f} "
+                    f"MHz); {b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
+        del ops
 
     # -- 10. where the time of a training step, a tick and an ssd_scan call goes --------
     device_timed = {}  # (kernel, shape label) -> the kernel's mean device ms
@@ -2782,6 +2987,23 @@ def main() -> None:
                 log(f"[profile ssd_scan B={B} bf16]   {sum(v) / n_prof:8.4f} ms/call  "
                     f"{len(v) / n_prof:4.1f}/call  {k[:80]}")  # fmt: skip
             del args
+        for (kernel, key), t in lm_timed.items():  # the wide scan's two kernels a call
+            if kernel != "gru_scan_wide" or not t["flow"]:
+                continue
+            B, T = t["B"], t["T"]
+            ops = wide_operands(B, T, GRU_WIDTH, GRU_WIDTH, seed=96 + B + T)
+            call = lambda: gru_scan_wide_cuda(*ops, flow=t["flow"])
+            try:
+                gx_ms, scan_ms = device_ms(call, "gru_wide_gx"), device_ms(call, "gru_wide")
+            except RuntimeError as e:
+                check(False, f"gru_scan_wide at {key}: {e}")
+            t.update(device_ms=gx_ms + scan_ms, gx_device_ms=gx_ms, scan_device_ms=scan_ms)
+            step_cycles = scan_ms / T * clock_mhz * 1e3
+            log(f"[profile gru_scan_wide] at {t['shape']} flow={t['flow']}: device {gx_ms + scan_ms:.4f}"
+                f" ms a call (mean of {DEVICE_TIMED}): gru_wide_gx_kernel {gx_ms:.4f} ms, "
+                f"gru_wide_kernel {scan_ms:.4f} ms ({step_cycles:.0f} cycles a step at "
+                f"{clock_mhz:.0f} MHz against {chain_cycles('gru_wide', GRU_WIDTH)} reckoned); "
+                f"event time {t['ms']:.4f} ms; chain floor {t['chain_floor_ms']:.4f} ms")  # fmt: skip
         for label in PROFILED_PATHS:
             plan = plans[label]
             cfg = plan.cfg
@@ -2975,6 +3197,31 @@ def main() -> None:
                                       "plain_ms", "bound_ms", "bound_by")},
         })  # fmt: skip
     kernels += lm_kernels
+    gw = lm_timed["gru_scan_wide", GRU_WIDE_SHAPES[0][0]]
+    kernels.append({
+        "name": "gru_scan_wide",
+        "route": "cuda",
+        "source": f"{REPO_PATH}/gru_scan_wide.cu",
+        "replaces": f"{PALLAS}/gru_scan/kernel.py:107",
+        "launches": results["lm gru"]["launches"],
+        "main_path": "lm gru",
+        "max_abs_err": err["gru_scan_wide"],
+        "ms": gw["ms"],
+        "kernel_ms": gw["ms"],
+        "plain_ms": gw["plain_ms"],
+        "bound_ms": gw["bound_ms"],
+        "bound_by": gw["bound_by"],
+        "library_ms": None,
+        "library_note": gru_note,
+        "shape": gw["shape"],
+        "device_ms": gw["device_ms"],
+        "gx_device_ms": gw["gx_device_ms"],
+        "scan_device_ms": gw["scan_device_ms"],
+        "chain_floor_ms": gw["chain_floor_ms"],
+        "other_shapes": {key: {k: v for k, v in o.items() if k not in ("library_ms", "B", "T")}
+                         for (kernel, key), o in lm_timed.items()
+                         if kernel == "gru_scan_wide" and o is not gw},
+    })  # fmt: skip
     for label in runs:
         r = results[label]
         busy = f", device busy {r['busy_ms']:.3f} ms/step" if "busy_ms" in r else ""
@@ -3072,6 +3319,18 @@ def main() -> None:
         f"{r['peak_gb']:.2f} GB; float32: logits {r['e32_logits']:.3e}, teacher forcing "
         f"{r['e32_tf']:.3e}; bf16: logits {r['e_logits']:.3e}, teacher forcing {r['e_tf']:.3e} "
         f"(plain path {r['e_tf_plain']:.3e}), greedy agreement {r['agree']:.4f}"
+    )
+    r = results["lm gru"]
+    log(
+        f"[summary] lm gru (merinda-gru, full width): {r['launches']} gru_scan_wide launches, "
+        f"{r['steps']} decode steps, {r['new']} tokens at {r['tok_s']:.1f} tokens/s; prefill "
+        f"{r['prefill_ms']:.1f} ms (warm {r['warm']['bootstrap']:.1f}), admission warm "
+        f"{r['warm']['admission']:.1f} ms, decode p50 {r['decode_p50']:.2f} ms; peak "
+        f"{r['peak_gb']:.2f} GB; float32: logits {r['e32_logits']:.3e}, teacher forcing "
+        f"{r['e32_tf']:.3e}; bf16: logits {r['e_logits']:.3e}, teacher forcing {r['e_tf']:.3e}, "
+        f"greedy agreement {r['agree']:.4f}; the wide scan at the bootstrap prefill "
+        f"{gw['ms']:.4f} ms ({gw['device_ms']:.4f} device), bound {gw['bound_ms']:.4f}, chain floor "
+        f"{gw['chain_floor_ms']:.4f}"
     )
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)

@@ -17,7 +17,7 @@ import importlib
 from typing import Optional
 
 # architecture id -> family, for every architecture the port runs
-PORTED = {"mamba2-130m": "ssm"}
+PORTED = {"mamba2-130m": "ssm", "merinda-gru": "gru"}
 PORTED_FAMILIES = frozenset(PORTED.values())
 
 
@@ -45,13 +45,14 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # ssm here; dense | moe | hybrid | vlm | audio | gru wait for their slices
+    family: str  # ssm | gru here; dense | moe | hybrid | vlm | audio wait for their slices
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: Optional[AttentionConfig] = None
     ssm: Optional[SSMConfig] = None
+    gru_hidden: int = 0  # gru family: mixer hidden size (0 -> d_model)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"

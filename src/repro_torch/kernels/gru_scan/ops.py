@@ -14,6 +14,15 @@ kernel, which takes a slot axis (grid (B / block_b, S); one call is S = 1),
 so each slot is bit for bit the per-call wrapper on its slice; the two
 wrappers count their launches apart.
 
+Past the warp cell's width (H > ``tiling.MAX_HIDDEN`` = 256; the merinda-gru
+LM's H = 512) ``gru_scan`` launches the wide form ``gru_scan_wide_cuda``
+(``csrc/gru_scan_wide.cu``: a tiled GEMM for x.Wx + b, then the recurrence on
+a thread-block cluster a batch row, up to H = 512). Each width has its kernel
+and both share the plain version; a shape neither takes raises (the warp
+cell's carve check refuses a (D, H) whose wx and wh do not fit a block), and
+so does a failed build or launch. The wide form has no slot axis (no path vmaps it), and
+its gradient is the same recomputed plain version.
+
 ``gru_scan_int8`` is the serving scan (``ops.py:92-136``): the standard GRU
 with int8 weights quantized on the fly per output channel and PWL
 activations, through ``csrc/gru_scan_int8.cu`` (which replaces
@@ -91,13 +100,57 @@ def gru_scan_slots_cuda(
     return hs
 
 
+def gru_scan_wide_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool):
+    """Launch the wide scan on the current stream: returns hs [B, T, H].
+
+    ``csrc/gru_scan_wide.cu`` for 1 <= H <= 512: ``gru_wide_gx_kernel`` (x.Wx + b
+    for every step into a [B, T, 3H] scratch), then ``gru_wide_kernel`` (the
+    recurrence, a cluster of 16 blocks a batch row). Counts its calls (two
+    kernels each) in ``gru_scan_wide_cuda.launches``.
+    """
+    B, T, D = xs.shape
+    H = h0.shape[-1]
+    rt.check_operands(
+        "gru_scan_wide",
+        xs.device,
+        xs=(xs, (B, T, D)),
+        h0=(h0, (B, H)),
+        wx=(wx, (D, 3 * H)),
+        wh=(wh, (H, 3 * H)),
+        b=(b, (3 * H,)),
+        time_scale=(time_scale, (H,)),
+        dts=(dts, (T,)),
+    )
+    if T < 1 or not 1 <= H <= tiling.WIDE_MAX_HIDDEN:
+        raise ValueError(f"gru_scan_wide: T={T} and H={H} (at most {tiling.WIDE_MAX_HIDDEN}) "
+                         "out of range")  # fmt: skip
+    rt.check_smem("gru_scan_wide", rt.kernel_smem_bytes("gru_scan_wide", H))
+    gx = torch.empty((B, T, 3 * H), dtype=torch.float32, device=xs.device)
+    hs = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
+    err = rt.load_library().gru_scan_wide_launch(
+        *(t.data_ptr() for t in (xs, h0, wx, wh, b, time_scale, dts, gx, hs)),
+        B, T, D, H, int(flow), rt.current_stream(xs.device),
+    )  # fmt: skip
+    rt.check_launch("gru_scan_wide", err)
+    gru_scan_wide_cuda.launches += 1
+    return hs
+
+
+def _no_slot_axis(*args, **kwargs):
+    raise ValueError("gru_scan_wide: the wide form has no slot axis (nothing vmaps it)")
+
+
 gru_scan_cuda.launches = 0
 gru_scan_slots_cuda.launches = 0
+gru_scan_wide_cuda.launches = 0
 
 # apply(kernel_kw, ref_kw, xs, h0, wx, wh, b, time_scale, dts): one launch a
 # call, one slot-axis launch a call under torch.func.vmap
 _GRUScanFn = rt.kernel_function(
     "_GRUScanFn", gru_scan_cuda, gru_scan_slots_cuda, gru_scan_reference
+)
+_GRUScanWideFn = rt.kernel_function(
+    "_GRUScanWideFn", gru_scan_wide_cuda, _no_slot_axis, gru_scan_reference
 )
 
 
@@ -110,7 +163,11 @@ def gru_scan(
     block_b: int | None = None,
     force_reference: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused GRU(-flow) scan. Returns (h_final [B, H], hs [B, T, H])."""
+    """Fused GRU(-flow) scan. Returns (h_final [B, H], hs [B, T, H]).
+
+    On the card the warp cell (``gru_scan_cuda``) at H <= ``tiling.MAX_HIDDEN``,
+    the wide form (``gru_scan_wide_cuda``, a batch row a cluster, ``block_b``
+    unread) past it."""
     B, T, D = xs.shape
     H = params.hidden
     if dts is None:
@@ -118,6 +175,9 @@ def gru_scan(
     wx, wh = params.w[:D], params.w[D:]
     if rt.resolve_dispatch(xs, force_reference) is rt.Dispatch.REFERENCE:
         hs = gru_scan_reference(xs, h0, wx, wh, params.b, params.time_scale, dts, flow=flow)
+    elif H > tiling.MAX_HIDDEN:
+        hs = _GRUScanWideFn.apply(dict(flow=flow), dict(flow=flow), xs.contiguous(),
+                                  h0.contiguous(), wx, wh, params.b, params.time_scale, dts)  # fmt: skip
     else:  # an illegal tile is dropped: the launch fits its own (to B, or S * B under vmap)
         kernel_kw = dict(flow=flow, block_b=tiling.legal_block_b(block_b, B))
         hs = _GRUScanFn.apply(kernel_kw, dict(flow=flow), xs.contiguous(), h0.contiguous(), wx,

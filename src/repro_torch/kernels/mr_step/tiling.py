@@ -28,6 +28,11 @@ field ``kernels/mr_step/ops.py`` dispatches the fused kernels on), or
 ``"gru_scan"`` for the bare scan (``csrc/gru_scan.cu``: ``mr_step``'s carve
 with no head).
 
+Past the warp cell's ``MAX_HIDDEN`` the bare scan takes its wide form
+(``csrc/gru_scan_wide.cu``, the merinda-gru LM at H = 512): a batch row a
+thread-block cluster of ``WIDE_CLUSTER`` blocks, each block holding its
+units' recurrent columns (``gru_scan_wide_smem_bytes``, one block's carve).
+
 The int8 serving stages ``csrc/mr_step_int8.cu`` and ``mr_step_ltc_int8.cu``
 and the int8 scan ``csrc/gru_scan_int8.cu`` are the same warp-per-window
 recurrences on the warp cell's int8/PWL policy: their carves
@@ -149,6 +154,23 @@ def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
     """``gru_scan`` (``GruLayout`` with no head): ``mr_step``'s carve at
     Dh = K = 0."""
     return mr_step_smem_bytes(D, H, 0, 0, block_b)
+
+
+# csrc/gru_scan_wide.cu: the wide form of gru_scan (MAX_HIDDEN < H <= WIDE_MAX_HIDDEN),
+# a batch row a thread-block cluster of WIDE_CLUSTER blocks, WIDE_UNITS hidden units a
+# block, the 512-deep products in passes of WIDE_PASS
+WIDE_CLUSTER = 16  # kCluster
+WIDE_UNITS = 32  # kUnits
+WIDE_PASS = 128  # kPass
+WIDE_MAX_HIDDEN = WIDE_CLUSTER * WIDE_UNITS
+
+
+def gru_scan_wide_smem_bytes(H: int) -> int:
+    """``gru_scan_wide`` (``gru_scan_wide.cu`` ``wide::Layout``), one block of a
+    cluster: its units' r, z and c columns of wh, column-major at a stride of
+    the padded H + 4; the row's h and r*h at the padded H; its units' z."""
+    Hp = -(-H // WIDE_PASS) * WIDE_PASS
+    return 4 * (3 * WIDE_UNITS * (Hp + 4) + 2 * Hp + WIDE_UNITS)
 
 
 def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:

@@ -66,6 +66,9 @@ LAUNCHERS = {
     # xs, h0, wx, wh, b, time_scale, dts, hs, 7 strides, S, B, T, D, H, block_b, flow,
     # stream
     "gru_scan_launch": [_P] * 8 + [_L] * 7 + [_I] * 7 + [_P],
+    # the wide form (256 < H <= 512; no slot axis): xs, h0, wx, wh, b, time_scale, dts,
+    # gx (scratch [B, T, 3H]), hs, B, T, D, H, flow, stream
+    "gru_scan_wide_launch": [_P] * 9 + [_I] * 5 + [_P],
     # buf_y, new_y, mean, scale, theta0, seed, active, wx, wh, b, time_scale, w1, b1,
     # w2, b2, h0, buf_u, new_u, buf_y_out, theta_out, delta_out, buf_u_out,
     # S, L, n, m, C, T, stride, H, Dh, Ko, Kc, bank, flow, ema, one_minus_ema, stream
@@ -100,6 +103,7 @@ LAUNCHERS = {
 CARVES = {
     "mr_step": 5,  # D, H, Dh, K, block_b
     "gru_scan": 3,  # D, H, block_b
+    "gru_scan_wide": 1,  # H (one block of a batch row's cluster)
     "mr_step_ltc": 5,
     "mr_step_node": 5,
     "mr_step_int8": 6,  # D, H, Dh, K, block_b, n_seg

@@ -39,6 +39,12 @@ outputs on the same operands printed (0 where a change keeps the arithmetic).
 ``ptxas`` registers and spills of every build go to
 ``--out``. It needs a card and ``nvcc``, and prints the card's name and power
 limit first.
+
+The wide GRU scan (``csrc/gru_scan_wide.cu``, one batch row a cluster of 16
+blocks) is also built alone with 2 and 4 rows a cluster (``WIDE_ROWS``, its
+``kRows`` patched), and each build's recurrence is timed at merinda-gru's
+bootstrap prefill (B=4, T=1,024, D=H=512) and at B=16 and 32, past the
+clusters one card holds at once, each held to the plain version.
 """
 
 from __future__ import annotations
@@ -124,6 +130,12 @@ UNROLLS = {
                      f"case 1: return launch_{fam}<N, {u}>(args...);") for fam in ("ltc", "node")]
     for u in (2, 6)
 }  # fmt: skip
+# the wide scan at more batch rows a cluster than the one it is built at
+WIDE_SOURCES = ("gru_scan_wide.cu",)
+WIDE_ROWS = {"wide rows 1": []} | {
+    f"wide rows {r}": [("gru_scan_wide.cu", "kRows = 1;", f"kRows = {r};")] for r in (2, 4)
+}  # fmt: skip
+WIDE_SHAPES = [(4, 1024, 512), (16, 1024, 512), (32, 1024, 512)]  # (B, T, D = H)
 # the phases each kernel has
 PHASES = {k: ("no steps", "no terms ahead", "no head") for k in KERNELS}
 for _scan in SCANS:
@@ -348,6 +360,32 @@ def plain(kernel, ops):
     )[1]
 
 
+def wide_report(libs, device) -> None:
+    """The wide scan built at 1, 2 and 4 rows a cluster (flow on): each build's
+    distance from the plain version and its recurrence's device ms."""
+    for B, T, H in WIDE_SHAPES:
+        mk = _maker(device, B)
+        w = (2 * H) ** -0.5
+        ops = [mk(B, T, H), mk(B, H, scale=0.5), mk(H, 3 * H, scale=w), mk(H, 3 * H, scale=w),
+               mk(3 * H, scale=0.1), mk(H, scale=0.3), torch.ones(T, device=device)]  # fmt: skip
+        want = gru_scan_reference(*ops, flow=True)
+        gx, hs = torch.empty(B, T, 3 * H, device=device), torch.empty(B, T, H, device=device)
+        ptrs = [t.data_ptr() for t in (*ops, gx, hs)]
+        times = []
+        for tag in WIDE_ROWS:
+
+            def launch(fn=libs[tag].gru_scan_wide_launch):
+                stream = torch.cuda.current_stream().cuda_stream
+                rt.check_launch("gru_scan_wide", fn(*ptrs, B, T, H, H, 1, stream))
+                return [hs]
+
+            err = (launch()[0] - want).abs().max().item()
+            times.append(f"{tag.split()[-1]}: {device_ms(launch, 'gru_wide'):.4f} ms "
+                         f"(max abs {err:.3e})")  # fmt: skip
+        print(f"[wide rows] gru_scan_wide at B={B} T={T} D=H={H}, the recurrence's device ms "
+              f"by rows a cluster: {', '.join(times)}", flush=True)  # fmt: skip
+
+
 def report(libs, kernel, label, ops) -> None:
     """Parity, the phases, the tiles and the baseline of one kernel at one shape."""
     out = launcher(libs["current"], kernel, ops, 1)()
@@ -398,19 +436,22 @@ def main() -> None:
     rt.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=rt.BUILD_DIR) as tmp:
         work = Path(tmp)
-        jobs = {"current": (rt.CSRC, ())}
-        jobs.update({tag: (rt.CSRC, patches) for tag, patches in {**VARIANTS, **UNROLLS}.items()})
+        jobs = {"current": (rt.CSRC, (), SOURCES)}
+        jobs.update({tag: (rt.CSRC, patches, SOURCES)
+                     for tag, patches in {**VARIANTS, **UNROLLS}.items()})  # fmt: skip
+        jobs.update({tag: (rt.CSRC, patches, WIDE_SOURCES) for tag, patches in WIDE_ROWS.items()})
         if args.baseline is not None:
-            jobs["baseline"] = (args.baseline, ())
+            jobs["baseline"] = (args.baseline, (), SOURCES)
         with ThreadPoolExecutor(max_workers=2) as pool:
-            futures = {tag: pool.submit(build, csrc, work, tag.replace(" ", "_"), patches)
-                       for tag, (csrc, patches) in jobs.items()}  # fmt: skip
+            futures = {tag: pool.submit(build, csrc, work, tag.replace(" ", "_"), patches, sources)
+                       for tag, (csrc, patches, sources) in jobs.items()}  # fmt: skip
             builds = {tag: f.result() for tag, f in futures.items()}
         for tag, (_, log) in builds.items():
             (args.out / f"ptxas_{tag.replace(' ', '_')}.log").write_text(log)
             for line in ptxas_summary(log):
                 print(f"[ptxas {tag}] {line}", flush=True)
         libs = {tag: lib for tag, (lib, _) in builds.items()}
+        wide_report(libs, dev)
         for label, B, T, D, H, Dh, K in SHAPES:
             shape = f"{label} (B={B} T={T} D={D} H={H} Dh={Dh} K={K})"
             for kernel in KERNELS:

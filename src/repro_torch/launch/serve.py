@@ -10,20 +10,28 @@ tensors where the JAX package rebuilds them).
 Prompts are drawn with numpy from ``--seed``, exactly as the JAX launcher
 draws them; initial weights come from a ``torch.Generator`` seeded with it
 (random weights at the published widths with ``--full``). On the card (the
-default ``--device cuda``) every prefill runs the SSD scan through the
-``ssd_scan`` CUDA kernel, one launch a layer:
+default ``--device cuda``) every Mamba2 prefill runs the SSD scan through the
+``ssd_scan`` CUDA kernel, one launch a layer, and every merinda-gru prefill
+and decode step its GRU-flow scan through ``gru_scan``, one call a layer (at
+the published H = 512 the wide form, ``csrc/gru_scan_wide.cu``; at SMOKE's
+H = 64 the warp cell, ``csrc/gru_scan.cu``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full \\
         --requests 8 --slots 4 --prompt-len 1024 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch merinda-gru --full \\
+        --requests 8 --slots 4 --prompt-len 1024 --max-new 32
 
-and the smoke configuration with the plain versions on the CPU:
+and the smoke configurations with the plain versions on the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --requests 8 --slots 4 --prompt-len 64 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch merinda-gru --device cpu \\
+        --requests 8 --slots 4 --prompt-len 64 --max-new 16
 
-Only the ``ssm`` family is ported, so the default ``--arch`` is
-``mamba2-130m`` (the JAX launcher's is ``qwen2.5-3b``); any other architecture
-raises and names the ported ones.
+The ported architectures are ``mamba2-130m`` and ``merinda-gru``; the default
+``--arch`` stays ``mamba2-130m`` (the JAX launcher's is ``qwen2.5-3b``, a dense
+model not ported yet); any other architecture raises and names the ported
+ones.
 """
 
 from __future__ import annotations
@@ -113,8 +121,9 @@ def serve_lm(cfg: ModelConfig, params, prompts: np.ndarray, *, slots: int, max_n
     t_start = time.perf_counter()
     while done < requests:
         t1 = time.perf_counter()
-        pos = int(slot_pos.max())  # the JAX launcher's common position (unread by ssm)
-        logits, cache = M.decode_step(params, cache, next_tok[:, None].to(torch.long), pos, cfg)
+        pos = int(slot_pos.max())  # the JAX launcher's common position (unread by ssm, gru)
+        logits, cache = M.decode_step(params, cache, next_tok[:, None].to(torch.long), pos, cfg,
+                                      force_reference)  # fmt: skip
         steps += 1
         next_tok = _greedy(logits, cfg)
         toks = next_tok.cpu().numpy()

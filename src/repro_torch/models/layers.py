@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, embedding, LM head (``repro/models/layers.py``).
+"""Shared building blocks: RMSNorm, embedding, LM head, the SwiGLU MLP
+(``repro/models/layers.py``).
 
 The JAX package's sharding hints (``parallel/rules.constraint``,
 ``sp_gather``) are identities on one card, and the port drops them.
@@ -36,3 +37,19 @@ def lm_head_specs(d: int, vocab_padded: int, dtype: str):
 
 def lm_head(params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"]
+
+
+def mlp_specs(d: int, f: int, dtype: str):
+    si, sf = 1.0 / (d**0.5), 1.0 / (f**0.5)
+    return {
+        "w_gate": ParamSpec((d, f), ("embed", "mlp"), dtype=dtype, scale=si),
+        "w_up": ParamSpec((d, f), ("embed", "mlp"), dtype=dtype, scale=si),
+        "w_down": ParamSpec((f, d), ("mlp", "embed"), dtype=dtype, scale=sf),
+    }
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu(x.w_gate) * (x.w_up), then .w_down. Plain products, as the
+    JAX package leaves them to XLA."""
+    h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]

@@ -1,4 +1,4 @@
-"""Model zoo public API, the ``ssm`` family (``repro/models/model.py``).
+"""Model zoo public API, the ``ssm`` and ``gru`` families (``repro/models/model.py``).
 
 Entry points (functional; params is a nested dict of tensors):
 
@@ -10,8 +10,12 @@ Entry points (functional; params is a nested dict of tensors):
 
 The JAX package scans one traced layer body over the stacked ``[L, ...]``
 parameters (``lax.scan``); here a Python loop walks the same stacked
-tensors. Every other family raises: it waits for its slice of the port
-(``train_loss`` for the training slice).
+tensors. ``ssm`` layers are Mamba2 blocks (``models/mamba2.py``, the scan
+through ``ssd_scan``); ``gru`` layers (merinda-gru) are the paper's GRU-flow
+cell as a sequence mixer, then a SwiGLU MLP, the scan through
+``kernels/gru_scan`` ``gru_scan`` in prefill and in decode (one step from the
+cached state, dt = 1). Every other family raises: it waits for its slice of
+the port (``train_loss`` for the training slice).
 """
 
 from __future__ import annotations
@@ -21,12 +25,16 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
+from repro_torch.core.neural_flow import GRUParams
+from repro_torch.kernels.gru_scan.ops import gru_scan
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.layers import (
     embed,
     embed_specs,
     lm_head,
     lm_head_specs,
+    mlp,
+    mlp_specs,
     rmsnorm,
     rmsnorm_specs,
 )
@@ -41,6 +49,23 @@ def _require_ported(cfg: ModelConfig) -> None:
         )
 
 
+def _gru_layer_specs(cfg: ModelConfig) -> dict:
+    d, dt = cfg.d_model, cfg.dtype
+    h = cfg.gru_hidden or d
+    s = 1.0 / ((d + h) ** 0.5)
+    return {
+        "ln1": rmsnorm_specs(d, dt),
+        "ln2": rmsnorm_specs(d, dt),
+        "gru": {
+            "w": ParamSpec((d + h, 3 * h), ("embed", "mlp"), dtype=dt, scale=s),
+            "b": ParamSpec((3 * h,), (None,), dtype="float32", init="zeros"),
+            "time_scale": ParamSpec((h,), (None,), dtype="float32", init="zeros"),
+            "out": ParamSpec((h, d), ("mlp", "embed"), dtype=dt, scale=1.0 / (h**0.5)),
+        },
+        "mlp": mlp_specs(d, cfg.d_ff, dt),
+    }
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     d, dt = cfg.d_model, cfg.dtype
@@ -50,7 +75,10 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = lm_head_specs(d, cfg.vocab_padded, dt)
-    layer = {"ln": rmsnorm_specs(d, dt), "mamba": mamba_mod.mamba_specs(cfg, dt)}
+    if cfg.family == "gru":
+        layer = _gru_layer_specs(cfg)
+    else:
+        layer = {"ln": rmsnorm_specs(d, dt), "mamba": mamba_mod.mamba_specs(cfg, dt)}
     specs["layers"] = tree_map_specs(lambda s: stack_layer(s, cfg.num_layers), layer)
     return specs
 
@@ -61,9 +89,14 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     """Abstract cache tree: the conv tail and SSD state of every layer
-    (``cache_len`` is unread by the ``ssm`` family: its cache has constant size)."""
+    (``ssm``) or its GRU state (``gru``: float32 [L, batch, gru_hidden]);
+    ``cache_len`` is unread: both caches have constant size."""
     _require_ported(cfg)
     L = cfg.num_layers
+    if cfg.family == "gru":
+        h = cfg.gru_hidden or cfg.d_model
+        state = ParamSpec((L, batch, h), ("layers", "batch", None), dtype="float32", init="zeros")
+        return {"layers": {"state": state}}
     sh = mamba_mod.mamba_cache_shapes(cfg, batch)
     return {
         "layers": {
@@ -84,11 +117,32 @@ def _logits(params, x, cfg: ModelConfig):
     return lm_head(params["lm_head"], x)
 
 
+def _gru_layer(lp: dict, x: torch.Tensor, h0: torch.Tensor, cfg: ModelConfig,
+               force_reference: bool):  # fmt: skip
+    """One ``gru`` layer over x [B, T, d] from the state h0 [B, h] (float32),
+    dt = 1 a step: (x after the mixer and the MLP, the state after the last
+    step). The scan computes in float32 on the float32 copy of ``w``."""
+    g = lp["gru"]
+    gp = GRUParams(w=g["w"].to(torch.float32), b=g["b"], time_scale=g["time_scale"])
+    xin = rmsnorm(lp["ln1"], x, cfg.norm_eps).to(torch.float32)
+    h_T, hs = gru_scan(gp, xin, h0, flow=True, force_reference=force_reference)
+    x = x + hs.to(x.dtype) @ g["out"]
+    x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x, h_T
+
+
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, force_reference: bool = False):
     """Process the prompt ``batch["tokens"]`` [B, S]; returns (last-token
     logits [B, Vp], cache). ``force_reference`` runs the scan's plain version."""
     _require_ported(cfg)
     x = embed(params["embed"], batch["tokens"])
+    if cfg.family == "gru":
+        h0 = torch.zeros(x.shape[0], cfg.gru_hidden or cfg.d_model, device=x.device)
+        states = []
+        for i in range(cfg.num_layers):
+            x, h_T = _gru_layer(_layer(params["layers"], i), x, h0, cfg, force_reference)
+            states.append(h_T)
+        return _logits(params, x[:, -1:, :], cfg)[:, 0], {"layers": {"state": torch.stack(states)}}
     caches = []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
@@ -100,11 +154,21 @@ def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, force_referen
     return _logits(params, x[:, -1:, :], cfg)[:, 0], cache
 
 
-def decode_step(params, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig):
+def decode_step(params, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
+                force_reference: bool = False):  # fmt: skip
     """One token [B, 1] through the stack with caches; ``pos`` is unread by
-    the ``ssm`` family (kept for the JAX signature)."""
+    both families (kept for the JAX signature). A ``gru`` layer takes one step
+    of the scan from its cached state (``force_reference``: its plain version);
+    the ``ssm`` decode step is plain."""
     _require_ported(cfg)
     x = embed(params["embed"], tokens)
+    if cfg.family == "gru":
+        states = []
+        for i in range(cfg.num_layers):
+            h0 = cache["layers"]["state"][i]
+            x, h = _gru_layer(_layer(params["layers"], i), x, h0, cfg, force_reference)
+            states.append(h)
+        return _logits(params, x, cfg)[:, 0], dict(cache, layers={"state": torch.stack(states)})
     new = []
     for i in range(cfg.num_layers):
         lp, c = _layer(params["layers"], i), _layer(cache["layers"], i)

@@ -80,7 +80,7 @@ def spec_count(tree) -> int:
 
 
 def count_params(cfg) -> int:
-    """Analytic parameter count from the spec tree (the ``ssm`` family)."""
+    """Analytic parameter count from the spec tree."""
     from repro_torch.models.model import param_specs  # lazy: avoid a cycle
 
     return spec_count(param_specs(cfg))

@@ -22,6 +22,14 @@ tick kernel once a shard a tick (a fused int8_pwl service: the slot-axis
 ticks between snapshots never wait for the card; the ``ServiceSupervisor`` drill restores onto the mesh of 1 and
 frees the lost shard's memory, and a same-mesh restore replays bit for bit.
 
+The ``gru`` LM family's wide GRU-flow scan (``csrc/gru_scan_wide.cu``, H > 256)
+against ``gru_scan_reference`` within 1e-4 at the merinda-gru serve path's
+shapes, T = 1 and 37, flow on and off, from a non-zero h0, and its builds at 2
+and 4 rows a cluster (``launch/kernel_phases.py``'s patches) within 1e-6 of
+the one it is built at; ``gru_scan`` launches the form its width takes (read
+from both counters) and refuses a width neither takes; merinda-gru's prefill
+and decode launch the scan once a layer, within 1e-4 of ``force_reference``.
+
 The LM zoo's kernels: ``ssd_scan`` against ``ssd_chunked`` within 5e-5 in
 float32 (``tests/test_kernels_ssd.py:48``), and on bf16 inputs against
 ``ssd_chunked`` on float32 copies (what the Pallas kernel computes) within one
@@ -76,6 +84,7 @@ from repro_torch.kernels.gru_scan.ops import (
     gru_scan_int8,
     gru_scan_int8_cuda,
     gru_scan_slots_cuda,
+    gru_scan_wide_cuda,
 )
 from repro_torch.kernels.gru_scan.ref import gru_scan_int8_reference, gru_scan_reference
 from repro_torch.kernels.mr_step.ops import (
@@ -1014,6 +1023,123 @@ def test_mamba_prefill_launches_ssd_scan_once_a_layer(dev):
     torch.testing.assert_close(cache["layers"]["state"], want_cache["layers"]["state"], atol=0.12, rtol=0.12)
 
 
+# the wide GRU-flow scan (csrc/gru_scan_wide.cu): (B, T, D, H), the merinda-gru serve
+# path's bootstrap and admission prefills and its decode step, T = 37, odd B and D, and a
+# width that is not a whole number of passes of 128
+WIDE_CASES = [
+    (4, 1024, 512, 512), (1, 1024, 512, 512), (4, 1, 512, 512), (3, 37, 512, 512),
+    (5, 37, 64, 512), (2, 1, 512, 512), (3, 37, 24, 300),
+]  # fmt: skip
+
+
+def _wide_operands(B, T, D, H, dev, seed=0):
+    """xs, a non-zero h0, wx, wh, b, time_scale and per-step dts at the LM's scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
+    w = (D + H) ** -0.5
+    dts = 0.25 + 1.75 * torch.rand(T, device=dev, generator=g)
+    return (mk(B, T, D), mk(B, H, scale=0.5), mk(D, 3 * H, scale=w), mk(H, 3 * H, scale=w),
+            mk(3 * H, scale=0.1), mk(H, scale=0.3), dts)  # fmt: skip
+
+
+@pytest.mark.parametrize("flow", [True, False])
+@pytest.mark.parametrize("B,T,D,H", WIDE_CASES)
+def test_gru_scan_wide_matches_plain(dev, B, T, D, H, flow):
+    ops = _wide_operands(B, T, D, H, dev, seed=B * T + H)
+    before = gru_scan_wide_cuda.launches
+    hs = gru_scan_wide_cuda(*ops, flow=flow)
+    torch.cuda.synchronize()
+    assert gru_scan_wide_cuda.launches == before + 1
+    torch.testing.assert_close(hs, gru_scan_reference(*ops, flow=flow), **TOL)
+
+
+def test_gru_scan_wide_refuses_what_it_does_not_take(dev):
+    ops = _wide_operands(2, 3, 8, 513, dev)
+    with pytest.raises(ValueError, match="H=513"):
+        gru_scan_wide_cuda(*ops, flow=True)
+
+
+def test_gru_scan_wide_rows_a_cluster_change_no_row(dev, tmp_path):
+    """The wide scan built at 2 and 4 batch rows a cluster (kernel_phases'
+    ``WIDE_ROWS`` patches; it is built at 1) gives every row's hs within 1e-6
+    of the 1-row build, also where the rows do not divide B."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import kernel_phases as kp
+
+    with ThreadPoolExecutor(max_workers=len(kp.WIDE_ROWS)) as pool:
+        futures = {tag: pool.submit(kp.build, rt.CSRC, tmp_path, tag.replace(" ", "_"), patches,
+                                    kp.WIDE_SOURCES) for tag, patches in kp.WIDE_ROWS.items()}  # fmt: skip
+        libs = {tag: f.result()[0] for tag, f in futures.items()}
+    B, T, D, H = 5, 64, 512, 512
+    ops = _wide_operands(B, T, D, H, dev, seed=5)
+
+    def run(lib):
+        gx, hs = torch.empty(B, T, 3 * H, device=dev), torch.empty(B, T, H, device=dev)
+        err = lib.gru_scan_wide_launch(*(t.data_ptr() for t in (*ops, gx, hs)), B, T, D, H, 1,
+                                       torch.cuda.current_stream().cuda_stream)  # fmt: skip
+        rt.check_launch("gru_scan_wide", err)
+        return hs
+
+    base = run(libs["wide rows 1"])
+    torch.testing.assert_close(base, gru_scan_reference(*ops, flow=True), **TOL)
+    for tag in kp.WIDE_ROWS:
+        torch.testing.assert_close(run(libs[tag]), base, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("D,H,wide", [(16, 64, False), (8, 120, False), (16, 257, True),
+                                      (16, 300, True), (512, 512, True)])  # fmt: skip
+def test_gru_scan_launches_the_form_its_width_takes(dev, D, H, wide):
+    """The op launches the warp cell at H <= 256 and the wide form past it,
+    read from both launch counters, within 1e-4 of the plain version."""
+    xs, h0, wx, wh, b, ts, dts = _wide_operands(3, 9, D, H, dev, seed=H)
+    before = (gru_scan_cuda.launches, gru_scan_wide_cuda.launches)
+    h_T, hs = gru_scan(GRUParams(torch.cat([wx, wh]), b, ts), xs, h0, dts=dts)
+    torch.cuda.synchronize()
+    assert (gru_scan_cuda.launches - before[0], gru_scan_wide_cuda.launches - before[1]) == (
+        (0, 1) if wide else (1, 0))  # fmt: skip
+    torch.testing.assert_close(hs, gru_scan_reference(xs, h0, wx, wh, b, ts, dts), **TOL)
+
+
+@pytest.mark.parametrize("D,H", [(8, 121), (16, 256)])
+def test_gru_scan_refuses_a_width_neither_form_takes(dev, D, H):
+    """At H <= 256 the op takes the warp cell alone, whose carve of wx and wh
+    does not fit a block here: the launch raises, and nothing is launched."""
+    xs, h0, wx, wh, b, ts, dts = _wide_operands(3, 9, D, H, dev, seed=H)
+    before = (gru_scan_cuda.launches, gru_scan_wide_cuda.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_scan(GRUParams(torch.cat([wx, wh]), b, ts), xs, h0, dts=dts)
+    assert (gru_scan_cuda.launches, gru_scan_wide_cuda.launches) == before
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["SMOKE", "CONFIG"])
+def test_merinda_gru_prefill_and_decode_go_through_the_scan(dev, smoke):
+    """merinda-gru's prefill and decode on the card launch the scan once a layer
+    (SMOKE, H = 64: the warp cell; CONFIG at 2 of its 8 layers, H = 512: the
+    wide form) and nothing else, in float32 within 1e-4 of the largest logit
+    of ``force_reference``'s; the state within 1e-4."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("merinda-gru", smoke=smoke), dtype="float32",
+                              num_layers=2)  # fmt: skip
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(1, cfg.vocab_size, (2, 40), device=dev)
+    kernel = gru_scan_cuda if smoke else gru_scan_wide_cuda
+    counters = (gru_scan_cuda, gru_scan_wide_cuda, ssd_scan_cuda, flash_attention_cuda)
+    before = [k.launches for k in counters]
+    logits, cache = lm.prefill(params, {"tokens": toks}, cfg, cache_len=64)
+    nxt = torch.randint(1, cfg.vocab_size, (2, 1), device=dev)
+    step, cache = lm.decode_step(params, cache, nxt, 40, cfg)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(counters, before)] == [
+        2 * cfg.num_layers if k is kernel else 0 for k in counters]  # fmt: skip
+    want, want_cache = lm.prefill(params, {"tokens": toks}, cfg, cache_len=64, force_reference=True)
+    want_step, want_cache = lm.decode_step(params, want_cache, nxt, 40, cfg, force_reference=True)
+    for got, ref in ((logits, want), (step, want_step)):
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    torch.testing.assert_close(cache["layers"]["state"], want_cache["layers"]["state"], **TOL)
+
+
 FLASH_CASES = [  # B, S, QH, KH, Dh, causal, window: tests/test_kernels_flash.py:11-19
     (1, 128, 1, 1, 32, True, None),
     (2, 256, 4, 2, 64, True, None),
@@ -1467,6 +1593,8 @@ def test_exported_carves_equal_the_model(dev, label, D, H, Dh, K):
         assert carve("gru_scan_int8", D, H, bb, N_SEG) == tiling.gru_scan_int8_smem_bytes(D, H, bb)
         assert carve("mr_step_ltc_int8", D, H, Dh, K, bb, N_SEG) == tiling.ltc_int8_smem_bytes(
             D, H, Dh, K, bb)  # fmt: skip
+    for wide_h in (H + 256, 300, 512):  # the wide scan's, at its widths (512: merinda-gru)
+        assert carve("gru_scan_wide", wide_h) == tiling.gru_scan_wide_smem_bytes(wide_h)
     for _, T, N in CARVE_TICKS:
         assert carve("mr_tick", D, H, Dh, K, T, N) == tiling.tick_smem_bytes(D, H, Dh, K, N, T)
         assert carve("mr_tick_int8", D, H, Dh, K, T, N, N_SEG) == tiling.tick_smem_bytes(
