@@ -266,8 +266,10 @@ measured tuner; no new kernel) adds:
 
 The ``gru`` LM family (merinda-gru: the paper's GRU-flow cell as an LM mixer,
 SwiGLU MLPs; its scan past the warp cell's width through the wide form
-``csrc/gru_scan_wide.cu``: a tiled GEMM for x.Wx + b, then the recurrence on a
-thread-block cluster of 16 blocks a batch row) adds, after phase 8e:
+``csrc/gru_scan_wide.cu``: a GEMM for x.Wx + b, tiled in prefill and skinny in
+decode, then the recurrence on a thread-block cluster of 16 blocks a batch row,
+its weights in registers, h and r*h exchanged by ``st.async`` pushes on
+``mbarrier``s) adds, after phase 8e:
 
 - 8n. the wide scan against ``gru_scan_reference`` at the serve path's
   shapes (bootstrap prefill B = 4, T = 1,024; admission B = 1; decode B = 4,
@@ -288,7 +290,8 @@ thread-block cluster of 16 blocks a batch row) adds, after phase 8e:
   peak memory;
 - in phase 9 the wide scan's event time at the three shapes beside its plain
   version, its bound and its chain floor; in phase 10 the device time of its
-  two kernels.
+  two kernels, beside ``torch.addmm`` on the GEMM's operands (a yardstick the
+  port never calls).
 
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
@@ -491,10 +494,15 @@ EVENT_GAP = 0.2  # event against device time: above it, the event time is the ho
 # conversion (~6), the clamp and the address (~12), the slope and intercept loaded
 # from shared memory side by side (~30), the multiply and add, the end-value selects
 LAT_OP, LAT_EXCHANGE, LAT_SIGMOID, LAT_TANH, LAT_DIV, LAT_PWL = 4, 40, 68, 70, 40, 110
-# the wide scan's (csrc/gru_scan_wide.cu): a shared load ~30 cycles, a shuffle ~30, and a
-# cluster barrier with the distributed shared-memory stores before it ~500 (assumed, not
-# measured: the step time on the card says what it is)
-LAT_LDS, LAT_SHFL, LAT_CLUSTER = 30, 30, 500
+# the wide scan's (csrc/gru_scan_wide.cu): a shared load ~30 cycles, a shuffle ~30; measured
+# on a cluster of 16 blocks of 256 threads (launch/kernel_phases.py's probes,
+# launch/cluster_probe.cu, clock64() over 20,000 iterations, NVIDIA H100 80GB HBM3 at
+# 700 W): a cluster.sync() 975 cycles (the previous design's, two a step), and an all-to-all
+# exchange of 16-byte st.async pushes from all 8 warps of every block with an mbarrier
+# wait and re-arm 604 (the redesign's, two a step)
+LAT_LDS, LAT_SHFL, LAT_CLUSTER, LAT_XCHG = 30, 30, 975, 604
+# FMA warp-instructions an SM starts a clock (4 sub-partitions): the wide scan's FMA term
+FMA_PER_CLOCK = 4
 
 
 def log(msg: str) -> None:
@@ -618,10 +626,13 @@ def chain_cycles(family: str, H: int) -> int:
     substep): each matvec is a row exchange, H/4 FMAs deep (four partial sums)
     and two adds to combine them; then what follows it on the chain. The wide
     scan's step (``gru_wide``): each of its two products is a row load, H/32
-    FMAs deep (a lane's k), five shuffle rounds and a cluster barrier."""
+    FMAs deep (a lane's k), five shuffle rounds, the shuffles that gather a
+    warp's float4 and the all-to-all exchange (``LAT_XCHG``, measured); its
+    floor is the larger of that chain and ``wide_fma_cycles``."""
     if family == "gru_wide":  # + gx, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
-        product = LAT_LDS + (H // 32) * LAT_OP + 5 * LAT_SHFL + LAT_CLUSTER
-        return 2 * product + 2 * LAT_OP + LAT_SIGMOID + LAT_OP + LAT_TANH + 4 * LAT_OP
+        product = LAT_LDS + (H // 32) * LAT_OP + 5 * LAT_SHFL + LAT_SHFL + LAT_XCHG
+        chain = 2 * product + 2 * LAT_OP + LAT_SIGMOID + LAT_OP + LAT_TANH + 4 * LAT_OP
+        return max(chain, wide_fma_cycles(H))
     matvec = LAT_EXCHANGE + (H // 4 + 2) * LAT_OP
     if family == "gru":  # + x.Wx + b, sigmoid, r*h; + gx_c, tanh, the update (4 ops)
         return 2 * matvec + LAT_OP + LAT_SIGMOID + LAT_OP + LAT_OP + LAT_TANH + 4 * LAT_OP
@@ -636,6 +647,15 @@ def chain_cycles(family: str, H: int) -> int:
         return matvec + LAT_OP + LAT_PWL + 3 * LAT_OP + LAT_DIV
     # node: + b_f1, tanh; + b_f2, * sub_dt, + h
     return 2 * matvec + LAT_OP + LAT_TANH + 3 * LAT_OP
+
+
+def wide_fma_cycles(H: int) -> int:
+    """Cycles a block of the wide scan needs a step to start its FMAs: its 32
+    units' r, z and c columns, H deep, over 32 lanes, at ``FMA_PER_CLOCK``
+    warp-instructions a clock. It reads no weight bytes from shared memory
+    (every column is in registers), so no shared-memory term adds to it."""
+    fma_instructions = 32 * 3 * H // 32  # 32 units a block, 3 columns each, 32 lanes
+    return fma_instructions // FMA_PER_CLOCK
 
 
 def chain_floor_ms(family: str, T: int, H: int, clock_hz: float, n_sub: int = SUBSTEPS) -> float:
@@ -725,7 +745,7 @@ def main() -> None:
     from repro_torch.launch import recover_aid, serve_mr
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch.kernel_phases import LAUNCHES as DEVICE_TIMED
-    from repro_torch.launch.kernel_phases import device_ms
+    from repro_torch.launch.kernel_phases import WIDE_PARTS, call_device_ms, device_ms, device_ms_by
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_cuda
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -2993,17 +3013,25 @@ def main() -> None:
             B, T = t["B"], t["T"]
             ops = wide_operands(B, T, GRU_WIDTH, GRU_WIDTH, seed=96 + B + T)
             call = lambda: gru_scan_wide_cuda(*ops, flow=t["flow"])
+            xs2d, wx, b = ops[0].reshape(B * T, GRU_WIDTH), ops[2], ops[4]
             try:
-                gx_ms, scan_ms = device_ms(call, "gru_wide_gx"), device_ms(call, "gru_wide")
+                ms = device_ms_by(call, WIDE_PARTS)
+                # a yardstick for the gx kernel alone: the port never calls it
+                addmm_ms = call_device_ms(lambda: torch.addmm(b, xs2d, wx))
             except RuntimeError as e:
                 check(False, f"gru_scan_wide at {key}: {e}")
-            t.update(device_ms=gx_ms + scan_ms, gx_device_ms=gx_ms, scan_device_ms=scan_ms)
+            gx_ms, scan_ms = ms["gx"], ms["recurrence"]
+            t.update(device_ms=gx_ms + scan_ms, gx_device_ms=gx_ms, scan_device_ms=scan_ms,
+                     gx_addmm_device_ms=addmm_ms)  # fmt: skip
             step_cycles = scan_ms / T * clock_mhz * 1e3
-            log(f"[profile gru_scan_wide] at {t['shape']} flow={t['flow']}: device {gx_ms + scan_ms:.4f}"
-                f" ms a call (mean of {DEVICE_TIMED}): gru_wide_gx_kernel {gx_ms:.4f} ms, "
-                f"gru_wide_kernel {scan_ms:.4f} ms ({step_cycles:.0f} cycles a step at "
-                f"{clock_mhz:.0f} MHz against {chain_cycles('gru_wide', GRU_WIDTH)} reckoned); "
-                f"event time {t['ms']:.4f} ms; chain floor {t['chain_floor_ms']:.4f} ms")  # fmt: skip
+            skinny = B * T <= tiling.WIDE_SKINNY_ROWS
+            gx_name = "gru_wide_gx_skinny_kernel" if skinny else "gru_wide_gx_kernel"
+            log(f"[profile gru_scan_wide] at {t['shape']} flow={t['flow']}: device "
+                f"{gx_ms + scan_ms:.4f} ms a call (mean of {DEVICE_TIMED}): {gx_name} {gx_ms:.4f} "
+                f"ms (torch.addmm on its operands {addmm_ms:.4f} ms), gru_wide_kernel "
+                f"{scan_ms:.4f} ms ({step_cycles:.0f} cycles a step at {clock_mhz:.0f} MHz "
+                f"against {chain_cycles('gru_wide', GRU_WIDTH)} reckoned); event time "
+                f"{t['ms']:.4f} ms; chain floor {t['chain_floor_ms']:.4f} ms")  # fmt: skip
         for label in PROFILED_PATHS:
             plan = plans[label]
             cfg = plan.cfg
@@ -3217,6 +3245,7 @@ def main() -> None:
         "device_ms": gw["device_ms"],
         "gx_device_ms": gw["gx_device_ms"],
         "scan_device_ms": gw["scan_device_ms"],
+        "gx_addmm_device_ms": gw["gx_addmm_device_ms"],
         "chain_floor_ms": gw["chain_floor_ms"],
         "other_shapes": {key: {k: v for k, v in o.items() if k not in ("library_ms", "B", "T")}
                          for (kernel, key), o in lm_timed.items()

@@ -16,8 +16,8 @@ wrappers count their launches apart.
 
 Past the warp cell's width (H > ``tiling.MAX_HIDDEN`` = 256; the merinda-gru
 LM's H = 512) ``gru_scan`` launches the wide form ``gru_scan_wide_cuda``
-(``csrc/gru_scan_wide.cu``: a tiled GEMM for x.Wx + b, then the recurrence on
-a thread-block cluster a batch row, up to H = 512). Each width has its kernel
+(``csrc/gru_scan_wide.cu``: a GEMM for x.Wx + b, then the recurrence on a
+thread-block cluster a batch row, up to H = 512). Each width has its kernel
 and both share the plain version; a shape neither takes raises (the warp
 cell's carve check refuses a (D, H) whose wx and wh do not fit a block), and
 so does a failed build or launch. The wide form has no slot axis (no path vmaps it), and
@@ -104,9 +104,10 @@ def gru_scan_wide_cuda(xs, h0, wx, wh, b, time_scale, dts, *, flow: bool):
     """Launch the wide scan on the current stream: returns hs [B, T, H].
 
     ``csrc/gru_scan_wide.cu`` for 1 <= H <= 512: ``gru_wide_gx_kernel`` (x.Wx + b
-    for every step into a [B, T, 3H] scratch), then ``gru_wide_kernel`` (the
-    recurrence, a cluster of 16 blocks a batch row). Counts its calls (two
-    kernels each) in ``gru_scan_wide_cuda.launches``.
+    for every step into a [B, T, 3H] scratch; ``gru_wide_gx_skinny_kernel`` at
+    B * T <= ``tiling.WIDE_SKINNY_ROWS``), then ``gru_wide_kernel`` (the
+    recurrence, a cluster of 16 blocks a batch row, its weights in registers).
+    Counts its calls (two kernels each) in ``gru_scan_wide_cuda.launches``.
     """
     B, T, D = xs.shape
     H = h0.shape[-1]

@@ -31,7 +31,9 @@ with no head).
 Past the warp cell's ``MAX_HIDDEN`` the bare scan takes its wide form
 (``csrc/gru_scan_wide.cu``, the merinda-gru LM at H = 512): a batch row a
 thread-block cluster of ``WIDE_CLUSTER`` blocks, each block holding its
-units' recurrent columns (``gru_scan_wide_smem_bytes``, one block's carve).
+units' recurrent columns in registers and the row's h and r*h, double-buffered,
+in shared memory (``gru_scan_wide_smem_bytes``, one block's carve); its x.Wx + b
+takes a skinny GEMM at ``B * T <= WIDE_SKINNY_ROWS`` (decode).
 
 The int8 serving stages ``csrc/mr_step_int8.cu`` and ``mr_step_ltc_int8.cu``
 and the int8 scan ``csrc/gru_scan_int8.cu`` are the same warp-per-window
@@ -158,19 +160,18 @@ def gru_scan_smem_bytes(D: int, H: int, block_b: int) -> int:
 
 # csrc/gru_scan_wide.cu: the wide form of gru_scan (MAX_HIDDEN < H <= WIDE_MAX_HIDDEN),
 # a batch row a thread-block cluster of WIDE_CLUSTER blocks, WIDE_UNITS hidden units a
-# block, the 512-deep products in passes of WIDE_PASS
+# block; its rows in shared memory are WIDE_MAX_HIDDEN long at every H
 WIDE_CLUSTER = 16  # kCluster
 WIDE_UNITS = 32  # kUnits
-WIDE_PASS = 128  # kPass
-WIDE_MAX_HIDDEN = WIDE_CLUSTER * WIDE_UNITS
+WIDE_MAX_HIDDEN = WIDE_CLUSTER * WIDE_UNITS  # kMaxHidden
+WIDE_SKINNY_ROWS = 16  # kSkinnyRows: x.Wx + b through gru_wide_gx_skinny_kernel at B * T <= it
 
 
 def gru_scan_wide_smem_bytes(H: int) -> int:
     """``gru_scan_wide`` (``gru_scan_wide.cu`` ``wide::Layout``), one block of a
-    cluster: its units' r, z and c columns of wh, column-major at a stride of
-    the padded H + 4; the row's h and r*h at the padded H; its units' z."""
-    Hp = -(-H // WIDE_PASS) * WIDE_PASS
-    return 4 * (3 * WIDE_UNITS * (Hp + 4) + 2 * Hp + WIDE_UNITS)
+    cluster, the same at every H: the row's h and r*h, each at two step
+    parities, then four 8-byte mbarriers (the weights are in registers)."""
+    return 4 * (2 * 2 * WIDE_MAX_HIDDEN + 2 * 4)
 
 
 def ltc_smem_bytes(D: int, H: int, Dh: int, K: int, block_b: int) -> int:

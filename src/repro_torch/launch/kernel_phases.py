@@ -44,7 +44,21 @@ The wide GRU scan (``csrc/gru_scan_wide.cu``, one batch row a cluster of 16
 blocks) is also built alone with 2 and 4 rows a cluster (``WIDE_ROWS``, its
 ``kRows`` patched), and each build's recurrence is timed at merinda-gru's
 bootstrap prefill (B=4, T=1,024, D=H=512) and at B=16 and 32, past the
-clusters one card holds at once, each held to the plain version.
+clusters one card holds at once, each held to the plain version. With
+``--baseline``, both of its kernels (the x.Wx + b GEMM and the recurrence)
+are timed beside the baseline tree's in turns at merinda-gru's three serve
+shapes (the bootstrap and admission prefills, a decode step) and at B=16 and
+32, beside ``torch.addmm`` on the GEMM's operands (a yardstick the port never
+calls); and the step of the baseline's recurrence as built before the
+redesign (two cluster barriers and 4-byte distributed shared-memory stores a
+step, its weights read from shared memory) is split by patched builds (``PARENT_SPLIT``:
+the remote stores made local, the cluster barriers made block barriers, every
+weight load pointed at one address), as is this tree's (``WIDE_SPLIT``: the
+products, the shuffle reductions, the sigmoid and tanh each taken away, the
+exchange kept), timed in cycles a step at the bootstrap prefill, beside
+``cluster_probe.cu``'s latencies of a cluster barrier and of an all-to-all
+16-byte ``st.async`` exchange on a cluster of 16 blocks.
+``--wide-only`` skips the warp-cell kernels.
 """
 
 from __future__ import annotations
@@ -136,6 +150,48 @@ WIDE_ROWS = {"wide rows 1": []} | {
     f"wide rows {r}": [("gru_scan_wide.cu", "kRows = 1;", f"kRows = {r};")] for r in (2, 4)
 }  # fmt: skip
 WIDE_SHAPES = [(4, 1024, 512), (16, 1024, 512), (32, 1024, 512)]  # (B, T, D = H)
+# merinda-gru's serve shapes: the bootstrap and admission prefills, a decode step
+WIDE_SERVE = [(4, 1024, 512), (1, 1024, 512), (4, 1, 512)]
+# the recurrence before the redesign (a baseline tree's csrc/gru_scan_wide.cu) with one
+# cost of its step taken away, for timing only (each computes on values the change left
+# wrong)
+PARENT_SPLIT = {
+    "parent as built": [],
+    "parent local stores": [
+        ("gru_scan_wide.cu", "cluster.map_shared_rank(rhrow, d)[ra * Hp + ua] = rh;",
+         "rhrow[ra * Hp + ua] = rh;"),
+        ("gru_scan_wide.cu", "cluster.map_shared_rank(hrow, d)[rb * Hp + ub] = h_new;",
+         "hrow[rb * Hp + ub] = h_new;"),
+    ],
+    "parent block barriers": [
+        ("gru_scan_wide.cu", "    cluster.sync();  // every r*h has arrived; every block is done "
+         "reading h\n", "    __syncthreads();\n"),
+        ("gru_scan_wide.cu", "    cluster.sync();  // the new h is in every block; every block is "
+         "done reading r*h\n  }\n", "    __syncthreads();\n  }\n  cluster.sync();\n"),
+    ],
+    "parent one weight address": [
+        ("gru_scan_wide.cu", "(w + cols[c] * S + p * kPass + 4 * lane)", "(w)"),
+    ],
+}  # fmt: skip
+# the redesigned recurrence (this tree's) with one cost of its step taken away, for timing
+# only; the exchange and its barriers stay as built
+WIDE_SPLIT = {
+    "wide no products": [
+        ("gru_scan_wide.cu", "for (int p = 0; p < kPasses; ++p) {",
+         "for (int p = 0; p < 0; ++p) {"),
+    ],
+    "wide no shuffle reductions": [  # every sum kept alive by a local add in its place
+        ("gru_scan_wide.cu", "float reduce_scatter(float (&v)[NV]) {\n",
+         "float reduce_scatter(float (&v)[NV]) {\n  if (NV > 0) {\n    float s = v[0];\n"
+         "    for (int i = 1; i < NV; ++i) s += v[i];\n    return s;\n  }\n"),
+    ],
+    "wide no sigmoid or tanh": [
+        ("gru_scan_wide.cu", "sigmoid(gxa + ", "(gxa + "),
+        ("gru_scan_wide.cu", "tanhf(gxb + ", "(gxb + "),
+    ],
+}  # fmt: skip
+PROBE = Path(__file__).resolve().parent / "cluster_probe.cu"
+PROBE_ITERS = 20_000
 # the phases each kernel has
 PHASES = {k: ("no steps", "no terms ahead", "no head") for k in KERNELS}
 for _scan in SCANS:
@@ -282,12 +338,13 @@ def launcher(lib, kernel, ops, tile: int, n_substeps: int = SUBSTEPS):
     return launch
 
 
-def device_ms(launch, kernel: str, traces: int = 3) -> float:
-    """Mean device time of LAUNCHES launches, from the profiler's kernel
-    records: one launch inside the trace first (the tracer may miss it while
-    it starts), then the timed ones, the last LAUNCHES kept. The profiler can
-    drop records: a trace that kept fewer is taken again with twice the
-    launches, ``traces`` times at most."""
+def device_ms_by(launch, parts: dict[str, str], traces: int = 3) -> dict[str, float]:
+    """Mean device time of LAUNCHES launches of each part (a label and a
+    substring of its kernel's name, one such kernel a launch), from the
+    profiler's kernel records: one launch inside the trace first (the tracer
+    may miss it while it starts), then the timed ones, the last LAUNCHES of
+    each part kept. The profiler can drop records: a trace that kept fewer is
+    taken again with twice the launches, ``traces`` times at most."""
     launch()
     torch.cuda.synchronize()
     n = LAUNCHES
@@ -298,14 +355,38 @@ def device_ms(launch, kernel: str, traces: int = 3) -> float:
             for _ in range(n):
                 launch()
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                         and f"{kernel}_kernel" in e.name), key=lambda e: e.time_range.start)  # fmt: skip
-        if len(events) >= LAUNCHES:
-            return sum(e.time_range.elapsed_us() for e in events[-LAUNCHES:]) / 1e3 / LAUNCHES
-        print(f"[profile] {kernel}: the profiler kept {len(events)} of {n + 1} launches; tracing "
-              f"again with {2 * n}", flush=True)
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        found = {label: sorted((e for e in kernels if pattern in e.name),
+                               key=lambda e: e.time_range.start)
+                 for label, pattern in parts.items()}  # fmt: skip
+        kept = min(len(events) for events in found.values())
+        if kept >= LAUNCHES:
+            mean = lambda events: sum(e.time_range.elapsed_us() for e in events) / 1e3 / LAUNCHES
+            return {label: mean(events[-LAUNCHES:]) for label, events in found.items()}
+        print(f"[profile] {', '.join(parts)}: the profiler kept {kept} of {n + 1} launches; "
+              f"tracing again with {2 * n}", flush=True)
         n *= 2
-    raise RuntimeError(f"the profiler recorded {len(events)} {kernel} kernels of {n // 2 + 1}")
+    raise RuntimeError(f"the profiler recorded {kept} {', '.join(parts)} kernels of {n // 2 + 1}")
+
+
+def device_ms(launch, kernel: str, traces: int = 3) -> float:
+    """Mean device time of ``kernel``'s LAUNCHES launches (``device_ms_by``)."""
+    return device_ms_by(launch, {kernel: f"{kernel}_kernel"}, traces)[kernel]
+
+
+def call_device_ms(call) -> float:
+    """Mean device time of one ``call`` over LAUNCHES calls: every kernel it
+    launches, whatever its name (a library call's)."""
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(LAUNCHES):
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the profiler recorded no kernel of the call")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / LAUNCHES
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -313,9 +394,13 @@ def ptxas_summary(log: str) -> list[str]:
     lines, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"((?:mr|gru)_\w*?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
-            width = "any" if m and m[2] == "0" else m and m[2]  # 0: the generic instantiation
-            name = f"{m[1]}<H={width}{', flow' if m[3] == '1' else ''}>" if m else line
+            m = re.search(r"((?:mr|gru)_\w*?_kernel)(?:ILi(\d+)E)?(?:I?Lb([01])E)?", line)
+            if m is None:
+                name = line
+                continue
+            width = "any" if m[2] == "0" else m[2]  # 0: the generic instantiation
+            args = ", ".join([f"H={width}"] * bool(width) + ["flow"] * (m[3] == "1"))
+            name = f"{m[1]}<{args}>" if args else m[1]
         elif name and ("spill" in line or "registers" in line):
             lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return lines
@@ -360,30 +445,118 @@ def plain(kernel, ops):
     )[1]
 
 
-def wide_report(libs, device) -> None:
+def wide_operands(B, T, H, device) -> list[torch.Tensor]:
+    """The wide scan's operands at D = H (flow on), made with numpy from B."""
+    mk = _maker(device, B)
+    w = (2 * H) ** -0.5
+    return [mk(B, T, H), mk(B, H, scale=0.5), mk(H, 3 * H, scale=w), mk(H, 3 * H, scale=w),
+            mk(3 * H, scale=0.1), mk(H, scale=0.3), torch.ones(T, device=device)]  # fmt: skip
+
+
+def wide_launcher(lib, ops):
+    """A launch of ``lib``'s wide scan on ``ops`` (flow on) into fresh outputs."""
+    B, T, D = ops[0].shape
+    H = ops[1].shape[1]
+    dev = ops[0].device
+    gx, hs = torch.empty(B, T, 3 * H, device=dev), torch.empty(B, T, H, device=dev)
+    ptrs = [t.data_ptr() for t in (*ops, gx, hs)]
+
+    def launch(fn=lib.gru_scan_wide_launch):
+        stream = torch.cuda.current_stream().cuda_stream
+        rt.check_launch("gru_scan_wide", fn(*ptrs, B, T, D, H, 1, stream))
+        return [hs]
+
+    return launch
+
+
+WIDE_PARTS = {"gx": "gru_wide_gx", "recurrence": "gru_wide_kernel"}
+
+
+def wide_report(libs, device, clock_mhz: float) -> None:
     """The wide scan built at 1, 2 and 4 rows a cluster (flow on): each build's
-    distance from the plain version and its recurrence's device ms."""
+    distance from the plain version and its recurrence's device ms; with a
+    baseline, both kernels beside the baseline's in turns at the serve shapes
+    and at B = 16 and 32, and ``torch.addmm`` on the GEMM's operands."""
     for B, T, H in WIDE_SHAPES:
-        mk = _maker(device, B)
-        w = (2 * H) ** -0.5
-        ops = [mk(B, T, H), mk(B, H, scale=0.5), mk(H, 3 * H, scale=w), mk(H, 3 * H, scale=w),
-               mk(3 * H, scale=0.1), mk(H, scale=0.3), torch.ones(T, device=device)]  # fmt: skip
+        ops = wide_operands(B, T, H, device)
         want = gru_scan_reference(*ops, flow=True)
-        gx, hs = torch.empty(B, T, 3 * H, device=device), torch.empty(B, T, H, device=device)
-        ptrs = [t.data_ptr() for t in (*ops, gx, hs)]
         times = []
         for tag in WIDE_ROWS:
-
-            def launch(fn=libs[tag].gru_scan_wide_launch):
-                stream = torch.cuda.current_stream().cuda_stream
-                rt.check_launch("gru_scan_wide", fn(*ptrs, B, T, H, H, 1, stream))
-                return [hs]
-
+            launch = wide_launcher(libs[tag], ops)
             err = (launch()[0] - want).abs().max().item()
             times.append(f"{tag.split()[-1]}: {device_ms(launch, 'gru_wide'):.4f} ms "
                          f"(max abs {err:.3e})")  # fmt: skip
         print(f"[wide rows] gru_scan_wide at B={B} T={T} D=H={H}, the recurrence's device ms "
               f"by rows a cluster: {', '.join(times)}", flush=True)  # fmt: skip
+    if "parent as built" not in libs:
+        return
+    for B, T, H in WIDE_SERVE + WIDE_SHAPES[1:]:
+        ops = wide_operands(B, T, H, device)
+        want = gru_scan_reference(*ops, flow=True)
+        runs = {tag: wide_launcher(libs[lib], ops)
+                for tag, lib in (("baseline", "parent as built"), ("current", "wide rows 1"))}
+        errs = {tag: (run()[0] - want).abs().max().item() for tag, run in runs.items()}
+        turns = [(tag, device_ms_by(runs[tag], WIDE_PARTS))
+                 for tag in ("baseline", "current", "current", "baseline")]  # fmt: skip
+        print(f"[wide baseline] gru_scan_wide at B={B} T={T} D=H={H} (device ms, gx + recurrence; "
+              f"cycles a step at {clock_mhz:.0f} MHz): "
+              + ", ".join(f"{tag} {ms['gx']:.4f} + {ms['recurrence']:.4f} "
+                          f"({ms['recurrence'] * 1e3 * clock_mhz / T:.0f})" for tag, ms in turns)
+              + f"; max abs from the plain version: current {errs['current']:.3e}, baseline "
+              f"{errs['baseline']:.3e}", flush=True)  # fmt: skip
+        if (B, T, H) in WIDE_SERVE:
+            xs2d, wx, b = ops[0].reshape(B * T, H), ops[2], ops[4]
+            lib_ms = call_device_ms(lambda: torch.addmm(b, xs2d, wx))
+            print(f"[wide gemm] torch.addmm(b, xs, wx) at M={B * T} K={H} N={3 * H}: device "
+                  f"{lib_ms:.4f} ms (a yardstick for the gx kernel; the port never calls it)",
+                  flush=True)  # fmt: skip
+
+
+def split_report(libs, device, clock_mhz: float, probe) -> None:
+    """The baseline's recurrence (``PARENT_SPLIT``) and this tree's
+    (``WIDE_SPLIT``) with each cost of its step taken away, in cycles a step at
+    the bootstrap prefill, and the probes' cycles an iteration on a cluster of
+    16 blocks."""
+    B, T, H = WIDE_SERVE[0]
+    ops = wide_operands(B, T, H, device)
+    for base_tag, split in (("parent as built", PARENT_SPLIT), ("wide rows 1", WIDE_SPLIT)):
+        steps = {}
+        for tag in (base_tag, *split):
+            if tag in steps:
+                continue
+            ms = device_ms(wide_launcher(libs[tag], ops), "gru_wide")
+            steps[tag] = ms * 1e3 * clock_mhz / T
+            print(f"[wide split] {tag} at B={B} T={T} D=H={H}: recurrence {ms:.4f} ms device, "
+                  f"{steps[tag]:.0f} cycles a step at {clock_mhz:.0f} MHz", flush=True)  # fmt: skip
+        print(f"[wide split] cycles a step each cost of {base_tag} takes: "
+              + ", ".join(f"{tag} {steps[base_tag] - c:.0f}" for tag, c in steps.items()
+                          if tag != base_tag), flush=True)  # fmt: skip
+    cycles = torch.zeros(16, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for kind, what in enumerate(("cluster.sync()", "16-byte st.async exchange, 1 warp a block",
+                                 "16-byte st.async exchange, 8 warps a block",
+                                 "128-byte cp.async.bulk exchange of 8 warps' values")):  # fmt: skip
+        for n in (PROBE_ITERS // 10, PROBE_ITERS):  # the first a warm-up
+            rt.check_launch("cluster_probe", probe.cluster_probe_launch(kind, n, cycles.data_ptr(),
+                                                                        stream))  # fmt: skip
+            torch.cuda.synchronize()
+        per = cycles.double() / PROBE_ITERS
+        print(f"[wide probe] {what} on a cluster of 16 blocks: {per.mean().item():.1f} cycles an "
+              f"iteration (blocks {per.min().item():.1f}-{per.max().item():.1f}), "
+              f"{PROBE_ITERS} iterations", flush=True)  # fmt: skip
+
+
+def build_probe(work: Path) -> ctypes.CDLL:
+    """``cluster_probe.cu`` as a library of its own."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    so = work / "cluster_probe.so"
+    subprocess.run([nvcc, *rt.NVCC_FLAGS, "-shared", str(PROBE), "-o", str(so)], check=True,
+                   capture_output=True)  # fmt: skip
+    lib = ctypes.CDLL(str(so))
+    lib.cluster_probe_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_void_p]  # fmt: skip
+    lib.cluster_probe_launch.restype = ctypes.c_int
+    return lib
 
 
 def report(libs, kernel, label, ops) -> None:
@@ -424,24 +597,34 @@ def main() -> None:
     ap.add_argument("--baseline", type=Path, default=None, help="csrc directory of another tree")
     ap.add_argument("--out", type=Path, default=rt.BUILD_DIR.parent / "kernel_phases",
                     help="ptxas logs go here")  # fmt: skip
+    ap.add_argument("--wide-only", action="store_true", help="the wide scan alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: no CUDA device is visible")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()  # fmt: skip
-    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])  # fmt: skip
+    print(f"[card] {smi}; max SM clock {clock_mhz:.0f} MHz; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)  # fmt: skip
     rt.pin_fp32_matmul()
     dev = torch.device("cuda")
     args.out.mkdir(parents=True, exist_ok=True)
     rt.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=rt.BUILD_DIR) as tmp:
         work = Path(tmp)
-        jobs = {"current": (rt.CSRC, (), SOURCES)}
-        jobs.update({tag: (rt.CSRC, patches, SOURCES)
-                     for tag, patches in {**VARIANTS, **UNROLLS}.items()})  # fmt: skip
-        jobs.update({tag: (rt.CSRC, patches, WIDE_SOURCES) for tag, patches in WIDE_ROWS.items()})
+        jobs = {tag: (rt.CSRC, patches, WIDE_SOURCES)
+                for tag, patches in {**WIDE_ROWS, **WIDE_SPLIT}.items()}  # fmt: skip
+        if not args.wide_only:
+            jobs["current"] = (rt.CSRC, (), SOURCES)
+            jobs.update({tag: (rt.CSRC, patches, SOURCES)
+                         for tag, patches in {**VARIANTS, **UNROLLS}.items()})  # fmt: skip
         if args.baseline is not None:
-            jobs["baseline"] = (args.baseline, (), SOURCES)
+            if not args.wide_only:
+                jobs["baseline"] = (args.baseline, (), SOURCES)
+            jobs.update({tag: (args.baseline, patches, WIDE_SOURCES)
+                         for tag, patches in PARENT_SPLIT.items()})  # fmt: skip
         with ThreadPoolExecutor(max_workers=2) as pool:
             futures = {tag: pool.submit(build, csrc, work, tag.replace(" ", "_"), patches, sources)
                        for tag, (csrc, patches, sources) in jobs.items()}  # fmt: skip
@@ -451,7 +634,11 @@ def main() -> None:
             for line in ptxas_summary(log):
                 print(f"[ptxas {tag}] {line}", flush=True)
         libs = {tag: lib for tag, (lib, _) in builds.items()}
-        wide_report(libs, dev)
+        if args.baseline is not None:
+            split_report(libs, dev, clock_mhz, build_probe(work))
+        wide_report(libs, dev, clock_mhz)
+        if args.wide_only:
+            return
         for label, B, T, D, H, Dh, K in SHAPES:
             shape = f"{label} (B={B} T={T} D={D} H={H} Dh={Dh} K={K})"
             for kernel in KERNELS:

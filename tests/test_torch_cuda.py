@@ -24,7 +24,8 @@ frees the lost shard's memory, and a same-mesh restore replays bit for bit.
 
 The ``gru`` LM family's wide GRU-flow scan (``csrc/gru_scan_wide.cu``, H > 256)
 against ``gru_scan_reference`` within 1e-4 at the merinda-gru serve path's
-shapes, T = 1 and 37, flow on and off, from a non-zero h0, and its builds at 2
+shapes, T = 1 and 37, flow on and off, from a non-zero h0, decode steps on both
+sides of the skinny x.Wx + b's threshold, and its builds at 2
 and 4 rows a cluster (``launch/kernel_phases.py``'s patches) within 1e-6 of
 the one it is built at; ``gru_scan`` launches the form its width takes (read
 from both counters) and refuses a width neither takes; merinda-gru's prefill
@@ -1024,11 +1025,13 @@ def test_mamba_prefill_launches_ssd_scan_once_a_layer(dev):
 
 
 # the wide GRU-flow scan (csrc/gru_scan_wide.cu): (B, T, D, H), the merinda-gru serve
-# path's bootstrap and admission prefills and its decode step, T = 37, odd B and D, and a
-# width that is not a whole number of passes of 128
+# path's bootstrap and admission prefills and its decode step, T = 37, odd B and D, a
+# width that is not a whole number of passes of 128, and decode steps at B * T =
+# tiling.WIDE_SKINNY_ROWS (the skinny x.Wx + b) and one past it (the tiled GEMM)
 WIDE_CASES = [
     (4, 1024, 512, 512), (1, 1024, 512, 512), (4, 1, 512, 512), (3, 37, 512, 512),
     (5, 37, 64, 512), (2, 1, 512, 512), (3, 37, 24, 300),
+    (tiling.WIDE_SKINNY_ROWS, 1, 512, 512), (tiling.WIDE_SKINNY_ROWS + 1, 1, 512, 512),
 ]  # fmt: skip
 
 
@@ -1051,6 +1054,24 @@ def test_gru_scan_wide_matches_plain(dev, B, T, D, H, flow):
     torch.cuda.synchronize()
     assert gru_scan_wide_cuda.launches == before + 1
     torch.testing.assert_close(hs, gru_scan_reference(*ops, flow=flow), **TOL)
+
+
+@pytest.mark.parametrize("B", [tiling.WIDE_SKINNY_ROWS, tiling.WIDE_SKINNY_ROWS + 1])
+def test_gru_scan_wide_takes_the_skinny_gemm_up_to_its_threshold(dev, B):
+    """A decode step's x.Wx + b runs ``gru_wide_gx_skinny_kernel`` at B * T <=
+    ``tiling.WIDE_SKINNY_ROWS`` (the source's ``kSkinnyRows``) and the tiled
+    ``gru_wide_gx_kernel`` past it, read from the profiler's kernel names."""
+    ops = _wide_operands(B, 1, 512, 512, dev, seed=B)
+    gru_scan_wide_cuda(*ops, flow=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gru_scan_wide_cuda(*ops, flow=True)
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events())
+    skinny = B <= tiling.WIDE_SKINNY_ROWS
+    assert ("gru_wide_gx_skinny_kernel" in names) == skinny
+    assert ("gru_wide_gx_kernel" in names) == (not skinny)
+    assert "gru_wide_kernel" in names
 
 
 def test_gru_scan_wide_refuses_what_it_does_not_take(dev):
