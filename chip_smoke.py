@@ -293,6 +293,43 @@ its weights in registers, h and r*h exchanged by ``st.async`` pushes on
   two kernels, beside ``torch.addmm`` on the GEMM's operands (a yardstick the
   port never calls).
 
+The attention LM paths (the ``hybrid`` zamba2-1.2b: 38 Mamba2 layers and one
+weight-shared attention + SwiGLU block after every 6th, 6 applications; the
+``dense`` qwen2.5-3b: 36 layers of GQA 16/2 attention with the QKV bias and
+SwiGLU; every prefill attention through ``flash_attention`` at a logical block
+that divides the prompt, 128 or the gcd) add, after phase 8o:
+
+- 8p. ``flash_attention`` at both models' prefill layouts (zamba2 MHA 32/32
+  Dh = 64, qwen GQA 16/2 Dh = 128; B = 4 and 1, S = 1,024; and S = 1,000 at
+  the layer's block, 8) in float32 (2e-5) and bf16 (one bf16 rounding plus
+  1e-4 of the oracle on float32 copies); ``ssd_scan`` at zamba2's prefills
+  (H = 64, P = 64, N = 64) in bf16 (8d's bounds), and in float32 printed
+  beside the float32 plain version, both against float64; both SMOKE models in float32 on the card, a
+  prefill and a decode step through the kernels against ``force_reference``
+  within 1e-4, with their launches (``flash_attention`` once a shared-block
+  application or dense layer, ``ssd_scan`` once a Mamba2 layer, nothing in
+  decode);
+- 8q, 8r. ``python -m repro_torch.launch.serve --arch zamba2-1.2b`` and
+  ``--arch qwen2.5-3b``, each ``--full --requests 8 --slots 4 --prompt-len
+  1024 --max-new 32 --cache-len 1088`` (random bf16 weights at the published
+  widths; the cache holds the prompt and two rounds of new tokens). The
+  launch counts are set to 0 just before and read just after: zamba2
+  ``ssd_scan`` 38 x 5 prefills and ``flash_attention`` 6 x 5, qwen
+  ``flash_attention`` 36 x 5, nothing else; every request its tokens. On the
+  same weights in float32, the kernels' prefill logits against
+  ``force_reference``'s and a prefill + 3 decode steps against longer
+  prefills (1,025 to 1,027 tokens: blocks 1, 2 and 1), within 1e-3 of the
+  largest logit; bf16 printed, with the greedy agreement with the reference
+  serve. Cold and warm bootstrap and admission prefill ms, decode p50,
+  tokens/s, peak memory;
+- in phase 9 ``flash_attention`` at the four served layouts beside its plain
+  version, ``scaled_dot_product_attention`` (a yardstick the port never
+  calls) and its bound, and ``ssd_scan`` at zamba2's prefills; in phase 10b,
+  after phase 10, their device times (SDPA's too), ``ssd_scan``'s three
+  kernels at zamba2's bootstrap prefill, and one warm bootstrap prefill and
+  one decode step of each model under the profiler (wall, device busy, the
+  kernels that take the most).
+
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -401,6 +438,27 @@ LM_ARGS = ["--arch", "mamba2-130m", "--full", "--requests", "8", "--slots", "4",
 LM_GRU_ARGS = ["--arch", "merinda-gru", "--full", "--requests", "8", "--slots", "4",
                "--prompt-len", "1024", "--max-new", "32", "--device", "cuda"]  # fmt: skip
 GRU_WIDTH = 512  # merinda-gru CONFIG: d_model = gru_hidden
+# the attention LM paths: zamba2-1.2b (hybrid: 38 Mamba2 layers, one weight-shared
+# attention + SwiGLU block after every 6th, 6 applications) and qwen2.5-3b (dense: 36
+# layers, GQA 16/2, Dh 128, the QKV bias) at their published widths; a 1,024-token
+# prompt needs a KV cache past it: 1,088 holds it and two rounds of 32 new tokens
+LM_ATTN_ARGS = {
+    tag: ["--arch", arch, "--full", "--requests", "8", "--slots", "4", "--prompt-len", "1024",
+          "--max-new", "32", "--cache-len", "1088", "--device", "cuda"]
+    for tag, arch in (("hybrid", "zamba2-1.2b"), ("dense", "qwen2.5-3b"))
+}  # fmt: skip
+# their prefill attention's layouts (label, B, S, QH, KH, Dh): the bootstrap and the
+# admission prefills
+LM_ATTN_SHAPES = [
+    ("zamba2-1.2b bootstrap prefill", 4, 1024, 32, 32, 64),
+    ("zamba2-1.2b admission prefill", 1, 1024, 32, 32, 64),
+    ("qwen2.5-3b bootstrap prefill", 4, 1024, 16, 2, 128),
+    ("qwen2.5-3b admission prefill", 1, 1024, 16, 2, 128),
+]
+SSD_ZAMBA2 = dict(T=1024, H=64, P=64, N=64, G=1, chunk=128)  # zamba2-1.2b's prefill scan
+# ssd_scan's three kernels (csrc/ssd_scan.cu), by a substring of each one's name
+SSD_PARTS = {"chunk states": "ssd_chunk_state", "state pass": "ssd_state_pass",
+             "outputs": "ssd_chunk_out"}
 GRU_WIDE_SHAPES = [("bootstrap prefill", 4, 1024), ("admission prefill", 1, 1024), ("decode", 4, 1)]
 # the LM path's float32 logits, kernel against reference and prefill against decode,
 # relative to the largest logit: at Mamba2-130m's depth two float32 summation orders
@@ -750,6 +808,7 @@ def main() -> None:
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.models import model as lm
+    from repro_torch.models.attention import prefill_block
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
@@ -2569,6 +2628,187 @@ def main() -> None:
                                  e32_logits=e32_logits, e32_tf=e32_tf, agree=agree)  # fmt: skip
         del served, g_params, params32, ref_serve
 
+    # -- 8p. the attention LM paths' kernels at their shapes, both SMOKE models ----------
+    with Phase("lm attention parity"):
+        # the prefill attention's layouts, and S = 1,000 through the layer's block (8)
+        for label, B, S, QH, KH, Dh in LM_ATTN_SHAPES + [
+            (f"{name.split()[0]} S=1000", 1, 1000, QH, KH, Dh)
+            for name, _, _, QH, KH, Dh in LM_ATTN_SHAPES[::2]
+        ]:  # fmt: skip
+            b = prefill_block(S)
+            shape = f"{label} B={B} S={S} QH={QH} KH={KH} Dh={Dh} block {b}"
+            q, k, v = qkv_inputs(B, S, S, QH, KH, Dh, seed=S + QH + B, device=dev)
+            want = flash_attention(q, k, v, force_reference=True)
+            record_close("flash_attention", f"{shape} float32",
+                         flash_attention(q, k, v, block_q=b, block_k=b), want, 2e-5, 2e-5)  # fmt: skip
+            o = flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)), block_q=b, block_k=b)
+            want = flash_attention(*(t.to(torch.bfloat16).float() for t in (q, k, v)),
+                                   force_reference=True)  # fmt: skip
+            record_rounded("flash_attention", f"{shape} bf16", o, want)
+            del q, k, v, o, want
+        # zamba2's scan: H = 64, N = 64 (the Mamba2-130m path's is H = 24, N = 128)
+        # float32 at zamba2's width, printed: the kernel and the float32 plain version,
+        # each against the plain version in float64 (neither float32 bound of the
+        # narrower shapes holds at both B=1 T=256 and B=4 T=1024 here)
+        m = SSD_ZAMBA2
+        for B, T in ((1, 256), (4, 1024)):
+            args = ssd_inputs(B, T, m["H"], m["P"], m["N"], m["G"], seed=66 + B, device=dev)
+            y, st = ssd_scan(*args, chunk=m["chunk"])
+            want_y, want_s = ssd_scan(*args, chunk=m["chunk"], force_reference=True)
+            y64, s64 = ssd_chunked(*(a.double() for a in args), chunk=m["chunk"])
+            gap = lambda a, b: (a.double() - b).abs().max().item()
+            log(f"[lm parity] zamba2-1.2b width B={B} T={T} H={m['H']} N={m['N']} float32, printed: "
+                f"ssd_scan y {gap(y, y64):.3e} from float64, the plain version {gap(want_y, y64):.3e} "
+                f"(of {y64.abs().max().item():.3e}); state {gap(st, s64):.3e}, plain "
+                f"{gap(want_s, s64):.3e} (of {s64.abs().max().item():.3e}); kernel against plain y "
+                f"{gap(y, want_y.double()):.3e}")  # fmt: skip
+            del y64, s64
+        for B in (4, 1):  # zamba2's bootstrap and admission prefills
+            args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=67 + B, device=dev,
+                              dtype=torch.bfloat16)  # fmt: skip
+            y, st = ssd_scan(*args, chunk=m["chunk"])
+            want_y, want_s = ssd_chunked(*(a.float() for a in args), chunk=m["chunk"])
+            label = f"zamba2-1.2b prefill B={B} T={m['T']} H={m['H']} N={m['N']} bf16"
+            record_rounded("ssd_scan", f"{label} y", y, want_y)
+            e_s, scale_s = (st - want_s).abs().max().item(), want_s.abs().max().item()
+            log(f"[lm parity] {label}: ssd_scan state {e_s:.3e} (of {scale_s:.3e})")
+            check(e_s <= 1e-4 * scale_s, f"ssd_scan bf16 state at zamba2's B={B}")
+        del args, y, st, want_y, want_s
+        # zamba2 and qwen2.5-3b SMOKE in float32: a prefill of 64 tokens and a decode step
+        for arch in ("zamba2-1.2b", "qwen2.5-3b"):
+            s_cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+            s_params = lm.init_params(torch.Generator(device=dev).manual_seed(3), s_cfg)
+            rng = np.random.default_rng(93)
+            s_toks = torch.as_tensor(rng.integers(1, s_cfg.vocab_size, size=(2, 65)), device=dev).long()
+            zero_counts()
+            lg, cache = lm.prefill(s_params, {"tokens": s_toks[:, :64]}, s_cfg, 128)
+            lg2, cache = lm.decode_step(s_params, cache, s_toks[:, 64:], 64, s_cfg)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want, want_cache = lm.prefill(s_params, {"tokens": s_toks[:, :64]}, s_cfg, 128,
+                                          force_reference=True)  # fmt: skip
+            want2, want_cache = lm.decode_step(s_params, want_cache, s_toks[:, 64:], 64, s_cfg,
+                                               force_reference=True)  # fmt: skip
+            e_smoke = max((a - b).abs().max().item() for a, b in [(lg, want), (lg2, want2)] + [
+                (cache[g][n], want_cache[g][n]) for g in cache for n in cache[g]])  # fmt: skip
+            hybrid = s_cfg.family == "hybrid"
+            expect = {"flash_attention": (lm.shared_applications(s_cfg)
+                                          if hybrid else s_cfg.num_layers)}  # fmt: skip
+            if hybrid:
+                expect["ssd_scan"] = s_cfg.num_layers
+            log(f"[lm attention parity] {arch} SMOKE float32 prefill of 64 tokens and a decode "
+                f"step, kernels against force_reference: logits and every cache leaf max abs "
+                f"{e_smoke:.3e} (max |logit| {want.abs().max().item():.3e}); launches "
+                f"{dict((k, n) for k, n in counts.items() if n)}")  # fmt: skip
+            check(e_smoke <= TOL, f"{arch} SMOKE through the kernels: {e_smoke:.3e}")
+            check(counts == {**dict.fromkeys(counts, 0), **expect},
+                  f"{arch} SMOKE launched {counts}, expected {expect}")  # fmt: skip
+        del s_params, cache, want_cache
+
+    def attention_lm_phase(tag: str) -> None:
+        """``[main lm <tag>]``: serve LM_ATTN_ARGS[tag] at full width; every prefill
+        attention through flash_attention, every Mamba2 prefill through ssd_scan."""
+        argv = LM_ATTN_ARGS[tag]
+        a_args = lm_serve.build_parser().parse_args(argv)
+        name = f"main lm {tag}"
+        log(f"[{name}] python -m repro_torch.launch.serve {' '.join(argv)}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        served = lm_serve.run(a_args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        a_cfg, a_params, prompts = served["cfg"], served["params"], served["prompts"]
+        outputs = served["outputs"]
+        n_new = sum(len(t) for t in outputs.values())
+        n_prefills = 1 + a_args.requests - a_args.slots
+        hybrid = a_cfg.family == "hybrid"
+        n_app = lm.shared_applications(a_cfg) if hybrid else a_cfg.num_layers
+        want = {"flash_attention": n_app * n_prefills}
+        if hybrid:
+            want["ssd_scan"] = a_cfg.num_layers * n_prefills
+        decode_p50 = float(np.percentile(served["decode_ms"], 50))
+        a = a_cfg.attn
+        log(
+            f"[{name}] {a_cfg.name}: {a_cfg.num_layers} layers"
+            f"{f' + {n_app} shared-block applications' if hybrid else ''}, d_model "
+            f"{a_cfg.d_model}, d_ff {a_cfg.d_ff}, attention {a.num_heads}/{a.num_kv_heads} heads of "
+            f"{a.head_dim}, vocab {a_cfg.vocab_padded}; "
+            f"{served['steps']} decode steps, {n_new} new tokens, "
+            f"{n_new / served['wall_s']:.1f} tokens/s; cold bootstrap prefill ({a_args.slots} x "
+            f"{a_args.prompt_len} tokens) {served['prefill_ms']:.1f} ms, admissions "
+            f"{[round(t, 1) for t in served['admit_ms']]} ms, decode p50 {decode_p50:.2f} ms a "
+            f"step; peak device memory {peak_gb:.2f} GB; launches "
+            f"{dict((k, n) for k, n in counts.items() if n)} (expected {want}: {n_prefills} "
+            f"prefills); {smi}"
+        )
+        for r in range(3):
+            log(f"[{name}]   req{r}: {outputs[r][:12]}...")
+        check(counts == {**dict.fromkeys(counts, 0), **want},
+              f"the {tag} LM path launched {counts}, expected {want}")  # fmt: skip
+        check(all(len(t) == a_args.max_new or (t and t[-1] == a_args.eos) for t in outputs.values())
+              and len(outputs) == a_args.requests, f"every {tag} request its tokens")  # fmt: skip
+        first = torch.as_tensor(prompts[: a_args.slots], device=dev).long()
+        extra = np.random.default_rng(94).integers(1, min(a_cfg.vocab_size, 1000), size=(2, 4))
+        toks = torch.as_tensor(np.concatenate([prompts[:2], extra.astype(np.int32)], axis=1),
+                               device=dev).long()  # fmt: skip
+        S_p, CL = prompts.shape[1], a_args.cache_len
+        a_times = {}
+        with torch.no_grad():
+            for label, prompt_batch in (("admission", first[:1]), ("bootstrap", first)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg_k, _ = lm.prefill(a_params, {"tokens": prompt_batch}, a_cfg, CL)
+                torch.cuda.synchronize()
+                a_times[label] = (time.perf_counter() - t0) * 1e3
+            # bf16, printed (C 2: random layers amplify a last-bit difference)
+            lg_r, _ = lm.prefill(a_params, {"tokens": first}, a_cfg, CL, force_reference=True)
+            e_logits = (lg_k.float() - lg_r.float()).abs().max().item()
+            e_tf = teacher_forcing(a_cfg, a_params, toks, S_p)[0]
+            # bounded: the same weights in float32 (the prompts of 1,025 to 1,027 tokens
+            # reach the kernel at blocks 1, 2 and 1)
+            cfg32 = dataclasses.replace(a_cfg, dtype="float32")
+            params32 = tree_map(lambda t: t.float(), a_params)
+            lg32_k, _ = lm.prefill(params32, {"tokens": first}, cfg32, CL)
+            lg32_r, _ = lm.prefill(params32, {"tokens": first}, cfg32, CL, force_reference=True)
+            e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
+            e32_tf, scale32_tf = teacher_forcing(cfg32, params32, toks, S_p)
+            del params32, lg32_k, lg32_r
+        ref_serve = lm_serve.serve_lm(a_cfg, a_params, prompts, slots=a_args.slots,
+                                      max_new=a_args.max_new, cache_len=CL, eos=a_args.eos,
+                                      force_reference=True)  # fmt: skip
+        pairs = [(x, y) for r in outputs for x, y in zip(outputs[r], ref_serve["outputs"][r])]
+        agree = sum(x == y for x, y in pairs) / len(pairs)
+        log(
+            f"[{name}] warm prefill: bootstrap {a_times['bootstrap']:.1f} ms, admission "
+            f"{a_times['admission']:.1f} ms. bf16, printed, not bounded: prefill logits, kernels "
+            f"against force_reference, max abs {e_logits:.3e} (max |logit| "
+            f"{lg_r.float().abs().max().item():.3e}); teacher forcing ({S_p} tokens, 3 decode "
+            f"steps) max abs {e_tf:.3e}; greedy tokens the kernel and the reference serve agree "
+            f"on: {agree:.4f} of {len(pairs)}"
+        )
+        log(
+            f"[{name}] float32 (the same weights; bound {LM_F32_REL} of the largest logit): "
+            f"prefill logits, kernels against force_reference, max abs {e32_logits:.3e} (max "
+            f"|logit| {scale32:.3e}); teacher forcing on the kernel path max abs {e32_tf:.3e} (max "
+            f"|logit| {scale32_tf:.3e})"
+        )
+        check(e32_logits <= LM_F32_REL * scale32,
+              f"float32 {tag} LM logits, kernels against reference: {e32_logits:.3e}")  # fmt: skip
+        check(e32_tf <= LM_F32_REL * scale32_tf, f"float32 {tag} LM teacher forcing: {e32_tf:.3e}")
+        results[f"lm {tag}"] = dict(counts=want, steps=served["steps"], new=n_new,
+                                    tok_s=n_new / served["wall_s"], prefill_ms=served["prefill_ms"],
+                                    admit_ms=served["admit_ms"], decode_p50=decode_p50,
+                                    peak_gb=peak_gb, warm=a_times, e_logits=e_logits, e_tf=e_tf,
+                                    e32_logits=e32_logits, e32_tf=e32_tf, agree=agree,
+                                    arch=a_cfg.name)  # fmt: skip
+
+    # -- 8q, 8r. the attention LM paths: zamba2-1.2b and qwen2.5-3b at full width --------
+    for tag in ("hybrid", "dense"):
+        with Phase(f"main lm {tag}"):
+            attention_lm_phase(tag)
+
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
 
@@ -2885,6 +3125,45 @@ def main() -> None:
             f"bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
             f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
         del q, k, v, qt, kt, vt, o_l
+        # the attention LM paths' prefill attention, at the block their layer picks
+        for label, B, S, QH, KH, Dh in LM_ATTN_SHAPES:
+            q, k, v = qkv_inputs(B, S, S, QH, KH, Dh, seed=82 + B + QH, device=dev,
+                                 dtype=torch.bfloat16)  # fmt: skip
+            b = prefill_block(S)
+            fa = lambda: flash_attention_cuda(q, k, v, causal=True, window=None, q_offset=0,
+                                              block_q=b, block_k=b)  # fmt: skip
+            k_ms = time_ms(fa, runs=10, per_run=10)
+            p_ms = time_ms(lambda: flash_attention(q, k, v, force_reference=True), runs=5, per_run=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            l_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+            e_l = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2).float()
+                   - fa().float()).abs().max().item()  # fmt: skip
+            flops, nbytes, peak = flash_work(B, S, S, QH, KH, Dh, True, None, 0, 2)
+            b_ms, b_by = bound_ms(flops, nbytes, peak)
+            shape = f"{label} B={B} S={S} QH={QH} KH={KH} Dh={Dh} causal bf16"
+            lm_timed["flash_attention", label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                                      bound_by=b_by, library_ms=l_ms, shape=shape,
+                                                      qkv=(B, S, QH, KH, Dh))  # fmt: skip
+            log(f"[time] flash_attention at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"scaled_dot_product_attention {l_ms:.4f} ms (its output {e_l:.3e} from the "
+                f"kernel's), bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB); {b_ms / k_ms * 100:.2f}% of the bound; {smi}")  # fmt: skip
+            del q, k, v, qt, kt, vt
+        m = SSD_ZAMBA2
+        for B in (4, 1):  # zamba2's bootstrap and admission prefills, one layer
+            args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=85 + B, device=dev,
+                              dtype=torch.bfloat16)  # fmt: skip
+            k_ms = time_ms(lambda: ssd_scan_cuda(*args, chunk=m["chunk"]))
+            p_ms = time_ms(lambda: ssd_chunked(*args, chunk=m["chunk"]), runs=10, per_run=1)
+            flops, nbytes, peak = ssd_work(B, m["T"], m["H"], m["P"], m["N"], m["G"], m["chunk"], 2)
+            b_ms, b_by = bound_ms(flops, nbytes, peak)
+            shape = f"zamba2-1.2b prefill B={B} T={m['T']} H={m['H']} P={m['P']} N={m['N']} bf16"
+            lm_timed["ssd_scan", f"zamba2 B{B}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                                      bound_by=b_by, library_ms=None, shape=shape)  # fmt: skip
+            log(f"[time] ssd_scan at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+                f"{b_ms / k_ms * 100:.2f}% of the bound")  # fmt: skip
+        del args
         # the wide GRU-flow scan at the merinda-gru serve path's shapes (flow on, as the
         # LM runs it; flow off at the bootstrap prefill too)
         for label, B, T in GRU_WIDE_SHAPES:
@@ -3071,6 +3350,81 @@ def main() -> None:
                     f"{len(v) / n_prof:6.0f}/step  {k[:80]}"
                 )
 
+    # -- 10b. the attention LM paths' kernels at their served shapes, device time ------
+    with Phase("lm attention profile"):
+        m = SSD_ZAMBA2  # zamba2's scan: its three kernels at the bootstrap prefill
+        args = ssd_inputs(4, m["T"], m["H"], m["P"], m["N"], m["G"], seed=86, device=dev,
+                          dtype=torch.bfloat16)  # fmt: skip
+        try:
+            split = device_ms_by(lambda: ssd_scan_cuda(*args, chunk=m["chunk"]), SSD_PARTS)
+        except RuntimeError as e:
+            check(False, f"ssd_scan at zamba2's shape: {e}")
+        lm_timed["ssd_scan", "zamba2 B4"].update(device_ms=sum(split.values()), parts_device_ms=split)
+        log(f"[profile ssd_scan zamba2-1.2b B=4 bf16] device {sum(split.values()):.4f} ms a call "
+            f"(mean of {DEVICE_TIMED}): "
+            f"{', '.join(f'{k} {v:.4f} ms' for k, v in split.items())}")  # fmt: skip
+        del args
+        for (kernel, key), t in lm_timed.items():  # the attention paths' prefill attention
+            if kernel != "flash_attention" or "qkv" not in t:
+                continue
+            B, S, QH, KH, Dh = t["qkv"]
+            q, k, v = qkv_inputs(B, S, S, QH, KH, Dh, seed=87, device=dev, dtype=torch.bfloat16)
+            b = prefill_block(S)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            try:
+                d_ms = device_ms_by(lambda: flash_attention_cuda(
+                    q, k, v, causal=True, window=None, q_offset=0, block_q=b, block_k=b),
+                    {"flash": "flash_attention_bf16"})["flash"]  # fmt: skip
+                # the yardstick: the port never calls it
+                l_ms = call_device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))  # fmt: skip
+            except RuntimeError as e:
+                check(False, f"flash_attention at {key}: {e}")
+            t.update(device_ms=d_ms, library_device_ms=l_ms)
+            log(f"[profile flash_attention] at {t['shape']}: device {d_ms:.4f} ms a launch (mean "
+                f"of {DEVICE_TIMED}), scaled_dot_product_attention {l_ms:.4f} device ms "
+                f"({d_ms / l_ms:.2f}x); event time {t['ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_ms'] / d_ms * 100:.1f}% of it)")  # fmt: skip
+            del q, k, v, qt, kt, vt
+        # where a warm bootstrap prefill and a decode step of each attention LM spend
+        # their time: wall against device busy, and the kernels that take the most
+        for tag in ("hybrid", "dense"):
+            a_args = lm_serve.build_parser().parse_args(LM_ATTN_ARGS[tag])
+            a_cfg = get_config(a_args.arch, smoke=not a_args.full)
+            a_params = lm.init_params(torch.Generator(device=dev).manual_seed(a_args.seed), a_cfg)
+            prompts = lm_serve.make_prompts(a_cfg, a_args.slots, a_args.prompt_len, a_args.seed)
+            first = torch.as_tensor(prompts, device=dev).long()
+            with torch.no_grad():
+                _, cache = lm.prefill(a_params, {"tokens": first}, a_cfg, a_args.cache_len)
+                nxt = first[:, -1:]
+                lm.decode_step(a_params, cache, nxt, a_args.prompt_len, a_cfg)
+                torch.cuda.synchronize()
+                for what, call in (
+                    ("bootstrap prefill", lambda: lm.prefill(a_params, {"tokens": first}, a_cfg,
+                                                             a_args.cache_len)),
+                    ("decode step", lambda: lm.decode_step(a_params, cache, nxt,
+                                                           a_args.prompt_len + 1, a_cfg)),
+                ):  # fmt: skip
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        call()
+                        torch.cuda.synchronize()
+                        wall_ms = (time.perf_counter() - t0) * 1e3
+                    by_name: dict[str, list[float]] = {}
+                    for e in prof.events():
+                        if e.device_type == DeviceType.CUDA:
+                            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+                    busy_ms = sum(sum(v) for v in by_name.values())
+                    n_dev = sum(len(v) for v in by_name.values())
+                    results[f"lm {tag}"][f"{what} trace"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                                                 activities=n_dev)  # fmt: skip
+                    log(f"[profile lm {tag}] {a_cfg.name} {what} under the profiler: {wall_ms:.2f} "
+                        f"ms wall, {n_dev} device activities, device busy {busy_ms:.3f} ms "
+                        f"({100 * busy_ms / wall_ms:.2f}% of the wall)")  # fmt: skip
+                    for kernel, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]:
+                        log(f"[profile lm {tag}]   {sum(v):8.4f} ms  {len(v):5d}x  {kernel[:80]}")
+            del a_params, cache
+
     with Phase("tick profile"):
         for kernel in ("banked",):
             svc = serve_service(kernel)
@@ -3122,23 +3476,31 @@ def main() -> None:
          int8_note),
         ("mr_tick_int8", "mr_tick_int8.cu", "mr_step/tick.py:313", "monitor int8", int8_note),
     ]
-    lm_rows = [  # name, source, replaces, main path, timed shape, note
-        ("ssd_scan", "ssd_scan.cu", "ssd_scan/kernel.py:91", "lm", 4,
+    def launches_on(path: str, kernel: str) -> int:
+        r = results[path]
+        return r["counts"][kernel] if "counts" in r else r["launches"]
+
+    lm_rows = [  # name, source, replaces, the main paths whose launches it reports, timed
+        # shape, note
+        ("ssd_scan", "ssd_scan.cu", "ssd_scan/kernel.py:91", ("lm", "lm hybrid"), 4,
          "no PyTorch call computes a chunked SSD scan"),
-        # no model path reaches flash_attention (its op only, as in the JAX package)
-        ("flash_attention", "flash_attention.cu", "flash_attention/kernel.py:104", None, 0,
+        # the attention LM paths: zamba2's shared block and qwen2.5-3b's layers; timed at
+        # the dense path's bootstrap prefill (most of its launches)
+        ("flash_attention", "flash_attention.cu", "flash_attention/kernel.py:104",
+         ("lm hybrid", "lm dense"), LM_ATTN_SHAPES[2][0],
          "torch.nn.functional.scaled_dot_product_attention (enable_gqa=True, is_causal=True)"),
-    ]
+    ]  # fmt: skip
     lm_kernels = []
-    for kernel, src, replaces, path, key, note in lm_rows:
+    for kernel, src, replaces, paths, key, note in lm_rows:
         t = lm_timed[kernel, key]
         row = {
             "name": kernel,
             "route": "cuda",
             "source": f"{REPO_PATH}/{src}",
             "replaces": f"{PALLAS}/{replaces}",
-            "launches": results[path]["launches"] if path else 0,
-            "main_path": path,
+            "launches": sum(launches_on(p, kernel) for p in paths),
+            "main_path": ", ".join(paths),
+            "launches_by_path": {p: launches_on(p, kernel) for p in paths},
             "max_abs_err": err[kernel],
             "bf16_max_abs_err": lm_err[kernel],
             "ms": t["ms"],
@@ -3153,6 +3515,14 @@ def main() -> None:
         if kernel == "ssd_scan":
             row["admission_B1"] = {k: lm_timed[kernel, 1][k] for k in ("ms", "plain_ms", "bound_ms")}
             row["float32_ms"] = {f"B{B}": lm_timed[kernel, B]["float32_ms"] for B in (4, 1)}
+        # every other timed shape (ssd_scan at zamba2's; flash_attention at the other
+        # served layouts and at minitron-8b's S = 4,096)
+        row["other_shapes"] = {o["shape"]: {k: v for k, v in o.items() if k not in ("shape", "qkv")}
+                               for (name, other), o in lm_timed.items()
+                               if name == kernel and o is not t and other not in (1,)}  # fmt: skip
+        if "device_ms" in t:
+            row["device_ms"] = t["device_ms"]
+            row["library_device_ms"] = t.get("library_device_ms")
         lm_kernels.append(row)
     device_plane = {"mr_tick": "stream device", "mr_tick_int8": "monitor device"}
     mesh_paths = {"mr_tick": ("mesh", "chaos")}  # its launches at a slot mesh of 2
@@ -3361,10 +3731,27 @@ def main() -> None:
         f"{gw['ms']:.4f} ms ({gw['device_ms']:.4f} device), bound {gw['bound_ms']:.4f}, chain floor "
         f"{gw['chain_floor_ms']:.4f}"
     )
+    for tag in ("hybrid", "dense"):
+        r = results[f"lm {tag}"]
+        log(
+            f"[summary] lm {tag} ({r['arch']}, full width): launches {r['counts']}, "
+            f"{r['steps']} decode steps, {r['new']} tokens at {r['tok_s']:.1f} tokens/s; prefill "
+            f"{r['prefill_ms']:.1f} ms (warm {r['warm']['bootstrap']:.1f}), admission warm "
+            f"{r['warm']['admission']:.1f} ms, decode p50 {r['decode_p50']:.2f} ms; peak "
+            f"{r['peak_gb']:.2f} GB; float32: logits {r['e32_logits']:.3e}, teacher forcing "
+            f"{r['e32_tf']:.3e}; bf16: logits {r['e_logits']:.3e}, teacher forcing "
+            f"{r['e_tf']:.3e}, greedy agreement {r['agree']:.4f}"
+        )
+    for label, *_ in LM_ATTN_SHAPES:
+        t = lm_timed["flash_attention", label]
+        log(f"[summary] flash_attention at {t['shape']}: {t['ms']:.4f} ms "
+            f"({t.get('device_ms', float('nan')):.4f} device), SDPA {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")  # fmt: skip
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}  # fmt: skip
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

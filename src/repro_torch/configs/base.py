@@ -17,7 +17,15 @@ import importlib
 from typing import Optional
 
 # architecture id -> family, for every architecture the port runs
-PORTED = {"mamba2-130m": "ssm", "merinda-gru": "gru"}
+PORTED = {
+    "mamba2-130m": "ssm",
+    "merinda-gru": "gru",
+    "zamba2-1.2b": "hybrid",
+    "qwen2.5-3b": "dense",
+    "yi-6b": "dense",
+    "minitron-8b": "dense",
+    "internlm2-20b": "dense",
+}
 PORTED_FAMILIES = frozenset(PORTED.values())
 
 
@@ -45,17 +53,21 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # ssm | gru here; dense | moe | hybrid | vlm | audio wait for their slices
+    family: str  # ssm | gru | hybrid | dense here; moe | vlm | audio wait for their slices
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: Optional[AttentionConfig] = None
     ssm: Optional[SSMConfig] = None
+    attn_period: int = 0  # hybrid: shared attn block after every k ssm layers
     gru_hidden: int = 0  # gru family: mixer hidden size (0 -> d_model)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # the JAX package's blockwise-attention kv chunk: it sets only JAX's summation
+    # order; the port's attention (flash_attention and its oracle) does not read it
+    attn_chunk: int = 1024
 
     @property
     def vocab_padded(self) -> int:

@@ -17,8 +17,9 @@ blocks a query block skips (``kernel.py:60-66``). The kernels' own tiles are
 independent of them, so every legal block gives the same result; a block
 that does not divide its sequence raises, as the Pallas kernel asserts.
 
-No model path of the port calls this op yet: the JAX package's attention
-layers run their own blockwise loop (``repro/models/attention.py``).
+The model path calls it in prefill (``models/attention.py``: zamba2's shared
+block, every dense layer), where the JAX package runs its own blockwise loop
+(``repro/models/attention.py``), at a block that divides the prompt.
 """
 
 from __future__ import annotations

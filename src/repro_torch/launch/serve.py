@@ -4,18 +4,27 @@ A fixed decode batch of ``--slots`` sequences shares one cache tree. The
 first ``--slots`` prompts are prefilled as one batch; then a greedy decode
 loop runs over the slots, and when a slot finishes (``--eos`` or
 ``--max-new`` tokens) the next queued prompt is prefilled alone and written
-into that slot's rows of the cache (in place: the port updates the cache
-tensors where the JAX package rebuilds them).
+into that slot's rows of every cache group (in place: the port updates the
+cache tensors where the JAX package rebuilds them). Every slot decodes at
+the JAX launcher's common position, the largest of the slots' positions.
 
 Prompts are drawn with numpy from ``--seed``, exactly as the JAX launcher
 draws them; initial weights come from a ``torch.Generator`` seeded with it
 (random weights at the published widths with ``--full``). On the card (the
 default ``--device cuda``) every Mamba2 prefill runs the SSD scan through the
-``ssd_scan`` CUDA kernel, one launch a layer, and every merinda-gru prefill
-and decode step its GRU-flow scan through ``gru_scan``, one call a layer (at
-the published H = 512 the wide form, ``csrc/gru_scan_wide.cu``; at SMOKE's
-H = 64 the warp cell, ``csrc/gru_scan.cu``):
+``ssd_scan`` CUDA kernel, one launch a layer; every prefill attention (a
+dense layer, zamba2's shared block) runs ``flash_attention``, one launch an
+application; every merinda-gru prefill and decode step runs its GRU-flow
+scan through ``gru_scan``, one call a layer (at the published H = 512 the
+wide form, ``csrc/gru_scan_wide.cu``; at SMOKE's H = 64 the warp cell,
+``csrc/gru_scan.cu``). A prompt longer than ``--cache-len`` raises (the KV
+cache holds ``--cache-len`` positions), so a 1,024-token prompt needs more
+than the default:
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --full \\
+        --requests 8 --slots 4 --prompt-len 1024 --max-new 32 --cache-len 1088
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full \\
+        --requests 8 --slots 4 --prompt-len 1024 --max-new 32 --cache-len 1088
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full \\
         --requests 8 --slots 4 --prompt-len 1024 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch merinda-gru --full \\
@@ -25,13 +34,14 @@ and the smoke configurations with the plain versions on the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --requests 8 --slots 4 --prompt-len 64 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu \\
+        --requests 8 --slots 4 --prompt-len 64 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch merinda-gru --device cpu \\
         --requests 8 --slots 4 --prompt-len 64 --max-new 16
 
-The ported architectures are ``mamba2-130m`` and ``merinda-gru``; the default
-``--arch`` stays ``mamba2-130m`` (the JAX launcher's is ``qwen2.5-3b``, a dense
-model not ported yet); any other architecture raises and names the ported
-ones.
+The ported architectures are ``configs/base.py`` ``PORTED``; the default
+``--arch`` is ``qwen2.5-3b``, as the JAX launcher's; any other architecture
+raises and names the ported ones.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ from repro_torch.models import model as M
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
-    ap.add_argument("--arch", default="mamba2-130m")
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--full", action="store_true", help="the published widths (else SMOKE)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4, help="decode batch size")
@@ -69,10 +79,12 @@ def make_prompts(cfg: ModelConfig, requests: int, prompt_len: int, seed: int) ->
 
 
 def _slot_update(cache: dict, slot_cache: dict, slot: int) -> None:
-    """Write one request's prefilled cache rows into batch slot ``slot``
-    (batch is axis 1, under the layer-stack axis)."""
-    for name, full in cache["layers"].items():
-        full[:, slot : slot + 1] = slot_cache["layers"][name]
+    """Write one request's prefilled cache rows into batch slot ``slot`` of
+    every cache group (batch is axis 1, under the layer-stack axis, in
+    ``layers`` and in the hybrid's ``shared_attn``)."""
+    for group, leaves in cache.items():
+        for name, full in leaves.items():
+            full[:, slot : slot + 1] = slot_cache[group][name]
 
 
 def _sync(device: torch.device) -> None:
@@ -121,7 +133,7 @@ def serve_lm(cfg: ModelConfig, params, prompts: np.ndarray, *, slots: int, max_n
     t_start = time.perf_counter()
     while done < requests:
         t1 = time.perf_counter()
-        pos = int(slot_pos.max())  # the JAX launcher's common position (unread by ssm, gru)
+        pos = int(slot_pos.max())  # the JAX launcher's common position (read by the attention)
         logits, cache = M.decode_step(params, cache, next_tok[:, None].to(torch.long), pos, cfg,
                                       force_reference)  # fmt: skip
         steps += 1

@@ -39,7 +39,11 @@ against the oracle within 2e-5 in float32
 (``tests/test_kernels_flash.py``), in bf16 against the oracle on float32 copies
 within one bf16 rounding (2^-8 of the value plus 1e-4), and on rows with no
 unmasked key against the Pallas kernel's values (0, or the mean of v over
-the masked keys of the tiles it does not skip).
+the masked keys of the tiles it does not skip). Both at the attention LM
+paths' shapes (zamba2's H = 64, N = 64 scan; its MHA Dh = 64 and qwen2.5-3b's
+GQA 16/2 Dh = 128 attention, S = 1,024 and 1,000), and zamba2's and
+qwen2.5-3b's SMOKE prefill and decode on the card within 1e-4 of
+``force_reference`` in float32, with their launch counts.
 
 Plan analysis: ``mr_step_ltc`` and ``mr_step_node`` built with their substep
 loop unrolled 2 and 6 times (``launch/kernel_phases.py``'s patches) equal the
@@ -65,6 +69,8 @@ left out of that comparison, and at least three quarters must remain.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -114,6 +120,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention, flash_atten
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models import model as lm
+from repro_torch.models.attention import prefill_block
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 COARSE_BITS = (2, 3)
@@ -1277,6 +1284,80 @@ def test_flash_attention_gradient_recomputes_the_oracle(dev):
     want = torch.autograd.grad((flash_attention(q, k, v, force_reference=True) ** 2).sum(), (q, k, v))
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+
+
+# the served LM paths' attention layouts (B, S, QH, KH, Dh): zamba2's shared block
+# (MHA, Dh = 64) and qwen2.5-3b's layers (GQA 16/2, Dh = 128), at the bootstrap and
+# admission prefills, and at S = 1,000 through the attention layer's block (8)
+LM_FLASH = [(4, 1024, 32, 32, 64), (1, 1024, 32, 32, 64), (4, 1024, 16, 2, 128),
+            (1, 1024, 16, 2, 128), (1, 1000, 32, 32, 64), (1, 1000, 16, 2, 128)]  # fmt: skip
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,QH,KH,Dh", LM_FLASH)
+def test_flash_attention_at_the_served_layouts(dev, B, S, QH, KH, Dh, dtype):
+    """Causal, the block the model's prefill attention picks: float32 within
+    2e-5 of the oracle, bf16 within one bf16 rounding of it on float32 copies."""
+    q, k, v = _qkv(B, S, S, QH, KH, Dh, dev, dtype, seed=S + QH + B)
+    before = flash_attention_cuda.launches
+    o = flash_attention(q, k, v, block_q=prefill_block(S), block_k=prefill_block(S))
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention(q.float(), k.float(), v.float(), force_reference=True)
+    if dtype == torch.bfloat16:
+        _assert_bf16_rounded(o, want)
+    else:
+        torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,S", [(1, 256), (4, 1024)])
+def test_ssd_scan_at_zamba2_widths(dev, B, S):
+    """zamba2-1.2b's scan: H = 64 heads of P = 64, state N = 64 (the Mamba2-130m
+    path has H = 24, N = 128), chunk 128, bf16 x, B and C, against ssd_chunked on
+    float32 copies: y one bf16 rounding from it, the state within 1e-4 of its
+    largest magnitude. (The float32 kernel at this width is printed by
+    ``chip_smoke.py`` beside the float32 plain version, both against float64:
+    neither float32 bound of the narrower shapes holds at both of these.)"""
+    args = _ssd_inputs(B, S, 64, 64, 64, 1, dev, torch.bfloat16, seed=B + S)
+    y, s = ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    want_y, want_s = ssd_chunked(*(a.float() for a in args), chunk=128)
+    _assert_ssd_matches(y, s, want_y, want_s, torch.bfloat16, N=64)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2.5-3b"])
+def test_attention_lm_smoke_on_the_card(dev, arch):
+    """zamba2 and qwen2.5-3b SMOKE in float32: a prefill of 40 tokens (the block
+    8) and two decode steps through the kernels, against force_reference within
+    1e-4; a prefill launches flash_attention once a shared-block application or
+    dense layer and ssd_scan once a Mamba2 layer, a decode step neither."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    toks = torch.randint(1, cfg.vocab_size, (2, 42), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))  # fmt: skip
+    n_attn = (lm.shared_applications(cfg) if cfg.family == "hybrid"
+              else cfg.num_layers)  # fmt: skip
+    n_ssd = cfg.num_layers if cfg.family == "hybrid" else 0
+    before = (flash_attention_cuda.launches, ssd_scan_cuda.launches)
+    logits, cache = lm.prefill(params, {"tokens": toks[:, :40]}, cfg, cache_len=48)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches - before[0], ssd_scan_cuda.launches - before[1]) == (n_attn, n_ssd)
+    want, want_cache = lm.prefill(params, {"tokens": toks[:, :40]}, cfg, cache_len=48,
+                                  force_reference=True)  # fmt: skip
+    got, wants = [logits], [want]
+    for t in (40, 41):
+        before = (flash_attention_cuda.launches, ssd_scan_cuda.launches)
+        lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], t, cfg)
+        assert (flash_attention_cuda.launches, ssd_scan_cuda.launches) == before
+        lg_r, want_cache = lm.decode_step(params, want_cache, toks[:, t : t + 1], t, cfg,
+                                          force_reference=True)  # fmt: skip
+        got.append(lg)
+        wants.append(lg_r)
+    for a, b in zip(got, wants):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for group in cache:
+        for name in cache[group]:
+            torch.testing.assert_close(cache[group][name], want_cache[group][name], atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

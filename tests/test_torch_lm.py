@@ -88,8 +88,8 @@ def test_full_config_specs_match_jax():
 
 def test_unported_families_raise():
     with pytest.raises(ValueError, match="not yet ported.*mamba2-130m"):
-        get_config("qwen2.5-3b")
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="dense")
+        get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="moe")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         M.param_specs(cfg)
 
@@ -187,13 +187,14 @@ def test_serve_cli(monkeypatch, capsys):
     """The launcher's defaults: the card unless --device cpu; an unported arch
     raises and names the ported ones; the smoke run prints JAX's summary."""
     args = serve.build_parser().parse_args([])
-    assert (args.device, args.arch) == ("cuda", ARCH)
+    assert (args.device, args.arch) == ("cuda", "qwen2.5-3b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run(args)
     with pytest.raises(ValueError, match="not yet ported.*mamba2-130m"):
-        serve.main(["--arch", "qwen2.5-3b", "--device", "cpu"])
-    argv = ["--device", "cpu", "--requests", "3", "--slots", "2", "--prompt-len", "20", "--max-new", "4"]
+        serve.main(["--arch", "mixtral-8x22b", "--device", "cpu"])
+    argv = ["--arch", ARCH, "--device", "cpu", "--requests", "3", "--slots", "2", "--prompt-len",
+            "20", "--max-new", "4"]  # fmt: skip
     assert serve.main(argv) == 0
     text = capsys.readouterr().out
     assert "decode_steps=" in text and "req0: [" in text

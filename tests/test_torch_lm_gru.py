@@ -270,8 +270,8 @@ def test_merinda_gru_is_ported_and_dense_still_raises():
     assert "merinda-gru" in serve.build_parser().parse_args(["--arch", ARCH]).arch
     assert get_config(ARCH).family == "gru"
     with pytest.raises(ValueError, match="not yet ported.*mamba2-130m, merinda-gru"):
-        get_config("qwen2.5-3b")
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="dense")
+        get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="moe")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         M.param_specs(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
