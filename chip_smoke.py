@@ -55,7 +55,7 @@ prints no result):
    controlled_pendulum through 4 slots, H=32, the StreamConfig defaults,
    through ``compile_plan`` -> ``make_service`` ->
    ``submit``/``fill_slots``/``tick_once``, then its
-   one-shot batch-mode baseline (``run_batch``, 320 steps: the step budget cut
+   one-shot batch-mode baseline (``run_batch``, 256 steps: the step budget cut
    from serve_mr's 400, for every service below). The launch counts
    are set to 0 just before and read just after: every stream must be
    recovered within the baseline tolerance (3x the per-system median MSE +
@@ -188,7 +188,7 @@ calls in one launch, grid (B / block_b, S)) adds:
   beside one per-call launch's.
 
 Phases 8b, 8b' and 8b'' take phase 8's batch baseline (their 4 streams are
-the first 4 of phase 8's fleet) instead of training the same 320 steps again.
+the first 4 of phase 8's fleet) instead of training the same 256 steps again.
 
 The SR baselines and the device-resident control plane with service
 checkpoints (no new kernel: the plane's tick launches ``mr_tick``, or
@@ -328,7 +328,42 @@ that divides the prompt, 128 or the gcd) add, after phase 8o:
   after phase 10, their device times (SDPA's too), ``ssd_scan``'s three
   kernels at zamba2's bootstrap prefill, and one warm bootstrap prefill and
   one decode step of each model under the profiler (wall, device busy, the
-  kernels that take the most).
+  kernels that take the most; the models below too).
+
+The rest of the LM zoo (the ``moe`` moonshot-v1-16b-a3b: 48 layers of MHA
+16/16 and 64 experts, top 6, the dropless form; ``mixtral-8x22b``: GQA 48/8
+under a window of 4,096 keys, 8 experts, top 2; the ``vlm``
+phi-3-vision-4.2b: 32 layers at Dh = 96 over 256 patches and the tokens;
+the ``audio`` seamless-m4t-medium: 12 non-causal encoder layers over 4,096
+frames, 12 decoder layers with cross-attention) adds, after phase 8r:
+
+- 8s. ``flash_attention`` at their layouts (mixtral's windowed prefill of
+  4,160 tokens at block 64; phi-3-vision's 1,024 positions at Dh = 96;
+  seamless-m4t's encoder over 4,096 frames, its cross-attention of 256 and
+  of 1 query against them, each length at its own block) in float32 (2e-5)
+  and bf16 (one bf16 rounding plus 1e-4); the four SMOKE models in float32,
+  a prefill and a decode step through the kernels against
+  ``force_reference`` within 1e-4, with their launches (one a layer a
+  prefill; seamless-m4t one an encoder layer and two a decoder layer a
+  prefill, one a decoder layer a decode step);
+- 8t. ``python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b`` as
+  8r, at full width and depth (56.1 GB of bf16 weights): ``flash_attention``
+  48 x 5 prefills; the float32 bound on the first 4 of the served layers
+  (the same weights; all 48 would be 112 GB);
+- 8u, 8v, 8w. through ``prefill`` and ``decode_step`` (the serve loop feeds
+  no patches or frames): mixtral-8x22b at full width cut to 2 of its 56
+  layers, B = 2, a 4,160-token prompt (the rolling cache of 4,096 keys,
+  decode writes at ``pos % 4,096``); phi-3-vision-4.2b at full width and
+  depth, B = 2, 256 patches + 768 tokens; seamless-m4t-medium at full width
+  and depth, B = 2, 4,096 frames and 256 tokens; each a prefill and 3
+  decode steps with their launches set to 0 just before and read just
+  after (2, 32 and 36 a prefill; seamless-m4t 12 a decode step), and on the
+  same weights in float32 the prefill logits against ``force_reference``
+  and the prefill + 3 decode steps against the longer prompts' prefills,
+  within 1e-3 of the largest logit;
+- in phases 9 and 10b ``flash_attention`` at their layouts: event and
+  device ms, SDPA's (at the window with an explicit boolean mask), the
+  bound.
 
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
@@ -395,13 +430,14 @@ TICK_TEST_WIDTH = dict(state_dim=3, order=2, hidden=8, dense_hidden=16, dt=0.01)
 SERVE_WIDTH = dict(state_dim=3, input_dim=1, order=2, hidden=32, dense_hidden=64, dt=0.01)
 # 4 streams where serve_mr's default is 12 (one wave through the 4 slots, where it was 8
 # streams in two waves; phase 8g re-admits into freed slots on both planes at this
-# width, phase 8l after a restart) and a step budget of 320 where it is 400 (40 ticks
-# a stream, not 50; the batch baseline 320 steps too): cuts for time, the same for
+# width, phase 8l after a restart) and a step budget of 256 where it is 400 (32 ticks
+# a stream, not 50; the batch baseline 256 steps too): cuts for time, the same for
 # every service below, which share this fleet and its baseline. Each service is ~50
-# training ticks of host launches at 400 steps, and on the slowest H100 host seen the
-# script took 1,157 s of its 1,200 s so. (On the CPU at 256 steps every stream stays
-# within the tolerance, at half of it: Theta MSE 0.70 against 1.51.)
-SCENARIO = ["--streams", "4", "--slots", "4", "--max-steps", "320", "--device", "cuda"]
+# training ticks of host launches at 400 steps; on the slowest H100 host seen the
+# script took 1,157 s of its 1,200 s so, and at 320 steps with the whole LM zoo's
+# phases a host ~1.2x slower than most would take ~1,170 s. (On the CPU at 256 steps
+# every stream stays within the tolerance, at half of it: Theta MSE 0.70 against 1.51.)
+SCENARIO = ["--streams", "4", "--slots", "4", "--max-steps", "256", "--device", "cuda"]
 SERVE_ARGS = ["--tick-kernel", "banked", *SCENARIO]
 # phase 8g's traffic takes 7 streams of the same fleet
 FLEET_STREAMS = 8
@@ -445,8 +481,30 @@ GRU_WIDTH = 512  # merinda-gru CONFIG: d_model = gru_hidden
 LM_ATTN_ARGS = {
     tag: ["--arch", arch, "--full", "--requests", "8", "--slots", "4", "--prompt-len", "1024",
           "--max-new", "32", "--cache-len", "1088", "--device", "cuda"]
-    for tag, arch in (("hybrid", "zamba2-1.2b"), ("dense", "qwen2.5-3b"))
+    for tag, arch in (("hybrid", "zamba2-1.2b"), ("dense", "qwen2.5-3b"),
+                      ("moe", "moonshot-v1-16b-a3b"))
 }  # fmt: skip
+# the float32 bound's depth: moonshot-v1-16b-a3b serves all 48 layers in bf16 (56.1 GB of
+# weights), and in float32 (112 GB) only its first 4 fit beside them (11.8 GB)
+LM_F32_LAYERS = {"moe": 4}
+# the MoE, VLM and audio paths driven through prefill and decode_step (the serve loop
+# cannot feed patches or frames): mixtral-8x22b at its published widths cut to 2 of its
+# 56 layers (10.8 GB of bf16 weights; 281 GB whole), a 4,160-token prompt past its
+# window of 4,096; phi-3-vision-4.2b, 256 patches + 768 tokens; seamless-m4t-medium,
+# 4,096 frames and a 256-token prompt; each B = 2 and 3 decode steps
+LM_ZOO = {
+    "swa": dict(arch="mixtral-8x22b", layers=2, B=2, prompt=4160),
+    "vlm": dict(arch="phi-3-vision-4.2b", layers=None, B=2, prompt=768),
+    "audio": dict(arch="seamless-m4t-medium", layers=None, B=2, prompt=256),
+}
+# their attention layouts (label, B, Sq, Sk, QH, KH, Dh, causal, window)
+LM_ZOO_SHAPES = [
+    ("mixtral-8x22b windowed prefill", 2, 4160, 4160, 48, 8, 128, True, 4096),
+    ("phi-3-vision-4.2b prefill", 2, 1024, 1024, 32, 32, 96, True, None),
+    ("seamless-m4t-medium encoder", 2, 4096, 4096, 16, 16, 64, False, None),
+    ("seamless-m4t-medium cross-attention", 2, 256, 4096, 16, 16, 64, False, None),
+    ("seamless-m4t-medium decode cross-attention", 2, 1, 4096, 16, 16, 64, False, None),
+]
 # their prefill attention's layouts (label, B, S, QH, KH, Dh): the bootstrap and the
 # admission prefills
 LM_ATTN_SHAPES = [
@@ -676,6 +734,29 @@ def qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed, device, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
     return mk(B, Sq, QH, Dh), mk(B, Sk, KH, Dh), mk(B, Sk, KH, Dh)
+
+
+def sdpa_for(q, k, v, causal: bool, window: int | None):
+    """``scaled_dot_product_attention`` (a yardstick the port never calls) on
+    head-major views of the model layout's q, k, v: (a call, how it is made).
+    Without a window: ``is_causal`` and ``enable_gqa``. At a window: an
+    explicit boolean mask, with k and v repeated to the query heads before
+    the call (the GQA form takes no mask on every backend)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        return (lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+                f"is_causal={causal}, enable_gqa=True")  # fmt: skip
+    G = q.shape[2] // k.shape[2]
+    kt, vt = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = kpos > qpos - window
+    if causal:
+        mask &= kpos <= qpos
+    return (lambda: sdpa(qt, kt, vt, attn_mask=mask),
+            f"an explicit boolean mask of the {window}-key window, k and v repeated to "
+            f"{q.shape[2]} heads before the call")  # fmt: skip
 
 
 def chain_cycles(family: str, H: int) -> int:
@@ -2376,20 +2457,30 @@ def main() -> None:
             f"flash_attention {e_fa:.3e}")  # fmt: skip
         check(e_ssd <= 5e-4 and e_fa <= 5e-4, "the LM kernels' gradients")
 
-    def teacher_forcing(cfg, params, toks, S_p, force=False) -> tuple[float, float]:
-        """A prefill of S_p tokens of ``toks`` and 3 decode steps against prefills
-        of the longer prompts (tests/test_models.py:71): (max abs gap, max |logit|)."""
-        run = lambda n: lm.prefill(params, {"tokens": toks[:, :n]}, cfg, S_p + 4,
-                                   force_reference=force)  # fmt: skip
+    def teacher_forcing(cfg, params, toks, S_p, force=False, extra=None) -> tuple[float, float]:
+        """A prefill of S_p tokens of ``toks`` (after ``extra``'s patches, or
+        against its frames) and 3 decode steps against prefills of the longer
+        prompts (tests/test_models.py:71): (max abs gap, max |logit|)."""
+        off = cfg.num_patches if cfg.family == "vlm" else 0  # positions before the tokens
+        run = lambda n: lm.prefill(params, {**(extra or {}), "tokens": toks[:, :n]}, cfg,
+                                   off + S_p + 4, force_reference=force)  # fmt: skip
         ref = [run(t)[0] for t in range(S_p, S_p + 4)]
         lg, cache = run(S_p)
         got = [lg]
         for t in range(S_p, S_p + 3):
-            lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], t, cfg,
+            lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], off + t, cfg,
                                        force_reference=force)  # fmt: skip
             got.append(lg)
         gap = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
         return gap, max(b.float().abs().max().item() for b in ref)
+
+    def float32_model(cfg, params, n_layers=None):
+        """A float32 copy of ``params`` (its first ``n_layers`` layers; all by
+        default), made leaf by leaf, and its config."""
+        n = n_layers or cfg.num_layers
+        f32 = lambda tree, cut: tree_map(lambda t: (t[:n] if cut else t).float(), tree)
+        params32 = {k: f32(v, k == "layers") for k, v in params.items()}
+        return dataclasses.replace(cfg, dtype="float32", num_layers=n), params32
 
     # -- 8e. the LM serving path: Mamba2-130m at full width through ssd_scan --------------
     with Phase("main lm"):
@@ -2707,7 +2798,9 @@ def main() -> None:
 
     def attention_lm_phase(tag: str) -> None:
         """``[main lm <tag>]``: serve LM_ATTN_ARGS[tag] at full width; every prefill
-        attention through flash_attention, every Mamba2 prefill through ssd_scan."""
+        attention through flash_attention, every Mamba2 prefill through ssd_scan.
+        The float32 bound runs on the first LM_F32_LAYERS[tag] layers of the
+        served weights where a float32 copy of all of them would not fit."""
         argv = LM_ATTN_ARGS[tag]
         a_args = lm_serve.build_parser().parse_args(argv)
         name = f"main lm {tag}"
@@ -2719,7 +2812,7 @@ def main() -> None:
         torch.cuda.synchronize()
         counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        a_cfg, a_params, prompts = served["cfg"], served["params"], served["prompts"]
+        a_cfg, a_params, prompts = served["cfg"], served.pop("params"), served["prompts"]
         outputs = served["outputs"]
         n_new = sum(len(t) for t in outputs.values())
         n_prefills = 1 + a_args.requests - a_args.slots
@@ -2766,20 +2859,22 @@ def main() -> None:
             lg_r, _ = lm.prefill(a_params, {"tokens": first}, a_cfg, CL, force_reference=True)
             e_logits = (lg_k.float() - lg_r.float()).abs().max().item()
             e_tf = teacher_forcing(a_cfg, a_params, toks, S_p)[0]
-            # bounded: the same weights in float32 (the prompts of 1,025 to 1,027 tokens
-            # reach the kernel at blocks 1, 2 and 1)
-            cfg32 = dataclasses.replace(a_cfg, dtype="float32")
-            params32 = tree_map(lambda t: t.float(), a_params)
-            lg32_k, _ = lm.prefill(params32, {"tokens": first}, cfg32, CL)
-            lg32_r, _ = lm.prefill(params32, {"tokens": first}, cfg32, CL, force_reference=True)
-            e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
-            e32_tf, scale32_tf = teacher_forcing(cfg32, params32, toks, S_p)
-            del params32, lg32_k, lg32_r
         ref_serve = lm_serve.serve_lm(a_cfg, a_params, prompts, slots=a_args.slots,
                                       max_new=a_args.max_new, cache_len=CL, eos=a_args.eos,
                                       force_reference=True)  # fmt: skip
         pairs = [(x, y) for r in outputs for x, y in zip(outputs[r], ref_serve["outputs"][r])]
         agree = sum(x == y for x, y in pairs) / len(pairs)
+        # bounded: the same weights in float32 (the prompts of 1,025 to 1,027 tokens
+        # reach the kernel at blocks 1, 2 and 1), the served depth or its first layers
+        cfg32, params32 = float32_model(a_cfg, a_params, LM_F32_LAYERS.get(tag))
+        del a_params
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            lg32_k, _ = lm.prefill(params32, {"tokens": first}, cfg32, CL)
+            lg32_r, _ = lm.prefill(params32, {"tokens": first}, cfg32, CL, force_reference=True)
+            e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
+            e32_tf, scale32_tf = teacher_forcing(cfg32, params32, toks, S_p)
+            del params32, lg32_k, lg32_r
         log(
             f"[{name}] warm prefill: bootstrap {a_times['bootstrap']:.1f} ms, admission "
             f"{a_times['admission']:.1f} ms. bf16, printed, not bounded: prefill logits, kernels "
@@ -2789,7 +2884,8 @@ def main() -> None:
             f"on: {agree:.4f} of {len(pairs)}"
         )
         log(
-            f"[{name}] float32 (the same weights; bound {LM_F32_REL} of the largest logit): "
+            f"[{name}] float32 (the same weights, {cfg32.num_layers} of {a_cfg.num_layers} layers; "
+            f"bound {LM_F32_REL} of the largest logit): "
             f"prefill logits, kernels against force_reference, max abs {e32_logits:.3e} (max "
             f"|logit| {scale32:.3e}); teacher forcing on the kernel path max abs {e32_tf:.3e} (max "
             f"|logit| {scale32_tf:.3e})"
@@ -2802,12 +2898,203 @@ def main() -> None:
                                     admit_ms=served["admit_ms"], decode_p50=decode_p50,
                                     peak_gb=peak_gb, warm=a_times, e_logits=e_logits, e_tf=e_tf,
                                     e32_logits=e32_logits, e32_tf=e32_tf, agree=agree,
-                                    arch=a_cfg.name)  # fmt: skip
+                                    arch=a_cfg.name, f32_layers=cfg32.num_layers)  # fmt: skip
 
     # -- 8q, 8r. the attention LM paths: zamba2-1.2b and qwen2.5-3b at full width --------
     for tag in ("hybrid", "dense"):
         with Phase(f"main lm {tag}"):
             attention_lm_phase(tag)
+
+    def zoo_extras(cfg, B: int, rng) -> dict:
+        """What a ``vlm`` or ``audio`` prefill reads beside the tokens, drawn with
+        numpy: patches [B, num_patches, d_model] at the token embeddings' scale
+        (0.02), or frames [B, AUDIO_SRC_LEN, AUDIO_FEAT] (standard normal)."""
+        if cfg.family == "vlm":
+            x = rng.standard_normal((B, cfg.num_patches, cfg.d_model)) * 0.02
+            return {"patches": torch.as_tensor(x.astype(np.float32), device=dev)}
+        if cfg.family == "audio":
+            x = rng.standard_normal((B, lm.AUDIO_SRC_LEN, lm.AUDIO_FEAT))
+            return {"frames": torch.as_tensor(x.astype(np.float32), device=dev)}
+        return {}
+
+    def zoo_launches(cfg) -> tuple[int, int]:
+        """flash_attention launches of a prefill and of a decode step: one a layer
+        a prefill; ``audio``: one an encoder layer and two a decoder layer (self,
+        cross) a prefill, one a decoder layer (cross) a decode step."""
+        if cfg.family == "audio":
+            return cfg.encoder_layers + 2 * cfg.num_layers, cfg.num_layers
+        return cfg.num_layers, 0
+
+    def zoo_parity() -> None:
+        """``[lm zoo parity]``: flash_attention at LM_ZOO_SHAPES, float32 and bf16,
+        against its plain version; the four SMOKE models through the kernels."""
+        torch.cuda.empty_cache()
+        for label, B, Sq, Sk, QH, KH, Dh, causal, window in LM_ZOO_SHAPES:
+            bq, bk = prefill_block(Sq), prefill_block(Sk)
+            shape = (f"{label} B={B} Sq={Sq} Sk={Sk} QH={QH} KH={KH} Dh={Dh} "
+                     f"{'causal' if causal else 'non-causal'} window={window} blocks ({bq}, {bk})")  # fmt: skip
+            kw = dict(causal=causal, window=window)
+            q, k, v = qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed=Sq + Sk + Dh, device=dev)
+            want = flash_attention(q, k, v, force_reference=True, **kw)
+            record_close("flash_attention", f"{shape} float32",
+                         flash_attention(q, k, v, block_q=bq, block_k=bk, **kw), want, 2e-5, 2e-5)  # fmt: skip
+            del want
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            o = flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+            want = flash_attention(q.float(), k.float(), v.float(), force_reference=True, **kw)
+            record_rounded("flash_attention", f"{shape} bf16", o, want)
+            del q, k, v, o, want
+            torch.cuda.empty_cache()
+        # the four SMOKE models in float32: a prefill of 64 tokens (mixtral's past its
+        # window of 16, phi-3-vision's after 8 patches, seamless-m4t's against 4,096
+        # frames) and a decode step, kernels against force_reference
+        for arch in ("moonshot-v1-16b-a3b", "mixtral-8x22b", "phi-3-vision-4.2b",
+                     "seamless-m4t-medium"):  # fmt: skip
+            s_cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+            s_params = lm.init_params(torch.Generator(device=dev).manual_seed(3), s_cfg)
+            rng = np.random.default_rng(95)
+            s_toks = torch.as_tensor(rng.integers(1, s_cfg.vocab_size, size=(2, 65)), device=dev).long()
+            batch = dict(zoo_extras(s_cfg, 2, rng), tokens=s_toks[:, :64])
+            pos = 64 + (s_cfg.num_patches if s_cfg.family == "vlm" else 0)
+            zero_counts()
+            lg, cache = lm.prefill(s_params, batch, s_cfg, 128)
+            torch.cuda.synchronize()
+            c_prefill = read_counts()
+            zero_counts()
+            lg2, cache = lm.decode_step(s_params, cache, s_toks[:, 64:], pos, s_cfg)
+            torch.cuda.synchronize()
+            c_decode = read_counts()
+            want, want_cache = lm.prefill(s_params, batch, s_cfg, 128, force_reference=True)
+            want2, want_cache = lm.decode_step(s_params, want_cache, s_toks[:, 64:], pos, s_cfg,
+                                               force_reference=True)  # fmt: skip
+            e_smoke = max((a - b).abs().max().item() for a, b in [(lg, want), (lg2, want2)] + [
+                (cache["layers"][n], want_cache["layers"][n]) for n in cache["layers"]])  # fmt: skip
+            n_prefill, n_decode = zoo_launches(s_cfg)
+            log(f"[lm zoo parity] {arch} SMOKE float32 prefill of 64 tokens and a decode step, "
+                f"kernels against force_reference: logits and every cache leaf max abs "
+                f"{e_smoke:.3e} (max |logit| {want.abs().max().item():.3e}); launches prefill "
+                f"{dict((k, n) for k, n in c_prefill.items() if n)}, decode step "
+                f"{dict((k, n) for k, n in c_decode.items() if n)}")  # fmt: skip
+            check(e_smoke <= TOL, f"{arch} SMOKE through the kernels: {e_smoke:.3e}")
+            for what, c, n in (("prefill", c_prefill, n_prefill), ("decode step", c_decode, n_decode)):
+                expect = {**dict.fromkeys(c, 0), "flash_attention": n}
+                check(c == expect, f"{arch} SMOKE {what} launched {c}, expected {expect}")
+        del s_params, cache, want_cache
+
+    # -- 8s. the MoE, VLM and audio paths' attention layouts and SMOKE models ----------
+    with Phase("lm zoo parity"):
+        zoo_parity()
+
+    # -- 8t. the MoE path: moonshot-v1-16b-a3b served at full width and depth ------------
+    with Phase("main lm moe"):
+        torch.cuda.empty_cache()
+        attention_lm_phase("moe")
+
+    def zoo_phase(tag: str) -> None:
+        """``[main lm <tag>]``: LM_ZOO[tag] at its published widths (its depth cut
+        where LM_ZOO says) through prefill and 3 decode steps, every attention the
+        layout gives flash_attention through the kernel; the launches counted,
+        the bf16 logits against force_reference printed, and in float32 on the
+        same weights the prefill logits against force_reference and the prefill
+        + 3 decode steps against the longer prompts' prefills bounded."""
+        z = LM_ZOO[tag]
+        z_cfg = get_config(z["arch"])
+        full_depth = z_cfg.num_layers
+        if z["layers"]:
+            z_cfg = dataclasses.replace(z_cfg, num_layers=z["layers"])
+        name = f"main lm {tag}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        z_params = lm.init_params(torch.Generator(device=dev).manual_seed(0), z_cfg)
+        rng = np.random.default_rng(96)
+        B, S_p = z["B"], z["prompt"]
+        toks = torch.as_tensor(rng.integers(1, min(z_cfg.vocab_size, 1000), size=(B, S_p + 3)),
+                               device=dev).long()  # fmt: skip
+        extra = zoo_extras(z_cfg, B, rng)
+        off = z_cfg.num_patches if z_cfg.family == "vlm" else 0
+        CL = off + S_p + 4
+        first = {**extra, "tokens": toks[:, :S_p]}
+        n_prefill, n_decode = zoo_launches(z_cfg)
+        with torch.no_grad():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = lm.prefill(z_params, first, z_cfg, CL)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            c_prefill = read_counts()
+            zero_counts()
+            decode_ms = []
+            for t in range(S_p, S_p + 3):
+                t1 = time.perf_counter()
+                lg_t, cache = lm.decode_step(z_params, cache, toks[:, t : t + 1], off + t, z_cfg)
+                torch.cuda.synchronize()
+                decode_ms.append((time.perf_counter() - t1) * 1e3)
+            c_decode = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.prefill(z_params, first, z_cfg, CL)
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            C = cache["layers"]["k"].shape[2]
+            # bf16, printed (C 2: random layers amplify a last-bit difference)
+            lg_r, _ = lm.prefill(z_params, first, z_cfg, CL, force_reference=True)
+            e_logits = (lg.float() - lg_r.float()).abs().max().item()
+            del cache, lg_t
+        a = z_cfg.attn
+        log(
+            f"[{name}] {z_cfg.name}: {z_cfg.num_layers} of {full_depth} layers"
+            f"{f' + {z_cfg.encoder_layers} encoder layers' if z_cfg.encoder_layers else ''}, "
+            f"d_model {z_cfg.d_model}, d_ff {z_cfg.d_ff}, attention {a.num_heads}/{a.num_kv_heads} "
+            f"heads of {a.head_dim}, window {a.window}, vocab {z_cfg.vocab_padded}; B={B}, "
+            f"{'%d patches + ' % off if off else ''}{S_p} tokens"
+            f"{', %d frames' % lm.AUDIO_SRC_LEN if z_cfg.family == 'audio' else ''}; KV cache "
+            f"{C} of {CL} positions; cold prefill {prefill_ms:.1f} ms, warm {warm_ms:.1f} ms; "
+            f"decode steps {[round(t, 2) for t in decode_ms]} ms; peak device memory "
+            f"{peak_gb:.2f} GB; launches prefill {dict((k, n) for k, n in c_prefill.items() if n)} "
+            f"(expected flash_attention {n_prefill}), 3 decode steps "
+            f"{dict((k, n) for k, n in c_decode.items() if n)} (expected {3 * n_decode}); bf16, "
+            f"printed: prefill logits, kernels against force_reference, max abs {e_logits:.3e} "
+            f"(max |logit| {lg_r.float().abs().max().item():.3e}); {smi}"
+        )  # fmt: skip
+        for what, c, n in (("prefill", c_prefill, n_prefill), ("3 decode steps", c_decode, 3 * n_decode)):
+            expect = {**dict.fromkeys(c, 0), "flash_attention": n}
+            check(c == expect, f"the {tag} LM {what} launched {c}, expected {expect}")
+        check(bool(torch.isfinite(lg.float()).all()) and lg.shape == (B, z_cfg.vocab_padded),
+              f"{tag} LM logits finite, [{B}, {z_cfg.vocab_padded}]")  # fmt: skip
+        check(C == (min(CL, a.window) if a.window else CL), f"{tag} LM cache of {C} positions")
+        # bounded: the same weights in float32 (the prompts one to three tokens longer
+        # reach the kernel at blocks 1 and 2)
+        cfg32, params32 = float32_model(z_cfg, z_params)
+        del z_params
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            lg32_k, _ = lm.prefill(params32, first, cfg32, CL)
+            lg32_r, _ = lm.prefill(params32, first, cfg32, CL, force_reference=True)
+            e32_logits, scale32 = (lg32_k - lg32_r).abs().max().item(), lg32_r.abs().max().item()
+            e32_tf, scale32_tf = teacher_forcing(cfg32, params32, toks, S_p, extra=extra)
+            del params32, lg32_k, lg32_r
+        log(
+            f"[{name}] float32 (the same weights; bound {LM_F32_REL} of the largest logit): "
+            f"prefill logits, kernels against force_reference, max abs {e32_logits:.3e} (max "
+            f"|logit| {scale32:.3e}); prefill + 3 decode steps against the prefills of "
+            f"{S_p + 1}-{S_p + 3} tokens on the kernel path max abs {e32_tf:.3e} (max |logit| "
+            f"{scale32_tf:.3e})"
+        )
+        check(e32_logits <= LM_F32_REL * scale32,
+              f"float32 {tag} LM logits, kernels against reference: {e32_logits:.3e}")  # fmt: skip
+        check(e32_tf <= LM_F32_REL * scale32_tf, f"float32 {tag} LM teacher forcing: {e32_tf:.3e}")
+        results[f"lm {tag}"] = dict(
+            counts={"flash_attention": n_prefill + 3 * n_decode}, prefill_ms=prefill_ms,
+            warm_ms=warm_ms, decode_ms=decode_ms, peak_gb=peak_gb, e_logits=e_logits,
+            e32_logits=e32_logits, e32_tf=e32_tf, arch=z_cfg.name, layers=z_cfg.num_layers,
+        )  # fmt: skip
+
+    # -- 8u, 8v, 8w. mixtral-8x22b's window, phi-3-vision and seamless-m4t at full width --
+    for tag in LM_ZOO:
+        with Phase(f"main lm {tag}"):
+            zoo_phase(tag)
 
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
@@ -3143,12 +3430,41 @@ def main() -> None:
             shape = f"{label} B={B} S={S} QH={QH} KH={KH} Dh={Dh} causal bf16"
             lm_timed["flash_attention", label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                                       bound_by=b_by, library_ms=l_ms, shape=shape,
-                                                      qkv=(B, S, QH, KH, Dh))  # fmt: skip
+                                                      layout=(B, S, S, QH, KH, Dh, True, None))  # fmt: skip
             log(f"[time] flash_attention at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                 f"scaled_dot_product_attention {l_ms:.4f} ms (its output {e_l:.3e} from the "
                 f"kernel's), bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB); {b_ms / k_ms * 100:.2f}% of the bound; {smi}")  # fmt: skip
             del q, k, v, qt, kt, vt
+        # the MoE, VLM and audio paths' layouts, each length at its own block; SDPA at
+        # the window with an explicit boolean mask and k, v repeated to the query heads
+        # outside the timing (the GQA form takes no mask on every backend)
+        for label, B, Sq, Sk, QH, KH, Dh, causal, window in LM_ZOO_SHAPES:
+            q, k, v = qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed=88 + Sq, device=dev,
+                                 dtype=torch.bfloat16)  # fmt: skip
+            bq, bk = prefill_block(Sq), prefill_block(Sk)
+            fa = lambda: flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=0,
+                                              block_q=bq, block_k=bk)  # fmt: skip
+            k_ms = time_ms(fa, runs=10, per_run=10 if Sq > 1 else 50)
+            p_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                                   force_reference=True), runs=3, per_run=1)  # fmt: skip
+            sdpa_call, sdpa_note = sdpa_for(q, k, v, causal, window)
+            l_ms = time_ms(sdpa_call, runs=10, per_run=10 if Sq > 1 else 50)
+            e_l = (sdpa_call().transpose(1, 2).float() - fa().float()).abs().max().item()
+            flops, nbytes, peak = flash_work(B, Sq, Sk, QH, KH, Dh, causal, window, 0, 2)
+            b_ms, b_by = bound_ms(flops, nbytes, peak)
+            shape = (f"{label} B={B} Sq={Sq} Sk={Sk} QH={QH} KH={KH} Dh={Dh} "
+                     f"{'causal' if causal else 'non-causal'} window={window} bf16")  # fmt: skip
+            lm_timed["flash_attention", label] = dict(
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                library_form=sdpa_note, shape=shape, layout=(B, Sq, Sk, QH, KH, Dh, causal, window),
+            )  # fmt: skip
+            log(f"[time] flash_attention at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"scaled_dot_product_attention ({sdpa_note}) {l_ms:.4f} ms (its output {e_l:.3e} "
+                f"from the kernel's), bound {b_ms:.6f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB); {b_ms / k_ms * 100:.2f}% of the bound; {smi}")  # fmt: skip
+            del q, k, v
+            torch.cuda.empty_cache()
         m = SSD_ZAMBA2
         for B in (4, 1):  # zamba2's bootstrap and admission prefills, one layer
             args = ssd_inputs(B, m["T"], m["H"], m["P"], m["N"], m["G"], seed=85 + B, device=dev,
@@ -3364,46 +3680,58 @@ def main() -> None:
             f"(mean of {DEVICE_TIMED}): "
             f"{', '.join(f'{k} {v:.4f} ms' for k, v in split.items())}")  # fmt: skip
         del args
-        for (kernel, key), t in lm_timed.items():  # the attention paths' prefill attention
-            if kernel != "flash_attention" or "qkv" not in t:
+        for (kernel, key), t in lm_timed.items():  # the model paths' attention layouts
+            if kernel != "flash_attention" or "layout" not in t:
                 continue
-            B, S, QH, KH, Dh = t["qkv"]
-            q, k, v = qkv_inputs(B, S, S, QH, KH, Dh, seed=87, device=dev, dtype=torch.bfloat16)
-            b = prefill_block(S)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            B, Sq, Sk, QH, KH, Dh, causal, window = t["layout"]
+            q, k, v = qkv_inputs(B, Sq, Sk, QH, KH, Dh, seed=87, device=dev, dtype=torch.bfloat16)
+            bq, bk = prefill_block(Sq), prefill_block(Sk)
+            sdpa_call, sdpa_note = sdpa_for(q, k, v, causal, window)
             try:
                 d_ms = device_ms_by(lambda: flash_attention_cuda(
-                    q, k, v, causal=True, window=None, q_offset=0, block_q=b, block_k=b),
+                    q, k, v, causal=causal, window=window, q_offset=0, block_q=bq, block_k=bk),
                     {"flash": "flash_attention_bf16"})["flash"]  # fmt: skip
-                # the yardstick: the port never calls it
-                l_ms = call_device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))  # fmt: skip
+                l_ms = call_device_ms(sdpa_call)  # the yardstick: the port never calls it
             except RuntimeError as e:
                 check(False, f"flash_attention at {key}: {e}")
             t.update(device_ms=d_ms, library_device_ms=l_ms)
             log(f"[profile flash_attention] at {t['shape']}: device {d_ms:.4f} ms a launch (mean "
-                f"of {DEVICE_TIMED}), scaled_dot_product_attention {l_ms:.4f} device ms "
-                f"({d_ms / l_ms:.2f}x); event time {t['ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                f"of {DEVICE_TIMED}), scaled_dot_product_attention ({sdpa_note}) {l_ms:.4f} device "
+                f"ms ({d_ms / l_ms:.2f}x); event time {t['ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_ms'] / d_ms * 100:.1f}% of it)")  # fmt: skip
-            del q, k, v, qt, kt, vt
+            del q, k, v, sdpa_call
         # where a warm bootstrap prefill and a decode step of each attention LM spend
         # their time: wall against device busy, and the kernels that take the most
-        for tag in ("hybrid", "dense"):
-            a_args = lm_serve.build_parser().parse_args(LM_ATTN_ARGS[tag])
-            a_cfg = get_config(a_args.arch, smoke=not a_args.full)
-            a_params = lm.init_params(torch.Generator(device=dev).manual_seed(a_args.seed), a_cfg)
-            prompts = lm_serve.make_prompts(a_cfg, a_args.slots, a_args.prompt_len, a_args.seed)
-            first = torch.as_tensor(prompts, device=dev).long()
+        def traced_model(tag: str):
+            """(cfg, seed, prefill batch, cache_len, decode position) of a path: the
+            serve phases' bootstrap prefill, or LM_ZOO's prefill."""
+            if tag in LM_ATTN_ARGS:
+                a_args = lm_serve.build_parser().parse_args(LM_ATTN_ARGS[tag])
+                a_cfg = get_config(a_args.arch, smoke=not a_args.full)
+                prompts = lm_serve.make_prompts(a_cfg, a_args.slots, a_args.prompt_len, a_args.seed)
+                batch = {"tokens": torch.as_tensor(prompts, device=dev).long()}
+                return a_cfg, a_args.seed, batch, a_args.cache_len, a_args.prompt_len
+            z = LM_ZOO[tag]
+            z_cfg = get_config(z["arch"])
+            if z["layers"]:
+                z_cfg = dataclasses.replace(z_cfg, num_layers=z["layers"])
+            rng = np.random.default_rng(96)
+            toks = rng.integers(1, min(z_cfg.vocab_size, 1000), size=(z["B"], z["prompt"]))
+            batch = {**zoo_extras(z_cfg, z["B"], rng), "tokens": torch.as_tensor(toks, device=dev).long()}
+            off = z_cfg.num_patches if z_cfg.family == "vlm" else 0
+            return z_cfg, 0, batch, off + z["prompt"] + 4, off + z["prompt"]
+
+        for tag in ("hybrid", "dense", "moe", *LM_ZOO):
+            a_cfg, a_seed, a_batch, a_CL, a_pos = traced_model(tag)
+            a_params = lm.init_params(torch.Generator(device=dev).manual_seed(a_seed), a_cfg)
             with torch.no_grad():
-                _, cache = lm.prefill(a_params, {"tokens": first}, a_cfg, a_args.cache_len)
-                nxt = first[:, -1:]
-                lm.decode_step(a_params, cache, nxt, a_args.prompt_len, a_cfg)
+                _, cache = lm.prefill(a_params, a_batch, a_cfg, a_CL)
+                nxt = a_batch["tokens"][:, -1:]
+                lm.decode_step(a_params, cache, nxt, a_pos, a_cfg)
                 torch.cuda.synchronize()
                 for what, call in (
-                    ("bootstrap prefill", lambda: lm.prefill(a_params, {"tokens": first}, a_cfg,
-                                                             a_args.cache_len)),
-                    ("decode step", lambda: lm.decode_step(a_params, cache, nxt,
-                                                           a_args.prompt_len + 1, a_cfg)),
+                    ("bootstrap prefill", lambda: lm.prefill(a_params, a_batch, a_cfg, a_CL)),
+                    ("decode step", lambda: lm.decode_step(a_params, cache, nxt, a_pos + 1, a_cfg)),
                 ):  # fmt: skip
                     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                         t0 = time.perf_counter()
@@ -3423,7 +3751,8 @@ def main() -> None:
                         f"({100 * busy_ms / wall_ms:.2f}% of the wall)")  # fmt: skip
                     for kernel, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]:
                         log(f"[profile lm {tag}]   {sum(v):8.4f} ms  {len(v):5d}x  {kernel[:80]}")
-            del a_params, cache
+            del a_params, cache, a_batch
+            torch.cuda.empty_cache()
 
     with Phase("tick profile"):
         for kernel in ("banked",):
@@ -3484,10 +3813,11 @@ def main() -> None:
         # shape, note
         ("ssd_scan", "ssd_scan.cu", "ssd_scan/kernel.py:91", ("lm", "lm hybrid"), 4,
          "no PyTorch call computes a chunked SSD scan"),
-        # the attention LM paths: zamba2's shared block and qwen2.5-3b's layers; timed at
-        # the dense path's bootstrap prefill (most of its launches)
+        # the attention LM paths: zamba2's shared block, qwen2.5-3b's and moonshot's
+        # layers, mixtral's window, phi-3-vision's layers, seamless-m4t's encoder, decoder
+        # and cross-attention; timed at the dense path's bootstrap prefill
         ("flash_attention", "flash_attention.cu", "flash_attention/kernel.py:104",
-         ("lm hybrid", "lm dense"), LM_ATTN_SHAPES[2][0],
+         ("lm hybrid", "lm dense", "lm moe", *(f"lm {tag}" for tag in LM_ZOO)), LM_ATTN_SHAPES[2][0],
          "torch.nn.functional.scaled_dot_product_attention (enable_gqa=True, is_causal=True)"),
     ]  # fmt: skip
     lm_kernels = []
@@ -3517,7 +3847,7 @@ def main() -> None:
             row["float32_ms"] = {f"B{B}": lm_timed[kernel, B]["float32_ms"] for B in (4, 1)}
         # every other timed shape (ssd_scan at zamba2's; flash_attention at the other
         # served layouts and at minitron-8b's S = 4,096)
-        row["other_shapes"] = {o["shape"]: {k: v for k, v in o.items() if k not in ("shape", "qkv")}
+        row["other_shapes"] = {o["shape"]: {k: v for k, v in o.items() if k not in ("shape", "layout")}
                                for (name, other), o in lm_timed.items()
                                if name == kernel and o is not t and other not in (1,)}  # fmt: skip
         if "device_ms" in t:
@@ -3731,10 +4061,11 @@ def main() -> None:
         f"{gw['ms']:.4f} ms ({gw['device_ms']:.4f} device), bound {gw['bound_ms']:.4f}, chain floor "
         f"{gw['chain_floor_ms']:.4f}"
     )
-    for tag in ("hybrid", "dense"):
+    for tag in ("hybrid", "dense", "moe"):
         r = results[f"lm {tag}"]
         log(
-            f"[summary] lm {tag} ({r['arch']}, full width): launches {r['counts']}, "
+            f"[summary] lm {tag} ({r['arch']}, full width; float32 bound at {r['f32_layers']} "
+            f"layers): launches {r['counts']}, "
             f"{r['steps']} decode steps, {r['new']} tokens at {r['tok_s']:.1f} tokens/s; prefill "
             f"{r['prefill_ms']:.1f} ms (warm {r['warm']['bootstrap']:.1f}), admission warm "
             f"{r['warm']['admission']:.1f} ms, decode p50 {r['decode_p50']:.2f} ms; peak "
@@ -3742,11 +4073,21 @@ def main() -> None:
             f"{r['e32_tf']:.3e}; bf16: logits {r['e_logits']:.3e}, teacher forcing "
             f"{r['e_tf']:.3e}, greedy agreement {r['agree']:.4f}"
         )
-    for label, *_ in LM_ATTN_SHAPES:
+    for tag in LM_ZOO:
+        r = results[f"lm {tag}"]
+        log(
+            f"[summary] lm {tag} ({r['arch']}, full width, {r['layers']} layers): launches "
+            f"{r['counts']}; prefill {r['prefill_ms']:.1f} ms (warm {r['warm_ms']:.1f}), decode "
+            f"steps {', '.join(f'{t:.2f}' for t in r['decode_ms'])} ms; peak {r['peak_gb']:.2f} "
+            f"GB; float32: logits {r['e32_logits']:.3e}, teacher forcing {r['e32_tf']:.3e}; bf16: "
+            f"logits {r['e_logits']:.3e}"
+        )  # fmt: skip
+    for label, *_ in LM_ATTN_SHAPES + LM_ZOO_SHAPES:
         t = lm_timed["flash_attention", label]
         log(f"[summary] flash_attention at {t['shape']}: {t['ms']:.4f} ms "
-            f"({t.get('device_ms', float('nan')):.4f} device), SDPA {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")  # fmt: skip
+            f"({t.get('device_ms', float('nan')):.4f} device), SDPA {t['library_ms']:.4f} ms "
+            f"({t.get('library_device_ms', float('nan')):.4f} device), bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']})")  # fmt: skip
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,13 @@
 """Model configuration schema and registry (``repro/configs/base.py``).
 
 The port's own copy of the JAX package's schema: ``SSMConfig``,
-``AttentionConfig`` and ``ModelConfig`` with the same fields, defaults and
-derived sizes (``vocab_padded``, ``ssm_heads``, ``d_inner``). Every ported
-architecture ships as ``repro_torch/configs/<id>.py`` exposing ``CONFIG``
-(the published dimensions) and ``SMOKE`` (a reduced model of the same
-family for CPU tests); ``get_config`` resolves either. Only the families in
-``PORTED_FAMILIES`` have configs here so far; ``get_config`` names the
-ported architectures when asked for another.
+``AttentionConfig``, ``MoEConfig`` and ``ModelConfig`` with the same fields
+the model zoo reads, their defaults and derived sizes (``vocab_padded``,
+``ssm_heads``, ``d_inner``). Every architecture of the JAX package's zoo
+ships as ``repro_torch/configs/<id>.py`` exposing ``CONFIG`` (the published
+dimensions) and ``SMOKE`` (a reduced model of the same family for CPU
+tests); ``get_config`` resolves either, and names the ported architectures
+when asked for another.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import dataclasses
 import importlib
 from typing import Optional
 
-# architecture id -> family, for every architecture the port runs
+# architecture id -> family, for every architecture the port runs: the JAX package's
+# ``ARCH_IDS``, all eleven
 PORTED = {
     "mamba2-130m": "ssm",
     "merinda-gru": "gru",
@@ -25,8 +26,11 @@ PORTED = {
     "yi-6b": "dense",
     "minitron-8b": "dense",
     "internlm2-20b": "dense",
+    "mixtral-8x22b": "moe",
+    "moonshot-v1-16b-a3b": "moe",
+    "phi-3-vision-4.2b": "vlm",
+    "seamless-m4t-medium": "audio",
 }
-PORTED_FAMILIES = frozenset(PORTED.values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +41,14 @@ class AttentionConfig:
     qkv_bias: bool = False
     window: Optional[int] = None  # sliding-window size (SWA); None = full
     rope_theta: float = 1e6
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 512  # tokens per dispatch group (bounds dispatch memory)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,14 +65,18 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # ssm | gru | hybrid | dense here; moe | vlm | audio wait for their slices
+    family: str  # dense | moe | ssm | hybrid | vlm | audio | gru
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    encoder_layers: int = 0  # audio (enc-dec): encoder depth
     attn_period: int = 0  # hybrid: shared attn block after every k ssm layers
+    num_patches: int = 0  # vlm: image patch embeddings prepended
+    frontend_dim: int = 0  # audio: fbank feature dim (the stub frontend projects 80 to d_model)
     gru_hidden: int = 0  # gru family: mixer hidden size (0 -> d_model)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -94,8 +110,6 @@ def ported_archs() -> list[str]:
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     """``CONFIG`` (or ``SMOKE``) of a ported architecture; raises for any other."""
     if name not in PORTED:
-        raise ValueError(
-            f"architecture {name!r} is not yet ported; the port runs {', '.join(ported_archs())}"
-        )
+        raise ValueError(f"unknown architecture {name!r}; the port runs {', '.join(ported_archs())}")
     mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
     return mod.SMOKE if smoke else mod.CONFIG

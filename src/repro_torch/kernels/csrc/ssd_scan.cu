@@ -8,7 +8,7 @@
 // the plain ssd_chunked is written (kernels/ssd_scan/ref.py), in three
 // kernels on one stream:
 //   1. chunk states, a block per (chunk, head, sequence): cum = the inclusive
-//      prefix sum of dt*A (a warp scan), total = cum[L-1], and
+//      prefix sum of dt*A (in ssd_chunked's order), total = cum[L-1], and
 //      S_c = sum_j B_j (x) (exp(total - cum_j) dt_j x_j), into scratch;
 //   2. the state pass, a thread per (sequence, head, state element):
 //      S_enter[0] = the carried state (or 0),
@@ -66,26 +66,30 @@ constexpr int SSD_PASS_BATCH = 8;  // chunks whose loads pass 2 keeps in flight 
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 
-// The inclusive prefix sum of dt*A over the chunk, by warp 0: each lane sums a
-// run of ceil(L/32) steps, then a warp scan adds the runs before it. The
-// caller synchronises before reading cum.
+// The inclusive prefix sum of dt*A over the chunk in ssd_chunked's order, bit for
+// bit: its torch.cumsum of dt * A is a sequential sum along that axis, each product
+// and each sum rounded on its own. A blocked scan parts from it by a few ulps of
+// |cum|, which exp(cum_i - cum_j) carries into every output: about twice the plain
+// version's distance from float64 at zamba2's width, past 1e-3 of the logits after
+// its 38 layers. Every thread forms products, then thread 0 adds them in order, 16
+// loaded at a time so that only the 128 additions wait on each other. Every thread
+// of the block calls it (it meets a barrier); L is a multiple of 16 (the launcher's
+// check). The caller synchronises before reading cum.
 __device__ __forceinline__ void chunk_cumsum(const float* dts, float a_h, float* cum, int L) {
-  const int lane = threadIdx.x;
-  if (lane >= 32) return;
-  const int per = (L + 31) / 32, lo = lane * per;
+  for (int k = threadIdx.x; k < L; k += blockDim.x) cum[k] = __fmul_rn(dts[k], a_h);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
   float run = 0.0f;
-  for (int k = 0; k < per && lo + k < L; ++k) {
-    run += dts[lo + k] * a_h;
-    cum[lo + k] = run;
+  for (int k0 = 0; k0 < L; k0 += 16) {
+    float p[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) p[k] = cum[k0 + k];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      run = __fadd_rn(run, p[k]);
+      cum[k0 + k] = run;
+    }
   }
-  float incl = run;
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  float before = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) before = 0.0f;
-  for (int k = 0; k < per && lo + k < L; ++k) cum[lo + k] += before;
 }
 
 // The chunk's dt (a column of [B, T, H]) into shared memory.
@@ -548,6 +552,13 @@ __global__ void __launch_bounds__(SSD_THREADS)
   }
 
   // -- intra-chunk, one block of score rows at a time ---------------------------
+  // summed apart from the inter-chunk term and added to it at the end, as
+  // ssd_chunked adds y_intra + y_inter
+  float intra[SSD_MAX_A][SSD_MAX_C];
+#pragma unroll
+  for (int a = 0; a < SSD_MAX_A; ++a)
+#pragma unroll
+    for (int cc = 0; cc < SSD_MAX_C; ++cc) intra[a][cc] = 0.0f;
   for (int r0 = 0; r0 < L; r0 += rows) {
     const int jn = r0 + rows;  // the block's rows see keys j < jn only
     __syncthreads();           // the previous row block's readers are done with sc
@@ -595,20 +606,20 @@ __global__ void __launch_bounds__(SSD_THREADS)
         if (a >= a0 && a < a0 + RG) {
           const float sv = sc[(ty + 16 * (a - a0)) * LB + j];
 #pragma unroll
-          for (int cc = 0; cc < SSD_MAX_C; ++cc) acc[a][cc] += sv * xv[cc];
+          for (int cc = 0; cc < SSD_MAX_C; ++cc) intra[a][cc] += sv * xv[cc];
         }
       }
     }
   }
 
-  // -- y = inter + intra + D * x -------------------------------------------------
+  // -- y = (intra + inter) + D * x -----------------------------------------------
 #pragma unroll
   for (int a = 0; a < SSD_MAX_A; ++a) {
 #pragma unroll
     for (int cc = 0; cc < SSD_MAX_C; ++cc) {
       const int i = ty + 16 * a, p = tx + 16 * cc;
       if (a < LG && p < P)
-        y[(((size_t)b * T + t0 + i) * H + h) * P + p] = acc[a][cc] + d_h * xs[i * P + p];
+        y[(((size_t)b * T + t0 + i) * H + h) * P + p] = (intra[a][cc] + acc[a][cc]) + d_h * xs[i * P + p];
     }
   }
 }

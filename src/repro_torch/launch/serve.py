@@ -13,15 +13,20 @@ draws them; initial weights come from a ``torch.Generator`` seeded with it
 (random weights at the published widths with ``--full``). On the card (the
 default ``--device cuda``) every Mamba2 prefill runs the SSD scan through the
 ``ssd_scan`` CUDA kernel, one launch a layer; every prefill attention (a
-dense layer, zamba2's shared block) runs ``flash_attention``, one launch an
-application; every merinda-gru prefill and decode step runs its GRU-flow
-scan through ``gru_scan``, one call a layer (at the published H = 512 the
-wide form, ``csrc/gru_scan_wide.cu``; at SMOKE's H = 64 the warp cell,
-``csrc/gru_scan.cu``). A prompt longer than ``--cache-len`` raises (the KV
-cache holds ``--cache-len`` positions), so a 1,024-token prompt needs more
-than the default:
+dense or MoE layer, zamba2's shared block) runs ``flash_attention``, one
+launch an application; the MoE layers (moonshot-v1-16b-a3b, mixtral-8x22b)
+run every expert on every token (the dropless form) as plain products;
+every merinda-gru prefill and decode step runs its GRU-flow scan through
+``gru_scan``, one call a layer (at the published H = 512 the wide form,
+``csrc/gru_scan_wide.cu``; at SMOKE's H = 64 the warp cell,
+``csrc/gru_scan.cu``). A prompt longer than
+``--cache-len`` raises (the KV cache holds ``--cache-len`` positions; under
+mixtral's sliding window it holds the last ``min(cache_len, window)``), so a
+1,024-token prompt needs more than the default:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --full \\
+        --requests 8 --slots 4 --prompt-len 1024 --max-new 32 --cache-len 1088
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full \\
         --requests 8 --slots 4 --prompt-len 1024 --max-new 32 --cache-len 1088
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full \\
         --requests 8 --slots 4 --prompt-len 1024 --max-new 32 --cache-len 1088
@@ -39,9 +44,13 @@ and the smoke configurations with the plain versions on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch merinda-gru --device cpu \\
         --requests 8 --slots 4 --prompt-len 64 --max-new 16
 
-The ported architectures are ``configs/base.py`` ``PORTED``; the default
-``--arch`` is ``qwen2.5-3b``, as the JAX launcher's; any other architecture
-raises and names the ported ones.
+The architectures are ``configs/base.py`` ``PORTED``; the default ``--arch``
+is ``qwen2.5-3b``, as the JAX launcher's; an unknown architecture raises and
+names the ported ones. The ``vlm`` and ``audio`` families (phi-3-vision-4.2b,
+seamless-m4t-medium) raise too: the loop feeds a prefill only
+``{"tokens"}``, as the JAX launcher does, and their prefill reads
+``batch["patches"]`` or ``batch["frames"]`` as well (``models/model.py``
+``prefill`` serves them to a caller that passes them).
 """
 
 from __future__ import annotations
@@ -70,6 +79,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)")
     return ap
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a family whose prefill needs more than the prompt's tokens."""
+    if cfg.family in ("vlm", "audio"):
+        extra = "patches" if cfg.family == "vlm" else "frames"
+        raise ValueError(
+            f"serve: {cfg.name} ({cfg.family}) needs batch[{extra!r}] beside the tokens, and the "
+            f"serve loop passes only the tokens, as the JAX launcher does"
+        )
 
 
 def make_prompts(cfg: ModelConfig, requests: int, prompt_len: int, seed: int) -> np.ndarray:
@@ -108,6 +127,7 @@ def serve_lm(cfg: ModelConfig, params, prompts: np.ndarray, *, slots: int, max_n
     the next tokens' readback included) and ``wall_s`` (everything after the
     bootstrap, as the JAX launcher times it).
     """
+    check_servable(cfg)
     requests, prompt_len = prompts.shape
     if requests < slots:
         raise ValueError(f"serve: {requests} requests cannot fill {slots} slots")
@@ -173,6 +193,7 @@ def run(args: argparse.Namespace) -> dict:
     result with the config, the parameters and the prompts beside it."""
     device = rt.resolve_device(args.device, "serve")
     cfg = get_config(args.arch, smoke=not args.full)
+    check_servable(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(gen, cfg, device)
     prompts = make_prompts(cfg, args.requests, args.prompt_len, args.seed)

@@ -19,7 +19,11 @@ package (no Pallas kernel on that path). Two cache layouts:
 - rolling: cache length = window (SWA) with modular writes.
 Keys are stored post-RoPE (rotated at their global position).
 
-Cross-attention (the audio family) is not ported yet.
+Cross-attention (the audio family's decoder against its encoder's output)
+has no mask and no RoPE: ``flash_attention(causal=False)`` with each length
+at its own block (``prefill_block`` of the queries' and of the keys'), in
+prefill and, at one query, in every decode step, as the JAX package runs its
+blockwise function in both.
 """
 
 from __future__ import annotations
@@ -84,9 +88,8 @@ def prefill_block(S: int) -> int:
 
 
 def _attend(q, k, v, causal: bool, window: int | None, force_reference: bool) -> torch.Tensor:
-    b = prefill_block(q.shape[1])
-    return flash_attention(q, k, v, causal=causal, window=window, block_q=b, block_k=b,
-                           force_reference=force_reference)  # fmt: skip
+    return flash_attention(q, k, v, causal=causal, window=window, block_q=prefill_block(q.shape[1]),
+                           block_k=prefill_block(k.shape[1]), force_reference=force_reference)  # fmt: skip
 
 
 def _out(params, o: torch.Tensor) -> torch.Tensor:
@@ -160,3 +163,25 @@ def decode_attention(params, x: torch.Tensor, pos: int, cache: dict, a: Attentio
     out = torch.einsum("bhgc,bchd->bhgd", p, cv.to(torch.float32))
     out = out.reshape(B, 1, a.num_heads, Dh).to(x.dtype)
     return _out(params, out), {"k": ck, "v": cv}
+
+
+# --- cross-attention (encoder-decoder) --------------------------------------
+def cross_attn_specs(a: AttentionConfig, d: int, dtype: str) -> dict:
+    return attn_specs(a, d, dtype)
+
+
+def cross_kv(params, enc_out: torch.Tensor, a: AttentionConfig) -> dict:
+    """The encoder output's keys and values [B, Sk, KH, Dh] (no bias, no RoPE)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"])
+    return {"k": k, "v": v}
+
+
+def cross_attention(params, x: torch.Tensor, kv: dict, a: AttentionConfig,
+                    force_reference: bool = False) -> torch.Tensor:  # fmt: skip
+    """Decoder-side cross-attention, x [B, Sq, D] against kv [B, Sk, KH, Dh]:
+    no mask, no RoPE."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if a.qkv_bias:
+        q = q + params["bq"]
+    return _out(params, _attend(q, kv["k"], kv["v"], False, None, force_reference))

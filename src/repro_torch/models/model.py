@@ -1,5 +1,6 @@
-"""Model zoo public API: the ``ssm``, ``gru``, ``hybrid`` and ``dense``
-families (``repro/models/model.py``).
+"""Model zoo public API: every family of the JAX package's zoo, ``dense``,
+``moe``, ``vlm``, ``ssm``, ``hybrid``, ``audio`` and ``gru``
+(``repro/models/model.py``).
 
 Entry points (functional; params is a nested dict of tensors):
 
@@ -17,11 +18,19 @@ cell as a sequence mixer, then a SwiGLU MLP, the scan through
 ``kernels/gru_scan`` ``gru_scan`` in prefill and in decode (one step from the
 cached state, dt = 1). ``hybrid`` (zamba2) is a Mamba2 stack with ONE
 weight-shared attention + SwiGLU block applied after every ``attn_period``
-layers (``_segment_bounds``); ``dense`` layers are attention + SwiGLU. Their
-prefill attention runs ``kernels/flash_attention`` (``models/attention.py``),
-their decode attention a plain softmax over the KV cache, which ``pos``
-indexes (RoPE and the cache write). ``moe``, ``vlm`` and ``audio`` raise: they
-wait for their slices of the port (``train_loss`` for the training slice).
+layers (``_segment_bounds``). ``dense``, ``moe`` and ``vlm`` layers are
+attention + an FFN: SwiGLU, or for ``moe`` the dropless mixture of experts
+(``models/moe.py``, as the JAX package serves it); ``vlm`` prepends
+``batch["patches"]`` [B, num_patches, d_model] to the token embeddings.
+``audio`` (seamless-m4t) is an encoder-decoder: ``batch["frames"]`` [B,
+``AUDIO_SRC_LEN``, ``AUDIO_FEAT``] through a linear frontend and a
+non-causal encoder stack, then decoder layers of causal self-attention,
+cross-attention to the encoder output and SwiGLU; its cache holds each
+decoder layer's cross keys and values too. Every prefill attention,
+self or cross, runs ``kernels/flash_attention`` (``models/attention.py``), and
+so does every decode step's cross-attention; decode self-attention is a plain
+softmax over the KV cache, which ``pos`` indexes (RoPE and the cache write).
+``train_loss`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -30,11 +39,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.neural_flow import GRUParams
 from repro_torch.kernels.gru_scan.ops import gru_scan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     embed,
     embed_specs,
@@ -47,22 +57,50 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import ParamSpec, materialize, stack_layer, tree_map_specs
 
+AUDIO_SRC_LEN = 4096  # encoder frame count for the audio enc-dec family
+AUDIO_FEAT = 80  # fbank feature dim supplied by the (stub) frontend
+ATTN_FAMILIES = ("dense", "moe", "vlm")  # attention + FFN decoder layers
+FAMILIES = (*ATTN_FAMILIES, "ssm", "hybrid", "audio", "gru")
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not yet ported; the port runs "
-            f"{', '.join(sorted(PORTED_FAMILIES))}"
-        )
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 def _decoder_layer_specs(cfg: ModelConfig) -> dict:
     d, dt = cfg.d_model, cfg.dtype
-    return {
+    specs = {
+        "ln1": rmsnorm_specs(d, dt),
+        "ln2": rmsnorm_specs(d, dt),
+        "attn": attn_mod.attn_specs(cfg.attn, d, dt),
+    }
+    if cfg.family == "moe":
+        specs["moe"] = moe_mod.moe_specs(cfg.moe, d, cfg.d_ff, dt)
+    else:
+        specs["mlp"] = mlp_specs(d, cfg.d_ff, dt)
+    return specs
+
+
+def _audio_specs(cfg: ModelConfig) -> dict:
+    """The frontend, the encoder stack and its norm, and the decoder layers
+    (self-attention, cross-attention, SwiGLU under ln1, ln2, ln3)."""
+    d, dt = cfg.d_model, cfg.dtype
+    stack = lambda layer, n: tree_map_specs(lambda s: stack_layer(s, n), layer)
+    enc_layer = {
         "ln1": rmsnorm_specs(d, dt),
         "ln2": rmsnorm_specs(d, dt),
         "attn": attn_mod.attn_specs(cfg.attn, d, dt),
         "mlp": mlp_specs(d, cfg.d_ff, dt),
+    }
+    dec_layer = dict(enc_layer, ln3=rmsnorm_specs(d, dt),
+                     cross=attn_mod.cross_attn_specs(cfg.attn, d, dt))  # fmt: skip
+    w = ParamSpec((AUDIO_FEAT, d), ("frontend", "embed"), dtype=dt, scale=AUDIO_FEAT**-0.5)
+    return {
+        "frontend": {"w": w},
+        "enc_layers": stack(enc_layer, cfg.encoder_layers),
+        "enc_norm": rmsnorm_specs(d, dt),
+        "layers": stack(dec_layer, cfg.num_layers),
     }
 
 
@@ -84,7 +122,7 @@ def _gru_layer_specs(cfg: ModelConfig) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _require_ported(cfg)
+    _check_family(cfg)
     d, dt = cfg.d_model, cfg.dtype
     specs: dict[str, Any] = {
         "embed": embed_specs(cfg.vocab_padded, d, dt),
@@ -92,9 +130,11 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = lm_head_specs(d, cfg.vocab_padded, dt)
+    if cfg.family == "audio":
+        return dict(specs, **_audio_specs(cfg))
     if cfg.family == "gru":
         layer = _gru_layer_specs(cfg)
-    elif cfg.family == "dense":
+    elif cfg.family in ATTN_FAMILIES:
         layer = _decoder_layer_specs(cfg)
     else:
         layer = {"ln": rmsnorm_specs(d, dt), "mamba": mamba_mod.mamba_specs(cfg, dt)}
@@ -135,17 +175,26 @@ def _kv_specs(cfg: ModelConfig, n: int, batch: int, cache_len: int) -> dict:
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     """Abstract cache tree: the conv tail and SSD state of every layer
     (``ssm``, ``hybrid``), its GRU state (``gru``: float32 [L, batch,
-    gru_hidden]), its keys and values (``dense``: [L, batch, C, KH, Dh]), and
-    the shared block's keys and values of each application (``hybrid``:
-    ``shared_attn``, [n_app, batch, C, KH, Dh]); ``cache_len`` sets C."""
-    _require_ported(cfg)
+    gru_hidden]), its keys and values (``dense``, ``moe``, ``vlm``, ``audio``:
+    [L, batch, C, KH, Dh]; C = the window under SWA), the shared block's keys
+    and values of each application (``hybrid``: ``shared_attn``, [n_app,
+    batch, C, KH, Dh]), and the encoder output's cross keys and values
+    (``audio``: ``cross_k``, ``cross_v``, [L, batch, AUDIO_SRC_LEN, KH, Dh]);
+    ``cache_len`` sets C."""
+    _check_family(cfg)
     L = cfg.num_layers
     if cfg.family == "gru":
         h = cfg.gru_hidden or cfg.d_model
         state = ParamSpec((L, batch, h), ("layers", "batch", None), dtype="float32", init="zeros")
         return {"layers": {"state": state}}
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         return {"layers": _kv_specs(cfg, L, batch, cache_len)}
+    if cfg.family == "audio":
+        a = cfg.attn
+        shape = (L, batch, AUDIO_SRC_LEN, a.num_kv_heads, a.head_dim)
+        axes = ("layers", "batch", "cache_seq", "kv_heads", None)
+        ckv = ParamSpec(shape, axes, dtype=cfg.dtype, init="zeros")
+        return {"layers": dict(_kv_specs(cfg, L, batch, cache_len), cross_k=ckv, cross_v=ckv)}
     sh = mamba_mod.mamba_cache_shapes(cfg, batch)
     specs = {
         "layers": {
@@ -183,15 +232,25 @@ def _gru_layer(lp: dict, x: torch.Tensor, h0: torch.Tensor, cfg: ModelConfig,
     return x, h_T
 
 
+def _ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A block's FFN under ``ln2``: SwiGLU, or the dropless MoE (``moe``: every
+    token routed as a decode step routes it, ``moe.moe_ffn``)."""
+    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(bp["moe"], h, cfg.moe, dropless=True)[0]
+    return mlp(bp["mlp"], h)
+
+
 def _attn_block(bp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                 cache_len: int, force_reference: bool):  # fmt: skip
-    """An attention + SwiGLU block (a ``dense`` layer, the ``hybrid``'s shared
-    block) over the prompt: (x after it, its {"k", "v"} cache). The attention
-    runs ``flash_attention`` (``force_reference``: its oracle)."""
+    """An attention + FFN block (a ``dense``, ``moe`` or ``vlm`` layer, the
+    ``hybrid``'s shared block) over the prompt: (x after it, its {"k", "v"}
+    cache). The attention runs ``flash_attention`` (``force_reference``: its
+    oracle)."""
     h, kv = attn_mod.prefill_attention(bp["attn"], rmsnorm(bp["ln1"], x, cfg.norm_eps), positions,
                                        cfg.attn, cache_len, force_reference)  # fmt: skip
     x = x + h
-    return x + mlp(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps)), kv
+    return x + _ffn(bp, x, cfg), kv
 
 
 def _attn_block_decode(bp: dict, x: torch.Tensor, pos: int, kv: dict, cfg: ModelConfig):
@@ -199,7 +258,38 @@ def _attn_block_decode(bp: dict, x: torch.Tensor, pos: int, kv: dict, cfg: Model
     h, _ = attn_mod.decode_attention(bp["attn"], rmsnorm(bp["ln1"], x, cfg.norm_eps), pos, kv,
                                      cfg.attn)  # fmt: skip
     x = x + h
-    return x + mlp(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps))
+    return x + _ffn(bp, x, cfg)
+
+
+def _encode_audio(params, frames: torch.Tensor, cfg: ModelConfig, force_reference: bool):
+    """frames [B, Sk, AUDIO_FEAT] -> the encoder output [B, Sk, d_model]: the
+    frontend's projection, then non-causal attention + SwiGLU layers and
+    ``enc_norm``."""
+    x = frames.to(params["frontend"]["w"].dtype) @ params["frontend"]["w"]
+    positions = torch.arange(frames.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        lp = _layer(params["enc_layers"], i)
+        x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+                                   cfg.attn, causal=False, force_reference=force_reference)  # fmt: skip
+        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _cross_block(lp: dict, x: torch.Tensor, ckv: dict, cfg: ModelConfig, force_reference: bool):
+    """An ``audio`` decoder layer's cross-attention (under ``ln2``) and SwiGLU
+    (under ``ln3``), after its self-attention."""
+    x = x + attn_mod.cross_attention(lp["cross"], rmsnorm(lp["ln2"], x, cfg.norm_eps), ckv,
+                                     cfg.attn, force_reference)  # fmt: skip
+    return x + mlp(lp["mlp"], rmsnorm(lp["ln3"], x, cfg.norm_eps))
+
+
+def _assemble_inputs(params, batch: dict, cfg: ModelConfig):
+    """The family's input embedding: (x [B, S, D], positions [S]); ``vlm``
+    prepends ``batch["patches"]``."""
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x, torch.arange(x.shape[1], device=x.device)
 
 
 def _stack(caches: list[dict]) -> dict:
@@ -212,11 +302,12 @@ def _mamba_segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, force_reference: bool = False):
-    """Process the prompt ``batch["tokens"]`` [B, S]; returns (last-token
-    logits [B, Vp], cache). ``force_reference`` runs every kernel's plain
-    version (the scans, the attention)."""
-    _require_ported(cfg)
-    x = embed(params["embed"], batch["tokens"])
+    """Process the prompt ``batch["tokens"]`` [B, S] (``vlm``: after
+    ``batch["patches"]``; ``audio``: against ``batch["frames"]``); returns
+    (last-token logits [B, Vp], cache). ``force_reference`` runs every
+    kernel's plain version (the scans, the attention)."""
+    _check_family(cfg)
+    x, positions = _assemble_inputs(params, batch, cfg)
     if cfg.family == "gru":
         h0 = torch.zeros(x.shape[0], cfg.gru_hidden or cfg.d_model, device=x.device)
         states = []
@@ -224,13 +315,23 @@ def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, force_referen
             x, h_T = _gru_layer(_layer(params["layers"], i), x, h0, cfg, force_reference)
             states.append(h_T)
         return _logits(params, x[:, -1:, :], cfg)[:, 0], {"layers": {"state": torch.stack(states)}}
-    positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         kvs = []
         for i in range(cfg.num_layers):
             x, kv = _attn_block(_layer(params["layers"], i), x, positions, cfg, cache_len,
                                 force_reference)  # fmt: skip
             kvs.append(kv)
+        return _logits(params, x[:, -1:, :], cfg)[:, 0], {"layers": _stack(kvs)}
+    if cfg.family == "audio":
+        enc_out = _encode_audio(params, batch["frames"], cfg, force_reference)
+        kvs = []
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            h, kv = attn_mod.prefill_attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                                               positions, cfg.attn, cache_len, force_reference)  # fmt: skip
+            ckv = attn_mod.cross_kv(lp["cross"], enc_out, cfg.attn)
+            x = _cross_block(lp, x + h, ckv, cfg, force_reference)
+            kvs.append(dict(kv, cross_k=ckv["k"], cross_v=ckv["v"]))
         return _logits(params, x[:, -1:, :], cfg)[:, 0], {"layers": _stack(kvs)}
     caches, kvs = [], []
     for lo, hi, with_attn in _mamba_segments(cfg):
@@ -254,12 +355,14 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig
                 force_reference: bool = False):  # fmt: skip
     """One token [B, 1] at position ``pos`` through the stack with caches. A
     ``gru`` layer takes one step of the scan from its cached state
-    (``force_reference``: its plain version); the Mamba2 and attention decode
-    steps are plain. ``pos`` sets the attention's RoPE position and cache
-    slot (``dense``, ``hybrid``); the ``ssm`` and ``gru`` families do not read
-    it. The attention's keys and values are written into ``cache``'s tensors
-    in place (``attention.decode_attention``)."""
-    _require_ported(cfg)
+    (``force_reference``: its plain version), an ``audio`` layer's
+    cross-attention one query through ``flash_attention`` (the same); the
+    Mamba2 and self-attention decode steps are plain. ``pos`` sets the
+    attention's RoPE position and cache slot (every family with attention);
+    the ``ssm`` and ``gru`` families do not read it. The attention's keys and
+    values are written into ``cache``'s tensors in place
+    (``attention.decode_attention``)."""
+    _check_family(cfg)
     x = embed(params["embed"], tokens)
     if cfg.family == "gru":
         states = []
@@ -268,10 +371,18 @@ def decode_step(params, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig
             x, h = _gru_layer(_layer(params["layers"], i), x, h0, cfg, force_reference)
             states.append(h)
         return _logits(params, x, cfg)[:, 0], dict(cache, layers={"state": torch.stack(states)})
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         for i in range(cfg.num_layers):
             x = _attn_block_decode(_layer(params["layers"], i), x, pos,
                                    _layer(cache["layers"], i), cfg)  # fmt: skip
+        return _logits(params, x, cfg)[:, 0], cache
+    if cfg.family == "audio":
+        for i in range(cfg.num_layers):
+            lp, c = _layer(params["layers"], i), _layer(cache["layers"], i)
+            h, _ = attn_mod.decode_attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), pos,
+                                             {"k": c["k"], "v": c["v"]}, cfg.attn)  # fmt: skip
+            x = _cross_block(lp, x + h, {"k": c["cross_k"], "v": c["cross_v"]}, cfg,
+                             force_reference)  # fmt: skip
         return _logits(params, x, cfg)[:, 0], cache
     new, app = [], 0
     for lo, hi, with_attn in _mamba_segments(cfg):

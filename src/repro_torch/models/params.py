@@ -2,10 +2,14 @@
 
 Every model exposes ``param_specs(cfg) -> tree of ParamSpec`` (nested dicts).
 From the spec tree, without allocating a full-size model, come
-``spec_bytes`` and ``count_params``; ``materialize`` makes the tensors
-(normal, zeros, ones or const init from a ``torch.Generator``, in the spec's
-dtype). The logical axes are kept for parity with the JAX package; on one
-card nothing shards by them.
+``spec_bytes`` and ``count_params`` (MoE: the active subset too);
+``materialize`` makes the tensors (normal, zeros, ones or const init from a
+``torch.Generator``, in the spec's dtype). A normal leaf is drawn in float32
+and scaled, a stacked one (leading axis ``"layers"``) a layer at a time into
+the tensor of its own dtype, so the largest float32 temporary is one layer's
+slice (moonshot-v1-16b-a3b's ``w_gate`` whole would be 35.4 GB of it). The
+logical axes are kept for parity with the JAX package; on one card nothing
+shards by them, and ``count_params`` reads the ``"expert"`` axis.
 """
 
 from __future__ import annotations
@@ -58,8 +62,11 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
         return torch.ones(spec.shape, dtype=dt, device=device)
     if spec.init == "const":
         return torch.full(spec.shape, spec.scale, dtype=dt, device=device)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return (x * spec.scale).to(dt)
+    out = torch.empty(spec.shape, dtype=dt, device=device)
+    for part in out if spec.axes[:1] == ("layers",) else (out,):
+        x = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=device)
+        part.copy_(x.mul_(spec.scale))
+    return out
 
 
 def materialize(generator: torch.Generator, tree, device=None):
@@ -79,8 +86,19 @@ def spec_count(tree) -> int:
     return sum(math.prod(s.shape) for s in spec_leaves(tree))
 
 
-def count_params(cfg) -> int:
-    """Analytic parameter count from the spec tree."""
+def count_params(cfg, active_only: bool = False) -> int:
+    """Analytic parameter count from the spec tree. ``active_only``: a leaf
+    with an ``"expert"`` axis (the router and the experts' weights) counts
+    its top_k / num_experts share."""
     from repro_torch.models.model import param_specs  # lazy: avoid a cycle
 
-    return spec_count(param_specs(cfg))
+    tree = param_specs(cfg)
+    if not active_only or cfg.moe is None:
+        return spec_count(tree)
+    total = 0
+    for s in spec_leaves(tree):
+        n = math.prod(s.shape)
+        if "expert" in s.axes:
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        total += n
+    return total

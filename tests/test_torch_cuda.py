@@ -43,7 +43,15 @@ the masked keys of the tiles it does not skip). Both at the attention LM
 paths' shapes (zamba2's H = 64, N = 64 scan; its MHA Dh = 64 and qwen2.5-3b's
 GQA 16/2 Dh = 128 attention, S = 1,024 and 1,000), and zamba2's and
 qwen2.5-3b's SMOKE prefill and decode on the card within 1e-4 of
-``force_reference`` in float32, with their launch counts.
+``force_reference`` in float32, with their launch counts; at those widths the
+float32 ``ssd_scan`` within 1e-6 of the largest magnitude of ``ssd_chunked``'s
+(the same prefix-sum order). ``flash_attention``
+also at the layouts of the MoE, VLM and audio paths (mixtral's window of
+4,096 over a 4,160-token prompt at block 64, phi-3-vision's Dh = 96,
+seamless-m4t's non-causal encoder over 4,096 frames and its cross-attention
+of 256 and of 1 query against them), and those four families' SMOKE models
+through the kernels within 1e-4 of ``force_reference``, with their launch
+counts.
 
 Plan analysis: ``mr_step_ltc`` and ``mr_step_node`` built with their substep
 loop unrolled 2 and 6 times (``launch/kernel_phases.py``'s patches) equal the
@@ -1310,6 +1318,84 @@ def test_flash_attention_at_the_served_layouts(dev, B, S, QH, KH, Dh, dtype):
         torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
 
 
+# the MoE, VLM and audio paths' attention layouts (B, Sq, Sk, QH, KH, Dh, causal,
+# window): mixtral-8x22b's windowed prefill of 4,160 tokens, phi-3-vision's 256 patches
+# + 768 tokens at Dh = 96, seamless-m4t's encoder over 4,096 frames and its
+# cross-attention from a 256-token prompt and from a decode step's one query
+NEW_FLASH = {
+    "mixtral prefill": (2, 4160, 4160, 48, 8, 128, True, 4096),
+    "phi-3-vision prefill": (2, 1024, 1024, 32, 32, 96, True, None),
+    "seamless encoder": (2, 4096, 4096, 16, 16, 64, False, None),
+    "seamless cross-attention": (2, 256, 4096, 16, 16, 64, False, None),
+    "seamless decode cross-attention": (2, 1, 4096, 16, 16, 64, False, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", list(NEW_FLASH))
+def test_flash_attention_at_the_new_layouts(dev, layout, dtype):
+    """Each length at the block the model's attention picks for it (4,160 ->
+    64, 1 -> 1, 4,096 -> 128): float32 within 2e-5 of the oracle, bf16 within
+    one bf16 rounding of it on float32 copies."""
+    B, Sq, Sk, QH, KH, Dh, causal, window = NEW_FLASH[layout]
+    q, k, v = _qkv(B, Sq, Sk, QH, KH, Dh, dev, dtype, seed=Sq + Sk + Dh)
+    before = flash_attention_cuda.launches
+    o = flash_attention(q, k, v, causal=causal, window=window, block_q=prefill_block(Sq),
+                        block_k=prefill_block(Sk))  # fmt: skip
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention(q.float(), k.float(), v.float(), causal=causal, window=window,
+                           force_reference=True)  # fmt: skip
+    if dtype == torch.bfloat16:
+        _assert_bf16_rounded(o, want)
+    else:
+        torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x22b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium"])  # fmt: skip
+def test_moe_vlm_audio_smoke_on_the_card(dev, arch):
+    """The MoE, VLM and audio SMOKE models in float32: a prefill of 40 tokens
+    (mixtral's past its window of 16; phi-3-vision's after 8 patches;
+    seamless-m4t's against 4,096 frames) and two decode steps through the
+    kernels, against force_reference within 1e-4. A prefill launches
+    flash_attention once a layer (seamless-m4t: once an encoder layer, twice
+    a decoder layer), a decode step never (seamless-m4t: its cross-attention,
+    once a decoder layer)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    g = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(1, cfg.vocab_size, (2, 42), device=dev, generator=g)
+    batch = {"tokens": toks[:, :40]}
+    if cfg.family == "vlm":
+        batch["patches"] = 0.5 * torch.randn(2, cfg.num_patches, cfg.d_model, device=dev, generator=g)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, lm.AUDIO_SRC_LEN, lm.AUDIO_FEAT, device=dev, generator=g)
+    audio = cfg.family == "audio"
+    n_prefill = cfg.encoder_layers + 2 * cfg.num_layers if audio else cfg.num_layers
+    before = flash_attention_cuda.launches
+    logits, cache = lm.prefill(params, batch, cfg, cache_len=48)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches - before == n_prefill
+    want, want_cache = lm.prefill(params, batch, cfg, cache_len=48, force_reference=True)
+    got, wants = [logits], [want]
+    offset = cfg.num_patches
+    for t in (40, 41):
+        before = flash_attention_cuda.launches
+        lg, cache = lm.decode_step(params, cache, toks[:, t : t + 1], offset + t, cfg)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches - before == (cfg.num_layers if audio else 0)
+        lg_r, want_cache = lm.decode_step(params, want_cache, toks[:, t : t + 1], offset + t, cfg,
+                                          force_reference=True)  # fmt: skip
+        got.append(lg)
+        wants.append(lg_r)
+    for a, b in zip(got, wants):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for name in cache["layers"]:
+        torch.testing.assert_close(cache["layers"][name], want_cache["layers"][name], atol=1e-4,
+                                   rtol=1e-4)  # fmt: skip
+
+
 @pytest.mark.parametrize("B,S", [(1, 256), (4, 1024)])
 def test_ssd_scan_at_zamba2_widths(dev, B, S):
     """zamba2-1.2b's scan: H = 64 heads of P = 64, state N = 64 (the Mamba2-130m
@@ -1323,6 +1409,21 @@ def test_ssd_scan_at_zamba2_widths(dev, B, S):
     torch.cuda.synchronize()
     want_y, want_s = ssd_chunked(*(a.float() for a in args), chunk=128)
     _assert_ssd_matches(y, s, want_y, want_s, torch.bfloat16, N=64)
+
+
+@pytest.mark.parametrize("B,S,H,N", [(1, 256, 64, 64), (4, 1024, 64, 64), (4, 1024, 24, 128)])
+def test_ssd_scan_float32_follows_the_plain_order(dev, B, S, H, N):
+    """At zamba2's and Mamba2-130m's widths in float32 the kernel sums dt*A in
+    ``ssd_chunked``'s order (torch.cumsum's sequential sum) and adds the
+    intra-chunk term to the inter-chunk one as it does: y within 1e-6 of the
+    largest |y| of the plain version's and the final state within 1e-6 of its
+    largest value (a blocked prefix sum of dt*A does not: it parts from
+    ``ssd_chunked``'s cum by a few ulps, which every output carries)."""
+    args = _ssd_inputs(B, S, H, 64, N, 1, dev, seed=B + S + N)
+    y, s = ssd_scan(*args, chunk=128)
+    want_y, want_s = ssd_chunked(*args, chunk=128)
+    assert (y - want_y).abs().max() <= 1e-6 * want_y.abs().max()
+    assert (s - want_s).abs().max() <= 1e-6 * want_s.abs().max()
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2.5-3b"])

@@ -28,7 +28,7 @@ from repro.configs.base import get_config as jget_config
 from repro.launch import serve as jserve
 from repro.models import mamba2 as jmamba
 from repro.models import model as JM
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, ported_archs
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
 from repro_torch.launch import serve
 from repro_torch.models import mamba2
@@ -87,11 +87,19 @@ def test_full_config_specs_match_jax():
 
 
 def test_unported_families_raise():
-    with pytest.raises(ValueError, match="not yet ported.*mamba2-130m"):
-        get_config("mixtral-8x22b")
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="moe")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        M.param_specs(cfg)
+    """Every architecture of the JAX package's zoo resolves; what still raises
+    is an architecture outside it and a family no model has (as JAX's
+    ``ValueError``)."""
+    assert sorted(ported_archs()) == sorted(jconfigs.ARCH_IDS)
+    for arch in jconfigs.ARCH_IDS:
+        assert get_config(arch).family == jget_config(arch).family
+    with pytest.raises(ValueError, match="unknown architecture 'gpt-5'.*mamba2-130m"):
+        get_config("gpt-5")
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="diffusion")
+    for call in (M.param_specs, lambda c: M.cache_specs(c, 1, 8),
+                 lambda c: M.prefill({}, {"tokens": torch.zeros(1, 2, dtype=torch.long)}, c, 8)):  # fmt: skip
+        with pytest.raises(ValueError, match="unknown family diffusion"):
+            call(cfg)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
@@ -184,15 +192,18 @@ def test_serve_loop_generates_the_jax_tokens(monkeypatch, capsys):
 
 
 def test_serve_cli(monkeypatch, capsys):
-    """The launcher's defaults: the card unless --device cpu; an unported arch
-    raises and names the ported ones; the smoke run prints JAX's summary."""
+    """The launcher's defaults: the card unless --device cpu; an unknown arch
+    raises and names the ported ones, an audio one says why it cannot be
+    served; the smoke run prints JAX's summary."""
     args = serve.build_parser().parse_args([])
     assert (args.device, args.arch) == ("cuda", "qwen2.5-3b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run(args)
-    with pytest.raises(ValueError, match="not yet ported.*mamba2-130m"):
-        serve.main(["--arch", "mixtral-8x22b", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown architecture.*mamba2-130m"):
+        serve.main(["--arch", "mixtral-8x22b-smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="serve loop passes only the tokens"):
+        serve.main(["--arch", "seamless-m4t-medium", "--device", "cpu"])
     argv = ["--arch", ARCH, "--device", "cpu", "--requests", "3", "--slots", "2", "--prompt-len",
             "20", "--max-new", "4"]  # fmt: skip
     assert serve.main(argv) == 0

@@ -269,10 +269,12 @@ def test_the_scan_dispatches_on_the_width(monkeypatch):
 def test_merinda_gru_is_ported_and_dense_still_raises():
     assert "merinda-gru" in serve.build_parser().parse_args(["--arch", ARCH]).arch
     assert get_config(ARCH).family == "gru"
-    with pytest.raises(ValueError, match="not yet ported.*mamba2-130m, merinda-gru"):
-        get_config("mixtral-8x22b")
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="moe")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown architecture.*mamba2-130m, merinda-gru"):
+        get_config("merinda-lstm")
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="lstm")
+    with pytest.raises(ValueError, match="unknown family lstm"):
         M.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown family lstm"):
         M.prefill({}, {"tokens": torch.zeros(1, 2, dtype=torch.long)}, cfg, 8)
+    with pytest.raises(ValueError, match=r"phi-3-vision-4.2b-smoke \(vlm\) needs batch\['patches'\]"):
+        serve.main(["--arch", "phi-3-vision-4.2b", "--device", "cpu"])
