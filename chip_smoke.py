@@ -365,6 +365,33 @@ frames, 12 decoder layers with cross-attention) adds, after phase 8r:
   device ms, SDPA's (at the window with an explicit boolean mask), the
   bound.
 
+LM training (``launch/train.py``: ``train_loss`` under ``remat="full"``, the
+train step, AdamW; no new kernel, each kernel's backward its plain version's)
+adds, after phase 8w:
+
+- 8x. ``python -m repro_torch.launch.train --arch zamba2-1.2b --full --batch 4
+  --seq 1024 --steps 6 --save-every 0`` (random bf16 weights at the published
+  widths and depth, 4,096 tokens a step). The launch counts are set to 0 just
+  before and read just after: ``ssd_scan`` 76 and ``flash_attention`` 6 a step
+  (a checkpointed Mamba2 layer's scan forward and in the recompute, the shared
+  block once an application), nothing else; finite losses, the last below the
+  first. ms/step (the median of steps 2-6), tokens/s, peak memory;
+- 8y. the same weights and first batch in float32, one forward and backward
+  through the kernels against ``force_reference``: the loss within 1e-5
+  relative; every gradient leaf's gap printed, and on the first 6 layers (one
+  segment and one shared-block application) each within 1e-3 of the leaf's
+  largest magnitude (``launch/train_depth.py`` measures the gaps by depth);
+- 8z. merinda-gru ``--full --batch 8 --seq 128 --steps 3 --save-every 0``:
+  ``gru_scan_wide`` exactly 16 a step, finite losses;
+- 8z'. every architecture's SMOKE model in float32 (B = 2, S = 32): loss and
+  gradients through the kernels against ``force_reference`` (1e-5, 1e-3 of each
+  leaf's largest), the op calls a step exactly;
+- 8z''. the failure drill: mamba2-130m SMOKE, 8 steps, ``--save-every 2
+  --chaos-step 5``: one restart, every loss within 1e-6 relative of an
+  uninterrupted run's;
+- 10c. one warm step of 8x under the profiler: wall, device busy, device
+  activities and the operations that take the most.
+
 Each phase prints its seconds. The last lines are the card's name and power
 limit, one JSON line listing every kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -514,6 +541,29 @@ LM_ATTN_SHAPES = [
     ("qwen2.5-3b admission prefill", 1, 1024, 16, 2, 128),
 ]
 SSD_ZAMBA2 = dict(T=1024, H=64, P=64, N=64, G=1, chunk=128)  # zamba2-1.2b's prefill scan
+# LM training through launch/train.py: zamba2-1.2b at its published widths and depth
+# (B = 4, S = 1,024: 4,096 tokens a step, bf16, random weights from the seed), merinda-gru
+# at the JAX launcher's default shape, and the failure drill on mamba2-130m SMOKE; every
+# run in a fresh --ckpt-dir (the supervisor resumes from any checkpoint it finds)
+TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--full", "--batch", "4", "--seq", "1024", "--steps",
+              "6", "--save-every", "0", "--device", "cuda"]  # fmt: skip
+TRAIN_GRU_ARGS = ["--arch", "merinda-gru", "--full", "--batch", "8", "--seq", "128", "--steps",
+                  "3", "--save-every", "0", "--device", "cuda"]  # fmt: skip
+TRAIN_CHAOS_ARGS = ["--arch", "mamba2-130m", "--batch", "4", "--seq", "64", "--steps", "8",
+                    "--save-every", "2", "--device", "cuda"]  # fmt: skip
+TRAIN_CHAOS_STEP = 5
+# kernels against the reference path in float32, one forward and backward: the loss
+# within TRAIN_LOSS_REL of itself, every gradient leaf within TRAIN_GRAD_REL of its
+# largest magnitude (the LM paths' float32 rule, LM_F32_REL, applied to gradients).
+# zamba2's gradients are bounded on its first TRAIN_F32_LAYERS layers (one segment and
+# one shared-block application: both kernels) and printed at its full 38, where they
+# miss the bound (PERF.md §6; launch/train_depth.py holds the gaps against a
+# rounding-sized change of the weights, by depth)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-3
+TRAIN_F32_LAYERS = 6
+TRAIN_SMOKE = (2, 32)  # B, S of the SMOKE models' training step
+CHAOS_REL = 1e-6  # the drill's losses against the uninterrupted run's
 # ssd_scan's three kernels (csrc/ssd_scan.cu), by a substring of each one's name
 SSD_PARTS = {"chunk states": "ssd_chunk_state", "state pass": "ssd_state_pass",
              "outputs": "ssd_chunk_out"}
@@ -818,6 +868,240 @@ def time_ms(fn, runs: int = 25, per_run: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / per_run)
     return statistics.median(times)
+
+
+def train_kernel_calls(cfg) -> dict[str, int]:
+    """The kernels' op calls of one training step under remat="full": each
+    checkpointed layer's kernel twice (forward, then the backward's recompute),
+    the hybrid's shared block (outside the checkpoint) once an application."""
+    from repro_torch.kernels.mr_step import tiling
+    from repro_torch.models import model as lm
+
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"ssd_scan": 2 * L}
+    if cfg.family == "hybrid":
+        return {"ssd_scan": 2 * L, "flash_attention": lm.shared_applications(cfg)}
+    if cfg.family == "gru":
+        wide = (cfg.gru_hidden or cfg.d_model) > tiling.MAX_HIDDEN
+        return {"gru_scan_wide" if wide else "gru_scan": 2 * L}
+    if cfg.family == "audio":  # each encoder layer; a decoder layer's self and cross
+        return {"flash_attention": 2 * cfg.encoder_layers + 4 * L}
+    return {"flash_attention": 2 * L}
+
+
+def train_batch(cfg, B: int, S: int, seed: int, device) -> dict:
+    """A training batch drawn with numpy: tokens and labels, patches (vlm) or
+    frames (audio) beside them."""
+    from repro_torch.data.pipeline import to_device_batch
+    from repro_torch.models import model as lm
+
+    rng = np.random.default_rng(seed)
+    T = S - cfg.num_patches if cfg.family == "vlm" else S
+    batch = {k: rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32) for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patches"] = (rng.standard_normal((B, cfg.num_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    elif cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((B, lm.AUDIO_SRC_LEN, lm.AUDIO_FEAT)).astype(np.float32)
+    return to_device_batch(batch, device)
+
+
+def train_parity(params, batch, cfg, counters) -> dict:
+    """One forward and backward through the kernels (their op calls counted)
+    and through the plain versions: the loss's relative gap, each gradient
+    leaf's max |difference| over its largest magnitude (``grads``: path ->
+    gap; ``grad_gap``: the worst), the op calls."""
+    from repro_torch.launch.train_depth import leaf_paths, loss_and_grads, rel_gap
+
+    for fn in counters.values():
+        fn.launches = 0
+    loss_k, g_k = loss_and_grads(params, batch, cfg, False)
+    torch.cuda.synchronize()
+    calls = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    loss_r, g_r = loss_and_grads(params, batch, cfg, True)
+    paths = leaf_paths(params)
+    grads = {p: rel_gap(a, b) for p, a, b in zip(paths, g_k, g_r)}
+    return dict(loss=loss_r, loss_gap=abs(loss_k - loss_r) / abs(loss_r), grads=grads,
+                grad_gap=max(grads.values()), calls=calls, leaves=len(g_r))  # fmt: skip
+
+
+def train_run(argv: list[str], counters) -> tuple[dict, dict, float]:
+    """``launch/train.py``'s ``run`` on ``argv`` with a fresh --ckpt-dir, the
+    op counts set to 0 just before it and read just after: (its result, the
+    counts, peak device GB)."""
+    from repro_torch.launch import train as lm_train
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        args = lm_train.build_parser().parse_args([*argv, "--ckpt-dir", ckpt_dir])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        out = lm_train.run(args)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+    return dict(out, args=args), counts, torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_phases(dev, counters, results: dict, smi: str) -> None:
+    """The LM training phases: 8x [main train], 8y [train f32], 8z [main train
+    gru], 8z' [train smoke] and 8z'' [train chaos]."""
+    from repro_torch.configs import get_config, ported_archs
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM, to_device_batch
+    from repro_torch.models import model as lm
+    from repro_torch.tree import tree_map
+
+    def main_train(tag: str, argv: list[str], falls: bool) -> None:
+        name = f"main {tag}"
+        log(f"[{name}] python -m repro_torch.launch.train {' '.join(argv)}")
+        out, counts, peak_gb = train_run(argv, counters)
+        cfg, args, hist = out["cfg"], out["args"], out["history"]
+        per_step = train_kernel_calls(cfg)
+        want = {k: n * args.steps for k, n in per_step.items()}
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["t"] * 1e3 for h in hist]
+        ms = statistics.median(step_ms[1:])  # steps 2 on: the first builds and warms up
+        tokens = args.batch * args.seq
+        log(
+            f"[{name}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{tokens} tokens a step (B={args.batch}, S={args.seq}), {cfg.dtype}, remat "
+            f"{cfg.remat}; losses {', '.join(f'{x:.4f}' for x in losses)}; step ms "
+            f"{', '.join(f'{t:.1f}' for t in step_ms)}: median of steps 2-{args.steps} "
+            f"{ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s; peak device memory {peak_gb:.2f} "
+            f"GB; launches {dict((k, n) for k, n in counts.items() if n)} (expected {per_step} "
+            f"a step); {smi}"
+        )
+        check(counts == {**dict.fromkeys(counts, 0), **want},
+              f"the {tag} path launched {counts}, expected {want}")  # fmt: skip
+        check(len(losses) == args.steps and all(np.isfinite(losses)), f"{tag} losses finite")
+        if falls:
+            check(losses[-1] < losses[0], f"the {tag} loss falls: {losses[0]} -> {losses[-1]}")
+        results[tag] = dict(counts=want, per_step=per_step, ms_step=ms, first_ms=step_ms[0],
+                            tok_s=tokens / ms * 1e3, peak_gb=peak_gb, losses=losses,
+                            arch=cfg.name, tokens=tokens)  # fmt: skip
+
+    # -- 8x. zamba2-1.2b trained at full width and depth through the launcher --------
+    with Phase("main train"):
+        main_train("train", TRAIN_ARGS, falls=True)
+
+    # -- 8y. the same model and batch in float32: kernels against the plain versions -----
+    with Phase("train f32"):
+        cfg = get_config("zamba2-1.2b")
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)  # bf16 -> float32 is exact
+        del params
+        B, S = 4, 1024
+        pipe = SyntheticLM(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+        batch = to_device_batch(pipe.batch_at(0), dev)
+        torch.cuda.empty_cache()
+        r = train_parity(params32, batch, cfg32, counters)
+        torch.cuda.empty_cache()
+        log(f"[train f32] zamba2-1.2b float32 (the launcher's weights and first batch, B={B} "
+            f"S={S}), {cfg.num_layers} layers, one forward and backward, kernels against "
+            f"force_reference: loss {r['loss']:.6f}, relative gap {r['loss_gap']:.3e} (bound "
+            f"{TRAIN_LOSS_REL}); launches {r['calls']}. Gradient leaves, max |difference| over "
+            f"the leaf's largest magnitude (printed, not bounded, at this depth):")  # fmt: skip
+        for path in sorted(r["grads"], key=lambda p: -r["grads"][p]):
+            log(f"[train f32]   {path:32s} {r['grads'][path]:.3e}")
+        check(r["calls"] == train_kernel_calls(cfg), f"float32 step launched {r['calls']}")
+        check(r["loss_gap"] <= TRAIN_LOSS_REL, f"float32 training loss gap {r['loss_gap']:.3e}")
+        # the gradient bound on the first TRAIN_F32_LAYERS layers of the same weights
+        n = TRAIN_F32_LAYERS
+        cut_cfg = dataclasses.replace(cfg32, num_layers=n)
+        cut = {k: tree_map(lambda t: t[:n], v) if k == "layers" else v for k, v in params32.items()}
+        del params32
+        torch.cuda.empty_cache()
+        rc = train_parity(cut, batch, cut_cfg, counters)
+        worst = max(rc["grads"], key=rc["grads"].get)
+        log(f"[train f32] its first {n} layers ({lm.shared_applications(cut_cfg)} shared-block "
+            f"application): loss gap {rc['loss_gap']:.3e}; the worst of {rc['leaves']} gradient "
+            f"leaves {worst} {rc['grad_gap']:.3e} of its largest magnitude (bound "
+            f"{TRAIN_GRAD_REL}); launches {rc['calls']}")  # fmt: skip
+        check(rc["calls"] == train_kernel_calls(cut_cfg), f"float32 cut step launched {rc['calls']}")
+        check(rc["loss_gap"] <= TRAIN_LOSS_REL, f"float32 cut training loss gap {rc['loss_gap']:.3e}")
+        check(rc["grad_gap"] <= TRAIN_GRAD_REL, f"float32 gradient gap at {n} layers {rc['grad_gap']:.3e}")
+        results["train f32"] = dict(r, cut=rc)
+
+    # -- 8z. merinda-gru at full width: the wide scan under remat ----------------------
+    with Phase("main train gru"):
+        main_train("train gru", TRAIN_GRU_ARGS, falls=False)
+
+    # -- 8z'. every family's SMOKE model in float32: kernels against the plain versions --
+    with Phase("train smoke"):
+        smoke = {}
+        for arch in ported_archs():
+            s_cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+            s_params = lm.init_params(torch.Generator(device=dev).manual_seed(7), s_cfg)
+            r = train_parity(s_params, train_batch(s_cfg, *TRAIN_SMOKE, seed=97, device=dev),
+                             s_cfg, counters)  # fmt: skip
+            want = train_kernel_calls(s_cfg)
+            log(f"[train smoke] {arch} SMOKE float32 B={TRAIN_SMOKE[0]} S={TRAIN_SMOKE[1]}: loss "
+                f"{r['loss']:.5f}, gap {r['loss_gap']:.3e}; worst gradient leaf "
+                f"{r['grad_gap']:.3e} of its largest; launches {r['calls']}")  # fmt: skip
+            check(r["calls"] == want, f"{arch} SMOKE step launched {r['calls']}, expected {want}")
+            check(r["loss_gap"] <= TRAIN_LOSS_REL and r["grad_gap"] <= TRAIN_GRAD_REL,
+                  f"{arch} SMOKE training through the kernels: {r['loss_gap']:.3e}, "
+                  f"{r['grad_gap']:.3e}")  # fmt: skip
+            smoke[arch] = r
+        results["train smoke"] = smoke
+
+    # -- 8z''. the failure drill: a restart from the checkpoint, the same losses --------
+    with Phase("train chaos"):
+        drill, _, _ = train_run([*TRAIN_CHAOS_ARGS, "--chaos-step", str(TRAIN_CHAOS_STEP)], counters)
+        plain, _, _ = train_run(TRAIN_CHAOS_ARGS, counters)
+        got = [h["loss"] for h in drill["history"]]
+        want = [h["loss"] for h in plain["history"]]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        log(f"[train chaos] mamba2-130m SMOKE {' '.join(TRAIN_CHAOS_ARGS)} --chaos-step "
+            f"{TRAIN_CHAOS_STEP}: {drill['restarts']} restart, steps "
+            f"{[h['step'] for h in drill['history']]}; losses against the uninterrupted run's, "
+            f"worst relative gap {gap:.3e} (bound {CHAOS_REL})")  # fmt: skip
+        check(drill["restarts"] == 1 and plain["restarts"] == 0, "the drill restarts once")
+        check(len(got) == len(want) == drill["args"].steps, "the drill ran every step")
+        check(gap <= CHAOS_REL, f"the drill's losses against the uninterrupted run: {gap:.3e}")
+        results["train chaos"] = dict(gap=gap, restarts=drill["restarts"])
+
+
+def train_profile(dev, results: dict) -> None:
+    """One warm zamba2-1.2b training step of [main train] under the profiler:
+    wall, device busy, device activities and the operations that take the most."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM, to_device_batch
+    from repro_torch.launch import train as lm_train
+    from repro_torch.parallel import init_train_state, make_train_step
+
+    args = lm_train.build_parser().parse_args(TRAIN_ARGS)
+    cfg = get_config(args.arch, smoke=not args.full)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, dev)  # the launcher's
+    step_fn = make_train_step(cfg, ShapeConfig("cli", args.seq, args.batch, "train"), dev)
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, args.seq, args.batch))
+    state, m = step_fn(state, to_device_batch(pipe.batch_at(0), dev))  # warm
+    m["loss"].item()
+    batch = to_device_batch(pipe.batch_at(1), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del state
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(sum(v) for v in by_name.values())
+    n_dev = sum(len(v) for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    results["train"]["trace"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, activities=n_dev,
+                                     top=[(k[:80], sum(v), len(v)) for k, v in top])  # fmt: skip
+    log(f"[profile train] {cfg.name} B={args.batch} S={args.seq}, one warm step under the "
+        f"profiler: {wall_ms:.1f} ms wall, {n_dev} device activities, device busy {busy_ms:.1f} "
+        f"ms ({100 * busy_ms / wall_ms:.1f}% of the wall)")  # fmt: skip
+    for k, v in top:
+        log(f"[profile train]   {sum(v):9.3f} ms  {len(v):6d}x  {k[:80]}")
 
 
 def main() -> None:
@@ -3096,6 +3380,9 @@ def main() -> None:
         with Phase(f"main lm {tag}"):
             zoo_phase(tag)
 
+    # -- 8x-8z''. LM training: zamba2-1.2b, merinda-gru, the SMOKE zoo, the drill ------
+    train_phases(dev, counters, results, smi)
+
     hist = np.cumsum(np.random.default_rng(51).standard_normal((400, 3)).astype(np.float32) * 0.1,
                      axis=0)  # fmt: skip
 
@@ -3754,6 +4041,10 @@ def main() -> None:
             del a_params, cache, a_batch
             torch.cuda.empty_cache()
 
+    # -- 10c. one warm training step of zamba2-1.2b under the profiler -------------------
+    with Phase("train profile"):
+        train_profile(dev, results)
+
     with Phase("tick profile"):
         for kernel in ("banked",):
             svc = serve_service(kernel)
@@ -3811,13 +4102,14 @@ def main() -> None:
 
     lm_rows = [  # name, source, replaces, the main paths whose launches it reports, timed
         # shape, note
-        ("ssd_scan", "ssd_scan.cu", "ssd_scan/kernel.py:91", ("lm", "lm hybrid"), 4,
+        ("ssd_scan", "ssd_scan.cu", "ssd_scan/kernel.py:91", ("lm", "lm hybrid", "train"), 4,
          "no PyTorch call computes a chunked SSD scan"),
         # the attention LM paths: zamba2's shared block, qwen2.5-3b's and moonshot's
         # layers, mixtral's window, phi-3-vision's layers, seamless-m4t's encoder, decoder
         # and cross-attention; timed at the dense path's bootstrap prefill
         ("flash_attention", "flash_attention.cu", "flash_attention/kernel.py:104",
-         ("lm hybrid", "lm dense", "lm moe", *(f"lm {tag}" for tag in LM_ZOO)), LM_ATTN_SHAPES[2][0],
+         ("lm hybrid", "lm dense", "lm moe", *(f"lm {tag}" for tag in LM_ZOO), "train"),
+         LM_ATTN_SHAPES[2][0],
          "torch.nn.functional.scaled_dot_product_attention (enable_gqa=True, is_causal=True)"),
     ]  # fmt: skip
     lm_kernels = []
@@ -3931,8 +4223,10 @@ def main() -> None:
         "route": "cuda",
         "source": f"{REPO_PATH}/gru_scan_wide.cu",
         "replaces": f"{PALLAS}/gru_scan/kernel.py:107",
-        "launches": results["lm gru"]["launches"],
-        "main_path": "lm gru",
+        "launches": results["lm gru"]["launches"] + launches_on("train gru", "gru_scan_wide"),
+        "main_path": "lm gru, train gru",
+        "launches_by_path": {"lm gru": results["lm gru"]["launches"],
+                             "train gru": launches_on("train gru", "gru_scan_wide")},
         "max_abs_err": err["gru_scan_wide"],
         "ms": gw["ms"],
         "kernel_ms": gw["ms"],
@@ -4082,6 +4376,23 @@ def main() -> None:
             f"GB; float32: logits {r['e32_logits']:.3e}, teacher forcing {r['e32_tf']:.3e}; bf16: "
             f"logits {r['e_logits']:.3e}"
         )  # fmt: skip
+    for tag in ("train", "train gru"):
+        r = results[tag]
+        trace = r.get("trace")
+        busy = (f"; one warm step under the profiler {trace['wall_ms']:.1f} ms wall, device busy "
+                f"{trace['busy_ms']:.1f} ms, {trace['activities']} device activities") if trace else ""
+        log(f"[summary] {tag} ({r['arch']}, full width): {r['ms_step']:.1f} ms/step (the first "
+            f"{r['first_ms']:.1f}), {r['tok_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} GB, "
+            f"launches {r['per_step']} a step; loss {r['losses'][0]:.4f} -> "
+            f"{r['losses'][-1]:.4f}{busy}")  # fmt: skip
+    r = results["train f32"]
+    log(f"[summary] train f32 (zamba2-1.2b): loss gap {r['loss_gap']:.3e}; worst gradient leaf "
+        f"{r['grad_gap']:.3e} at 38 layers (printed), {r['cut']['grad_gap']:.3e} at "
+        f"{TRAIN_F32_LAYERS} (bounded); train smoke: worst loss gap "
+        f"{max(x['loss_gap'] for x in results['train smoke'].values()):.3e}, worst gradient leaf "
+        f"{max(x['grad_gap'] for x in results['train smoke'].values()):.3e} over "
+        f"{len(results['train smoke'])} archs; train chaos: {results['train chaos']['restarts']} "
+        f"restart, losses {results['train chaos']['gap']:.3e} from the uninterrupted run's")  # fmt: skip
     for label, *_ in LM_ATTN_SHAPES + LM_ZOO_SHAPES:
         t = lm_timed["flash_attention", label]
         log(f"[summary] flash_attention at {t['shape']}: {t['ms']:.4f} ms "

@@ -3,11 +3,12 @@
 The port's own copy of the JAX package's schema: ``SSMConfig``,
 ``AttentionConfig``, ``MoEConfig`` and ``ModelConfig`` with the same fields
 the model zoo reads, their defaults and derived sizes (``vocab_padded``,
-``ssm_heads``, ``d_inner``). Every architecture of the JAX package's zoo
-ships as ``repro_torch/configs/<id>.py`` exposing ``CONFIG`` (the published
-dimensions) and ``SMOKE`` (a reduced model of the same family for CPU
-tests); ``get_config`` resolves either, and names the ported architectures
-when asked for another.
+``ssm_heads``, ``d_inner``), and ``ShapeConfig`` with the JAX package's
+named shapes (``SHAPES``, ``get_shape``). Every architecture of the JAX
+package's zoo ships as ``repro_torch/configs/<id>.py`` exposing ``CONFIG``
+(the published dimensions) and ``SMOKE`` (a reduced model of the same family
+for CPU tests); ``get_config`` resolves either, and names the ported
+architectures when asked for another.
 """
 
 from __future__ import annotations
@@ -81,9 +82,11 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    remat: str = "full"  # the training forward's per-layer checkpoint: full | dots | none
     # the JAX package's blockwise-attention kv chunk: it sets only JAX's summation
     # order; the port's attention (flash_attention and its oracle) does not read it
     attn_chunk: int = 1024
+    logit_chunk: int = 0  # cross-entropy in sequence segments of this length (0: one)
 
     @property
     def vocab_padded(self) -> int:
@@ -101,6 +104,26 @@ class ModelConfig:
     def d_inner(self) -> int:
         assert self.ssm is not None
         return self.ssm_heads * self.ssm.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 def ported_archs() -> list[str]:

@@ -1,10 +1,11 @@
-"""GQA attention: prefill through the flash-attention kernel, decode caches
-(``repro/models/attention.py``).
+"""GQA attention: training and prefill through the flash-attention kernel,
+decode caches (``repro/models/attention.py``).
 
-The JAX package's prefill attention is a blockwise online softmax in pure
-jnp (``_blockwise_attn``), "the same algorithm as kernels/flash_attention"
-(its docstring). Here that function is ``kernels/flash_attention``
-``flash_attention`` in the model layout [B, S, H, Dh]: the hand-written kernel
+The JAX package's training and prefill attention is a blockwise online
+softmax in pure jnp (``_blockwise_attn``), "the same algorithm as
+kernels/flash_attention" (its docstring). Here that function is
+``kernels/flash_attention`` ``flash_attention`` in the model layout
+[B, S, H, Dh], its gradient the oracle's: the hand-written kernel
 (``csrc/flash_attention.cu``) on a CUDA tensor, its dense oracle on a CPU
 tensor or with ``force_reference``. The kernel's logical blocks divide S
 (``prefill_block``); they set only which key blocks a query block skips, and every

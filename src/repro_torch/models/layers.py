@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, embedding, LM head, the SwiGLU MLP
-(``repro/models/layers.py``).
+"""Shared building blocks: RMSNorm, embedding, LM head, cross-entropy, the
+SwiGLU MLP (``repro/models/layers.py``).
 
 The JAX package's sharding hints (``parallel/rules.constraint``,
 ``sp_gather``) are identities on one card, and the port drops them.
@@ -37,6 +37,41 @@ def lm_head_specs(d: int, vocab_padded: int, dtype: str):
 
 def lm_head(params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"]
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # [B, S, Vp]
+    labels: torch.Tensor,  # [B, S] integer; -1 = ignore
+    vocab_size: int,
+    chunk: int = 0,
+) -> torch.Tensor:
+    """Mean CE over the positions whose label is >= 0, in float32; the padded
+    vocabulary tail (columns >= ``vocab_size``) is set to -1e30 before the
+    logsumexp.
+
+    ``chunk`` > 0 that divides a longer sequence sums the loss over segments
+    of ``chunk`` positions (the JAX package's ``lax.map``: it bounds the
+    float32 working set of a long sequence), then divides once.
+    """
+
+    def ce(lg, lb):
+        lg = lg.to(torch.float32)
+        vp = lg.shape[-1]
+        if vp > vocab_size:
+            keep = torch.arange(vp, device=lg.device) < vocab_size
+            lg = torch.where(keep, lg, torch.tensor(-1e30, device=lg.device))
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, lb.clamp(min=0).long()[..., None])[..., 0]
+        valid = (lb >= 0).to(torch.float32)
+        return ((lse - gold) * valid).sum(), valid.sum()
+
+    S = logits.shape[1]
+    if chunk and S > chunk and S % chunk == 0:
+        parts = [ce(lg, lb) for lg, lb in zip(logits.split(chunk, 1), labels.split(chunk, 1))]
+        tot, cnt = (torch.stack(p).sum() for p in zip(*parts))
+    else:
+        tot, cnt = ce(logits, labels)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def mlp_specs(d: int, f: int, dtype: str):

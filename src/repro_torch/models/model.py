@@ -6,46 +6,68 @@ Entry points (functional; params is a nested dict of tensors):
 
     param_specs(cfg)                          -> tree of ParamSpec (no allocation)
     init_params(generator, cfg, device)       -> tree of tensors
+    train_loss(params, batch, cfg)            -> (loss, metrics)
     cache_specs(cfg, batch, cache_len)        -> tree of ParamSpec
     prefill(params, batch, cfg, cache_len)    -> (logits_last [B, Vp], cache)
     decode_step(params, cache, tokens, pos, cfg) -> (logits [B, Vp], cache)
+    input_specs(cfg, shape)                   -> dict of ParamSpec (a step's inputs)
 
 The JAX package scans one traced layer body over the stacked ``[L, ...]``
 parameters (``lax.scan``); here a Python loop walks the same stacked
 tensors. ``ssm`` layers are Mamba2 blocks (``models/mamba2.py``, the scan
 through ``ssd_scan``); ``gru`` layers (merinda-gru) are the paper's GRU-flow
 cell as a sequence mixer, then a SwiGLU MLP, the scan through
-``kernels/gru_scan`` ``gru_scan`` in prefill and in decode (one step from the
-cached state, dt = 1). ``hybrid`` (zamba2) is a Mamba2 stack with ONE
-weight-shared attention + SwiGLU block applied after every ``attn_period``
-layers (``_segment_bounds``). ``dense``, ``moe`` and ``vlm`` layers are
-attention + an FFN: SwiGLU, or for ``moe`` the dropless mixture of experts
-(``models/moe.py``, as the JAX package serves it); ``vlm`` prepends
-``batch["patches"]`` [B, num_patches, d_model] to the token embeddings.
-``audio`` (seamless-m4t) is an encoder-decoder: ``batch["frames"]`` [B,
-``AUDIO_SRC_LEN``, ``AUDIO_FEAT``] through a linear frontend and a
-non-causal encoder stack, then decoder layers of causal self-attention,
-cross-attention to the encoder output and SwiGLU; its cache holds each
-decoder layer's cross keys and values too. Every prefill attention,
-self or cross, runs ``kernels/flash_attention`` (``models/attention.py``), and
-so does every decode step's cross-attention; decode self-attention is a plain
-softmax over the KV cache, which ``pos`` indexes (RoPE and the cache write).
-``train_loss`` waits for the training slice.
+``kernels/gru_scan`` ``gru_scan`` in training, in prefill and in decode (one
+step from the cached state, dt = 1). ``hybrid`` (zamba2) is a Mamba2 stack
+with ONE weight-shared attention + SwiGLU block applied after every
+``attn_period`` layers (``_segment_bounds``). ``dense``, ``moe`` and ``vlm``
+layers are attention + an FFN: SwiGLU, or for ``moe`` the mixture of experts
+(``models/moe.py``: the dropless form in inference, as the JAX package
+serves it, the capacity dispatch and its load-balancing loss in training);
+``vlm`` prepends ``batch["patches"]`` [B, num_patches, d_model] to the token
+embeddings. ``audio`` (seamless-m4t) is an encoder-decoder:
+``batch["frames"]`` [B, ``AUDIO_SRC_LEN``, ``AUDIO_FEAT``] through a linear
+frontend and a non-causal encoder stack, then decoder layers of causal
+self-attention, cross-attention to the encoder output and SwiGLU; its cache
+holds each decoder layer's cross keys and values too. Every full-sequence
+attention, self or cross, in training and in prefill, runs
+``kernels/flash_attention`` (``models/attention.py``; the JAX package's
+training and prefill attention is its blockwise jnp loop), and so does every
+decode step's cross-attention; decode self-attention is a plain softmax over
+the KV cache, which ``pos`` indexes (RoPE and the cache write).
+
+Training (``train_loss``: teacher-forced cross-entropy, plus 0.01 times the
+MoE layers' summed load-balancing loss) walks each stack under
+``cfg.remat``, as the JAX package's ``_scan_stack``: ``"full"``
+checkpoints each layer step (its forward runs again in the backward, so a
+layer's kernel is launched twice a step), ``"dots"`` keeps the products of
+two matrices (``aten.mm``) and recomputes the rest, ``"none"`` keeps every
+activation. The hybrid's shared block runs outside the checkpoint, as in
+the JAX package. Each kernel's gradient is its plain version's
+(``kernels/runtime.reference_vjp``), as the JAX package differentiates its
+references.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.neural_flow import GRUParams
 from repro_torch.kernels.gru_scan.ops import gru_scan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
+    cross_entropy,
     embed,
     embed_specs,
     lm_head,
@@ -261,17 +283,20 @@ def _attn_block_decode(bp: dict, x: torch.Tensor, pos: int, kv: dict, cfg: Model
     return x + _ffn(bp, x, cfg)
 
 
-def _encode_audio(params, frames: torch.Tensor, cfg: ModelConfig, force_reference: bool):
+def _encode_audio(params, frames: torch.Tensor, cfg: ModelConfig, force_reference: bool,
+                  train: bool = False):  # fmt: skip
     """frames [B, Sk, AUDIO_FEAT] -> the encoder output [B, Sk, d_model]: the
-    frontend's projection, then non-causal attention + SwiGLU layers and
-    ``enc_norm``."""
+    frontend's projection, then non-causal attention + SwiGLU layers (each
+    under ``cfg.remat`` when ``train``) and ``enc_norm``."""
     x = frames.to(params["frontend"]["w"].dtype) @ params["frontend"]["w"]
     positions = torch.arange(frames.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
+
+    def body(lp, x):
         x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
                                    cfg.attn, causal=False, force_reference=force_reference)  # fmt: skip
-        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps)), None
+
+    x, _ = _scan_stack(_unstack(params["enc_layers"]), x, body, cfg, train)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -299,6 +324,162 @@ def _stack(caches: list[dict]) -> dict:
 def _mamba_segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
     """The Mamba2 layers in segments, each followed by the shared block or not."""
     return _segment_bounds(cfg) if cfg.family == "hybrid" else [(0, cfg.num_layers, False)]
+
+
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy (JAX's ``checkpoint_dots_with_no_batch_dims``):
+    keep every product of two matrices, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``"full"`` recomputes its forward in the
+    backward, ``"dots"`` keeps its matrix products, ``"none"`` keeps it all."""
+    if cfg.remat == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)  # the layers draw no random numbers
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}: full | dots | none")
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def _unstack(stacked: dict) -> list[dict]:
+    """Each layer's parameters of a stacked tree, every leaf unbound once.
+
+    Under autograd one ``unbind`` a leaf has one backward, a ``stack`` of the
+    layers' gradients; indexing the leaf a layer (``_layer``) would give every
+    layer's backward a zero-filled copy of the whole leaf (38 copies of
+    zamba2's 0.64 GB bf16 ``wx`` a step)."""
+    parts = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0) for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _scan_stack(layers: list[dict], x: torch.Tensor, body, cfg: ModelConfig, remat: bool = True):
+    """Run x through each layer's parameters, ``body(lp, x) -> (x, aux)`` a
+    layer step (aux None where the layer has none), under ``cfg.remat``
+    (``remat=False``: as it is); returns (x, the auxes' sum or None)."""
+    step = _remat(body, cfg) if remat else body
+    total = None
+    for lp in layers:
+        x, aux = step(lp, x)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return x, total
+
+
+def _dense_layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                     force_reference: bool):  # fmt: skip
+    """An attention + FFN layer over the whole sequence (the ``hybrid``'s shared
+    block too): (x after it, the MoE load-balancing loss or None). The attention
+    runs ``flash_attention`` (``force_reference``: its oracle); the ``moe``
+    FFN is the capacity dispatch (``dropless=False``), as the JAX package
+    trains it."""
+    x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+                               cfg.attn, force_reference=force_reference)  # fmt: skip
+    h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        h, aux = moe_mod.moe_ffn(lp["moe"], h, cfg.moe, dropless=False)
+        return x + h, aux
+    return x + mlp(lp["mlp"], h), None
+
+
+def _ssm_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, force_reference: bool):
+    h = mamba_mod.mamba_forward(lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
+                                force_reference)  # fmt: skip
+    return x + h
+
+
+def _gru_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, force_reference: bool):
+    """A ``gru`` layer from h0 = 0: its scan through ``gru_scan`` (the JAX
+    package calls ``gru_scan_ref`` here; the port's counterpart is the op)."""
+    h0 = torch.zeros(x.shape[0], cfg.gru_hidden or cfg.d_model, device=x.device)
+    return _gru_layer(lp, x, h0, cfg, force_reference)[0]
+
+
+def _backbone(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+              force_reference: bool):  # fmt: skip
+    """Token (and patch) embeddings -> the final hidden states: (x, moe_aux or
+    None)."""
+    layers = _unstack(params["layers"])
+    if cfg.family in ATTN_FAMILIES:
+        body = lambda lp, x: _dense_layer_fwd(lp, x, positions, cfg, force_reference)
+        return _scan_stack(layers, x, body, cfg)
+    if cfg.family == "gru":
+        body = lambda lp, x: (_gru_layer_fwd(lp, x, cfg, force_reference), None)
+        return _scan_stack(layers, x, body, cfg)
+    body = lambda lp, x: (_ssm_layer_fwd(lp, x, cfg, force_reference), None)
+    for lo, hi, with_attn in _mamba_segments(cfg):
+        x, _ = _scan_stack(layers[lo:hi], x, body, cfg)
+        if with_attn:  # the shared block runs outside the checkpoint, as in the JAX package
+            x, _ = _dense_layer_fwd(params["shared_attn"], x, positions, cfg, force_reference)
+    return x, None
+
+
+def _decoder_audio(params, x: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, force_reference: bool) -> torch.Tensor:  # fmt: skip
+    """The ``audio`` decoder stack over the whole sequence: each layer's
+    self-attention, cross-attention to ``enc_out`` and SwiGLU under one
+    checkpoint."""
+
+    def body(lp, x):
+        x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+                                   cfg.attn, force_reference=force_reference)  # fmt: skip
+        ckv = attn_mod.cross_kv(lp["cross"], enc_out, cfg.attn)
+        return _cross_block(lp, x, ckv, cfg, force_reference), None
+
+    return _scan_stack(_unstack(params["layers"]), x, body, cfg)[0]
+
+
+def train_loss(params, batch: dict, cfg: ModelConfig, force_reference: bool = False):
+    """Teacher-forced CE (+ 0.01 x the MoE load-balancing loss). ``batch``:
+    ``tokens`` and ``labels`` [B, S] (-1: no label), ``patches`` (``vlm``,
+    whose positions get label -1) or ``frames`` (``audio``). Returns (loss,
+    {"ce", "moe_aux"}), float32 scalars. ``force_reference`` runs every
+    kernel's plain version."""
+    _check_family(cfg)
+    x, positions = _assemble_inputs(params, batch, cfg)
+    if cfg.family == "audio":
+        enc_out = _encode_audio(params, batch["frames"], cfg, force_reference, train=True)
+        x, moe_aux = _decoder_audio(params, x, enc_out, positions, cfg, force_reference), None
+    else:
+        x, moe_aux = _backbone(params, x, positions, cfg, force_reference)
+    if moe_aux is None:
+        moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = _logits(params, x, cfg)
+    labels = batch["labels"]
+    if cfg.family == "vlm":  # patch positions carry no labels
+        pad = torch.full((labels.shape[0], cfg.num_patches), -1, dtype=labels.dtype,
+                         device=labels.device)  # fmt: skip
+        labels = torch.cat([pad, labels], dim=1)
+    ce = cross_entropy(logits, labels, cfg.vocab_size, chunk=cfg.logit_chunk)
+    return ce + 0.01 * moe_aux, {"ce": ce, "moe_aux": moe_aux}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Shape stand-ins (ParamSpec) for every input of a step of ``shape.mode``."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = lambda b, s: ParamSpec((b, s), ("batch", "seq"), dtype="int32", init="zeros")
+    if shape.mode == "decode":
+        return {"tokens": tok(B, 1), "pos": ParamSpec((), (), dtype="int32", init="zeros"),
+                "cache": cache_specs(cfg, B, S)}  # fmt: skip
+    labels = shape.mode == "train"
+    text = S - cfg.num_patches if cfg.family == "vlm" else S
+    specs = {"tokens": tok(B, text)}
+    if labels:
+        specs["labels"] = tok(B, text)
+    if cfg.family == "vlm":
+        specs["patches"] = ParamSpec((B, cfg.num_patches, cfg.d_model),
+                                     ("batch", None, "act_embed"), dtype=cfg.dtype)  # fmt: skip
+    elif cfg.family == "audio":
+        specs["frames"] = ParamSpec((B, AUDIO_SRC_LEN, AUDIO_FEAT), ("batch", None, None),
+                                    dtype="float32")  # fmt: skip
+    return specs
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, cache_len: int, force_reference: bool = False):

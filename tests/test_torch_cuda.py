@@ -53,6 +53,13 @@ of 256 and of 1 query against them), and those four families' SMOKE models
 through the kernels within 1e-4 of ``force_reference``, with their launch
 counts.
 
+LM training (``models/model.py`` ``train_loss`` under ``remat="full"``): every
+architecture's SMOKE model in float32, one forward and backward through the
+kernels against ``force_reference``: the loss within 1e-5 of itself and every
+gradient leaf within 1e-3 of its largest magnitude, with the kernels' op calls
+of the step exactly (a checkpointed layer's kernel twice: forward and
+recompute; the hybrid's shared block once an application).
+
 Plan analysis: ``mr_step_ltc`` and ``mr_step_node`` built with their substep
 loop unrolled 2 and 6 times (``launch/kernel_phases.py``'s patches) equal the
 loop at 1 bit for bit, and the kernels, built for 1 only, refuse another
@@ -124,6 +131,7 @@ from repro_torch.kernels.mr_step.tick import mr_tick, mr_tick_cuda, mr_tick_int8
 from repro_torch.optim import adamw_init
 from repro_torch.tree import tree_leaves, tree_stack, tree_unflatten
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ported_archs as lm_archs
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_cuda
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -1873,3 +1881,53 @@ def test_measured_tune_on_the_card(dev, tmp_path, monkeypatch):
     assert low.measured_bytes == report.chosen.parsed_bytes
     assert low.substep_unroll == report.chosen.candidate.substep_unroll
     assert tuner.tune(spec, device=dev).n_lowered == 0
+
+
+# --- LM training through the kernels ------------------------------------------------
+def _train_calls(cfg) -> dict[str, int]:
+    """Op calls of one training step under remat="full"."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"ssd_scan": 2 * L}
+    if cfg.family == "hybrid":
+        return {"ssd_scan": 2 * L, "flash_attention": lm.shared_applications(cfg)}
+    if cfg.family == "gru":
+        return {"gru_scan_wide" if cfg.gru_hidden > tiling.MAX_HIDDEN else "gru_scan": 2 * L}
+    if cfg.family == "audio":
+        return {"flash_attention": 2 * cfg.encoder_layers + 4 * L}
+    return {"flash_attention": 2 * L}
+
+
+def _train_loss_and_grads(params, batch, cfg, force_reference):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = lm.train_loss(tree_unflatten(params, leaves), batch, cfg, force_reference)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("arch", sorted(lm_archs()))
+def test_training_through_the_kernels_matches_the_reference(dev, arch):
+    from repro_torch.data.pipeline import to_device_batch
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(11), cfg)
+    rng = np.random.default_rng(12)
+    T = 32 - cfg.num_patches if cfg.family == "vlm" else 32
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, T)).astype(np.int32) for k in ("tokens", "labels")}
+    batch["labels"][0, :3] = -1
+    if cfg.family == "vlm":
+        batch["patches"] = (rng.standard_normal((2, cfg.num_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((2, lm.AUDIO_SRC_LEN, lm.AUDIO_FEAT)).astype(np.float32)
+    batch = to_device_batch(batch, dev)
+    counters = {"ssd_scan": ssd_scan_cuda, "flash_attention": flash_attention_cuda,
+                "gru_scan": gru_scan_cuda, "gru_scan_wide": gru_scan_wide_cuda}  # fmt: skip
+    for fn in counters.values():
+        fn.launches = 0
+    loss, grads = _train_loss_and_grads(params, batch, cfg, False)
+    torch.cuda.synchronize()
+    calls = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    want, want_grads = _train_loss_and_grads(params, batch, cfg, True)
+    assert calls == _train_calls(cfg)
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    for g, w in zip(grads, want_grads):
+        assert (g - w).abs().max().item() <= 1e-3 * w.abs().max().item()
